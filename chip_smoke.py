@@ -5,22 +5,32 @@
 
 Phases, in order; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit) and torch/CUDA/nvcc versions;
-  2. build the CUDA kernels from hala_tpu_torch/csrc (timed);
+  2. build the CUDA kernels from hala_tpu_torch/csrc, one nvcc per
+     source started together (timed);
   3. each kernel against its plain PyTorch version on the card — the
      brute-force kernel (K1) on the Cornell box and on a multi-chunk
      triangle soup with a ragged ray count, the cluster-traversal kernel
      (K2) on assets/atrium_big.glb against its plain version and against
-     K1, closest and any hit — then 32x32 / 24x24 golden renders held
+     K1, closest and any hit, the tile-segment raster kernel (K3) on
+     atrium_big at 1920x1088 (tile 64, bench camera) against its plain
+     version and at 256x256 against the full-scan `rasterize`, bit for
+     bit — then the golden renders (path tracer and rasterizer) held
      against tests/fixtures (RMSE < 1e-3);
   4. Cornell 512x512, depth 4, 16 frames through RayTracingRenderer
      (must go through K1 only);
   5. atrium_big at 1920x1088, depth 4, 1 spp, 4 frames (must use K2);
      each renderer first runs one untimed warm-up frame on a film it
      then discards;
-  6. save_images and a finiteness check of the PFMs.
-Phases 4-5 are the main path: launch counts are zeroed just before it
-and read just after. bench.py's invariants (film mean band, rays above
-1.2x camera rays) must hold for both renders.
+  6. bench.py's raster cells through RasterizationRenderer with the
+     ACES post program: raster_atrium (atrium_big 1920x1088, binned,
+     tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
+     plain per-tile path, no K3), each one warm-up frame then timed
+     frames, and a torch.profiler window over raster_atrium frames;
+  7. save_images and a finiteness check of the PFMs.
+Phases 4-6 are the main path: launch counts are zeroed just before each
+render and read just after. bench.py's invariants (film or image mean
+band; for the path tracer, rays above 1.2x camera rays) must hold for
+every render.
 
 The second-to-last stdout line is the per-kernel JSON record; the last
 is {"ok": true, "device": {...}}. Without CUDA the script exits 2
@@ -40,6 +50,21 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 T_TOL = 1e-5  # rtol for t/u/v and the near-tie band for triangle ids
+# Published H100 SXM peaks: fp32 outside the tensor cores, HBM3 rate.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations (an FMA counts two) per pair, read off the kernels:
+# Moller-Trumbore ray x triangle (csrc/intersect_bruteforce.cu) 44 plus
+# the reciprocal; the conservative slab test of a ray x cluster box
+# (csrc/matrix_traverse.cu) 3 axes x 8 plus 8 to combine and widen;
+# a raster candidate x pixel (csrc/raster_tiled.cu): the three edge
+# functions 15 and their sign products 3 on every pair, then the
+# barycentrics 3 and the depth 5 only where the pixel is inside.
+OPS_MT = 45
+OPS_SLAB = 32
+OPS_RASTER_EDGE = 18
+OPS_RASTER_INSIDE = 8
+RASTER_FRAMES = {"raster_atrium": 10, "raster": 10}
 JAX_TPU_REFERENCE = {  # (film mean, rays per primary) of the JAX package
     "cornell": (0.6949, 5.46),
     "sponza": (0.4850, 6.49),
@@ -55,6 +80,14 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def bound(ops: float, nbytes: float) -> tuple[float, str]:
+    """Least time in ms for `ops` fp32 operations and `nbytes` bytes on
+    the published peaks, and which of the two bounds it."""
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -211,7 +244,12 @@ def check_k1(dev_scene, soup_scene, n_rays: int, ragged: int, reps: int):
                                  f"({int((ok != op).sum())} rays)")
         log(f"  K1 {label} any-hit: equal ({int(ok.sum())} blocked)")
         if label == "cornell":
+            live = int((tm > 1e-4).sum())
+            n = o.shape[0]
+            b_ms, b_by = bound(live * num_real * OPS_MT,
+                               n * 44 + num_real * 36)
             rec = dict(
+                bound_ms=b_ms, bound_by=b_by,
                 max_abs_err=err,
                 ms=cuda_ms(lambda: k1.intersect_pallas(
                     *args, t_max=tm, num_real=num_real), reps),
@@ -222,7 +260,8 @@ def check_k1(dev_scene, soup_scene, n_rays: int, ragged: int, reps: int):
         else:
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
     log(f"  K1 cornell N={rec['rays']}: kernel {rec['ms']:.3f} ms, "
-        f"plain {rec['plain_ms']:.3f} ms")
+        f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
     return rec
 
 
@@ -250,7 +289,25 @@ def check_k2(dev_scene, n_cam_w: int, n_cam_h: int, n_rand: int, reps: int):
             raise AssertionError(f"K2 any-hit disagrees with {label} "
                                  f"({int((ok != other).sum())} rays)")
     log(f"  K2 any-hit: equal to plain and K1 ({int(ok.sum())} blocked)")
+    # The work these inputs need: every ray's slab test against every
+    # cluster box, and Moller-Trumbore on the real triangles (padding
+    # slots left out) of each cluster the ray enters before its closest
+    # hit (any exact cluster walk must test those).
+    t_end = torch.where(hk.tri >= 0, hk.t, tm)
+    c = g.cluster_min.shape[0]
+    real = (g.tri_mat >= 0).view(c, k2.TRI_CHUNK).sum(dim=1)
+    live = live_tris = 0
+    for c0 in range(0, c, 64):
+        hit = k2.slab_live(o, d, g.cluster_min[c0:c0 + 64],
+                           g.cluster_max[c0:c0 + 64], t_end)
+        live += int(hit.sum())
+        live_tris += int((hit.long() * real[None, c0:c0 + 64]).sum())
+    b_ms, b_by = bound(
+        n * c * OPS_SLAB + live_tris * OPS_MT,
+        n * 44 + c * 24 + g.tri_packed.numel() * 4,
+    )
     rec = dict(
+        bound_ms=b_ms, bound_by=b_by, live_pairs=live, live_tris=live_tris,
         max_abs_err=err,
         ms=cuda_ms(lambda: k2.intersect_matrix(o, d, g, t_max=tm), reps),
         plain_ms=cuda_ms(lambda: k2.intersect_matrix_plain(o, d, g, t_max=tm), 1),
@@ -261,8 +318,171 @@ def check_k2(dev_scene, n_cam_w: int, n_cam_h: int, n_rand: int, reps: int):
     )
     log(f"  K2 atrium_big N={n}: kernel {rec['ms']:.3f} ms (any-hit "
         f"{rec['anyhit_ms']:.3f} ms), plain {rec['plain_ms']:.3f} ms, "
-        f"K1 on all {g.tri_v0.shape[0]} slots {rec['k1_ms']:.3f} ms")
+        f"K1 on all {g.tri_v0.shape[0]} slots {rec['k1_ms']:.3f} ms; "
+        f"{live} (ray, cluster) pairs entered before the hit, holding "
+        f"{live_tris} real triangles; bound {rec['bound_ms']:.4f} ms "
+        f"({rec['bound_by']})")
     return rec
+
+
+def raster_inputs(dev_scene, width: int, height: int, tile: int):
+    """Screen-space triangles of the scene's first camera (the bench
+    camera), as RasterizationRenderer sets them up."""
+    from hala_tpu_torch.models.rz_renderer import RasterSettings, _raster_setup
+
+    settings = RasterSettings(width, height, binned=True, tile=tile)
+    screen, depth, inv_w, valid, _ = _raster_setup(dev_scene, 0, settings)
+    return screen, depth, inv_w, valid
+
+
+def equal_planes(name: str, a, b) -> None:
+    """Raise unless every plane of a and b is equal bit for bit."""
+    import torch
+
+    for label, x, y in zip(("depth", "tri", "uw", "vw", "iw"), a, b):
+        same = torch.equal(x.view(torch.int32), y.view(torch.int32))
+        if not same:
+            bad = int((x.view(torch.int32) != y.view(torch.int32)).sum())
+            raise AssertionError(f"{name}: {label} differs in {bad} pixels")
+
+
+def inside_pairs(seg) -> int:
+    """The (candidate, pixel) pairs of every tile's segment whose pixel
+    lies inside the candidate, by the kernel's edge functions, walked
+    as the plain version walks the segments."""
+    import torch
+
+    from hala_tpu_torch.ops import raster as rr
+    from hala_tpu_torch.ops import raster_kernel as k3
+
+    starts, data, tile = seg.starts, seg.data, seg.tile
+    dev = data.device
+    n_tiles = starts.shape[0] - 1
+    n_pix = tile * tile
+    seg0 = starts[:-1].long()
+    seg_len = (starts[1:] - starts[:-1]).long()
+    px, py = rr.tile_pixels(n_tiles, seg.tw, tile, dev)
+    px, py = px[..., None], py[..., None]
+    j = torch.arange(k3.CAND_CHUNK, device=dev)
+    last = max(data.shape[0] - 1, 0)
+    step = max(1, rr._BLOCK_ELEMS // (n_pix * k3.CAND_CHUNK))
+    total = torch.zeros((), dtype=torch.int64, device=dev)
+    for b0 in range(0, n_tiles, step):
+        b1 = min(n_tiles, b0 + step)
+        for k0 in range(0, int(seg_len[b0:b1].max()), k3.CAND_CHUNK):
+            col = k0 + j[None]
+            ok = col < seg_len[b0:b1, None]
+            rows = data[torch.clamp(seg0[b0:b1, None] + col, max=last)]
+            x0, y0, x1, y1, x2, y2 = (rows[:, None, :, k] for k in range(6))
+            sgn = rows[:, None, :, rr._SGN]
+            inside = ok[:, None, :]
+            for ex, ey, ax, ay in ((x2 - x1, y2 - y1, x1, y1),
+                                   (x0 - x2, y0 - y2, x2, y2),
+                                   (x1 - x0, y1 - y0, x0, y0)):
+                w_e = rr.edge(ex, ey, px[b0:b1] - ax, py[b0:b1] - ay)
+                inside = inside & (w_e * sgn >= 0.0)
+            total += inside.sum()
+    return int(total)
+
+
+def check_k3(dev_scene, reps: int, w: int = 1920, h: int = 1088,
+             small: int = 256):
+    """K3 (csrc/raster_tiled.cu) vs its plain version at the bench
+    shape, and the exact path vs the full scan at small x small."""
+    import torch
+
+    from hala_tpu_torch.ops import raster as rr
+    from hala_tpu_torch.ops import raster_kernel as k3
+
+    tile = 64
+    tris = raster_inputs(dev_scene, w, h, tile)
+    seg = k3.build_segments(*tris, w, h, tile)
+    args = (seg.starts, seg.data, seg.tw, seg.tile)
+    pk = k3.raster_segments(*args)
+    pp = k3.raster_segments_plain(*args)
+    torch.cuda.synchronize()
+    equal_planes(f"K3 vs plain {w}x{h}", pk, pp)
+    fk = k3.segments_to_fragments(pk, seg, w, h)
+    fp = k3.segments_to_fragments(pp, seg, w, h)
+    for label in ("u", "v"):
+        if not torch.equal(getattr(fk, label), getattr(fp, label)):
+            raise AssertionError(f"K3 vs plain: {label} differs")
+    if float(seg.over) != 0.0:
+        raise AssertionError("K3: a static selection bound overflowed")
+    seg_len = (seg.starts[1:] - seg.starts[:-1]).long()
+    n_real = int(seg.n_real)
+    n_tiles = seg_len.shape[0]
+    n_pix = tile * tile
+    covered = float((fk.tri >= 0).float().mean())
+    log(f"  K3 vs plain {w}x{h} tile {tile}: depth, tri, uw, vw, iw, u, v "
+        f"equal bit for bit; overflow 0; n_real {n_real} (tile, candidate) "
+        f"pairs, longest segment {int(seg_len.max())}, median "
+        f"{int(seg_len.median())}, {n_tiles} tiles; {covered:.3f} of pixels "
+        f"covered")
+
+    s2 = raster_inputs(dev_scene, small, small, tile)
+    f_exact, over2 = k3.rasterize_tiled_exact(*s2, small, small, tile=tile)
+    pix = torch.arange(small * small, device=s2[0].device)
+    px = (pix % small).float() + 0.5
+    py = (pix // small).float() + 0.5
+    f_full = rr.rasterize(*s2, px, py, chunk=128)
+    torch.cuda.synchronize()
+    for label in ("depth", "tri", "u", "v"):
+        x, y = getattr(f_exact, label), getattr(f_full, label)
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"K3 vs full scan {small}x{small}: {label} differs")
+    if float(over2) != 0.0:
+        raise AssertionError(f"K3 {small}x{small}: overflow")
+    log(f"  K3 {small}x{small} vs full-scan rasterize: depth, tri, u, v "
+        "equal bit for bit")
+
+    n_inside = inside_pairs(seg)
+    b_ms, b_by = bound(
+        n_real * n_pix * OPS_RASTER_EDGE + n_inside * OPS_RASTER_INSIDE,
+        n_real * k3.ROW_WIDTH * 4 + (n_tiles + 1) * 4 + 5 * n_tiles * n_pix * 4,
+    )
+    err = max(  # over depth, uw, vw and iw (the tri plane is held equal)
+        float((pk[i].double() - pp[i].double()).abs().max())
+        for i in (0, 2, 3, 4)
+    )
+    rec = dict(
+        max_abs_err=err, n_inside=n_inside,
+        ms=cuda_ms(lambda: k3.raster_segments(*args), reps),
+        plain_ms=cuda_ms(lambda: k3.raster_segments_plain(*args), 1),
+        glue_ms=cuda_ms(lambda: k3.build_segments(*tris, w, h, tile), reps),
+        bound_ms=b_ms, bound_by=b_by, n_real=n_real,
+        longest=int(seg_len.max()), tiles=n_tiles,
+    )
+    log(f"  K3 {w}x{h}: kernel {rec['ms']:.3f} ms, plain "
+        f"{rec['plain_ms']:.1f} ms, glue (binning + table) "
+        f"{rec['glue_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{n_real * n_pix} (candidate, pixel) pairs, {n_inside} inside)")
+    return rec
+
+
+def golden_raster(device) -> None:
+    """The raster goldens of tests/test_golden.py through the port."""
+    from hala_tpu_torch.models.rz_renderer import RasterizationRenderer
+    from hala_tpu_torch.scene.cpu.scene import Scene
+    from hala_tpu_torch.scene.procedural import cornell_box
+
+    cases = (
+        ("raster", cornell_box(), dict(chunk=128)),
+        ("raster_atrium", Scene.load(os.path.join(HERE, "assets", "atrium.glb")),
+         dict(binned=True, tile=16)),
+    )
+    for name, host, kw in cases:
+        r = RasterizationRenderer("golden_" + name, 48, 48, device=device, **kw)
+        r.set_scene(host)
+        r.commit()
+        r.update()
+        img = r.get_final_image()
+        with np.load(os.path.join(HERE, "tests", "fixtures",
+                                  f"golden_{name}.npz")) as z:
+            rmse = float(np.sqrt(np.mean((img - z["color"]) ** 2)))
+        log(f"  golden_{name} color: RMSE {rmse:.3g}")
+        if not rmse < 1e-3:
+            raise AssertionError(f"golden_{name}: RMSE {rmse}")
 
 
 def golden_renders(device) -> None:
@@ -335,6 +555,113 @@ def run_render(r, frames: int, k: int, name: str, card: str):
     return out
 
 
+def post_program():
+    """bench.py's post pass: simple ACES as a ComputeProgram."""
+    from hala_tpu_torch.programs import ComputeProgram, ComputeProgramDesc
+
+    return ComputeProgram(ComputeProgramDesc(
+        shader_file_path="hala_tpu_torch.ops.tonemap:tonemap_aces_simple"))
+
+
+def run_raster(r, name: str, card: str):
+    """bench.py's raster timing: one warm-up frame, then timed frames
+    ending in a synchronize; the band is checked on the mean of the
+    post-processed color."""
+    import torch
+
+    from bench import check_invariants
+
+    r.commit()
+    r.update()
+    torch.cuda.synchronize()
+    frames = RASTER_FRAMES[name]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(frames):
+        r.update()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    img = r.color
+    if img.shape != (r.info.height, r.info.width, 3) or not bool(
+            torch.isfinite(img).all()):
+        raise AssertionError(f"{name}: bad image {tuple(img.shape)}")
+    mean = float(img[..., :3].mean())
+    check_invariants(name, mean)
+    out = dict(mean=mean, ms_per_frame=dt / frames * 1e3, frames=frames,
+               peak_bytes=peak)
+    log(f"  {name} {r.info.width}x{r.info.height}: image mean {mean:.4f}, "
+        f"{out['ms_per_frame']:.2f} ms/frame over {frames} frames [{card}]; "
+        f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+    return out
+
+
+def raster_stages(r, reps: int, card: str):
+    """Device time of each stage of one raster_atrium frame, each stage
+    run alone on the renderer's scene with CUDA events: vertex setup,
+    binning glue, K3, untile + divide, shading, post pass."""
+    from hala_tpu_torch.models.rz_renderer import _raster_setup, _shade
+    from hala_tpu_torch.ops import raster_kernel as k3
+
+    st = r.settings
+    w, h = st.width, st.height
+    tris = _raster_setup(r.scene, 0, st)[:4]
+    seg = k3.build_segments(*tris, w, h, st.tile)
+    args = (seg.starts, seg.data, seg.tw, seg.tile)
+    planes = k3.raster_segments(*args)
+    frag = k3.segments_to_fragments(planes, seg, w, h)
+    cam = r.scene.cameras.position[0]
+    color = _shade(r.scene, frag, cam)[0].reshape(h, w, 3)
+    stages = {
+        "vertex setup": lambda: _raster_setup(r.scene, 0, st),
+        "binning glue": lambda: k3.build_segments(*tris, w, h, st.tile),
+        "K3": lambda: k3.raster_segments(*args),
+        "untile + divide": lambda: k3.segments_to_fragments(planes, seg, w, h),
+        "shade": lambda: _shade(r.scene, frag, cam),
+        "post": lambda: r.post_program.dispatch(color),
+    }
+    out = {name: cuda_ms(fn, reps) for name, fn in stages.items()}
+    log("  raster_atrium stages, device ms alone [" + card + "]: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+        + f"; sum {sum(out.values()):.3f}")
+    return out
+
+
+def profile_raster(r, frames: int, wall_ms: float, card: str):
+    """torch.profiler over `frames` warm frames: device time by kernel
+    (kernel events only), and the busy share of the unprofiled frame
+    time `wall_ms`."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            r.update()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        if not str(ev.device_type).endswith("CUDA"):
+            continue  # host ops: their device time is their kernels'
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3 / frames, ev.count / frames, ev.key))
+    rows.sort(reverse=True)
+    busy = sum(ms for ms, _, _ in rows)
+    launches = sum(c for _, c, _ in rows)
+    log(f"  profile raster_atrium, {frames} frames: kernels {busy:.3f} ms and "
+        f"{launches:.0f} launches per frame; busy share of the unprofiled "
+        f"{wall_ms:.2f} ms/frame: {busy / wall_ms:.3f} [{card}]")
+    for ms, count, key in rows[:12]:
+        log(f"    {ms:9.3f} ms/frame  {count:7.1f}/frame  {key[:90]}")
+    return dict(busy_ms=busy, kernels_per_frame=launches,
+                busy_share=busy / wall_ms,
+                top=[dict(ms=ms, per_frame=c, kernel=k[:120])
+                     for ms, c, k in rows[:12]])
+
+
 def main() -> int:
     import torch
 
@@ -345,6 +672,7 @@ def main() -> int:
     sys.path.insert(0, HERE)
     from hala_tpu_torch.ops import cuda_lib
     from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.models.rz_renderer import RasterizationRenderer
     from hala_tpu_torch.scene.cpu.scene import Scene
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
     from hala_tpu_torch.scene.procedural import cornell_box, random_triangle_soup
@@ -374,9 +702,12 @@ def main() -> int:
     big_dev = SceneUploader.upload(big_host, device=dev)
     k1_rec = check_k1(cornell_dev, soup_dev, 2 * 512 * 512, 77, reps=20)
     k2_rec = check_k2(big_dev, 256, 128, 32768, reps=3)
+    k3_rec = check_k3(big_dev, reps=10)
+    del big_dev
     golden_renders(dev)
+    golden_raster(dev)
 
-    log("== phases 4-5: the main path")
+    log("== phases 4-6: the main path")
     cornell = RayTracingRenderer("cornell", 512, 512, max_depth=4, rr_depth=2,
                                  device="cuda")
     cornell.set_scene(cornell_box())
@@ -391,18 +722,43 @@ def main() -> int:
     c_out = run_render(cornell, 16, 16, "cornell", card)
     after_cornell = cuda_lib.launches()
     if not (after_cornell["intersect_bruteforce"] > 0
-            and after_cornell["matrix_traverse"] == 0):
+            and after_cornell["matrix_traverse"] == 0
+            and after_cornell["raster_tiled"] == 0):
         raise AssertionError(f"cornell launches {after_cornell}")
     torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
     s_out = run_render(sponza, 4, 4, "sponza", card)
-    counts = cuda_lib.launches()
-    if counts["matrix_traverse"] - after_cornell["matrix_traverse"] <= 0:
-        raise AssertionError(f"atrium_big launches {counts}")
+    after_sponza = cuda_lib.launches()
+    if after_sponza["matrix_traverse"] <= 0:
+        raise AssertionError(f"atrium_big launches {after_sponza}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"  launches: cornell {after_cornell}, total {counts}; atrium_big "
-        f"peak memory {peak / 2**30:.2f} GiB [{card}]")
+    log(f"  launches: cornell {after_cornell}, atrium_big {after_sponza}; "
+        f"atrium_big peak memory {peak / 2**30:.2f} GiB [{card}]")
 
-    log("== phase 6: save_images")
+    post = post_program()
+    ra = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=64,
+                               post_program=post, device="cuda")
+    ra.set_scene(big_host)
+    cuda_lib.reset_launches()
+    ra_out = run_raster(ra, "raster_atrium", card)
+    after_ra = cuda_lib.launches()
+    frames_ra = RASTER_FRAMES["raster_atrium"] + 1
+    if after_ra["raster_tiled"] != frames_ra:
+        raise AssertionError(f"raster_atrium launches {after_ra}, expected "
+                             f"{frames_ra} of raster_tiled")
+    rc = RasterizationRenderer("raster", 1920, 1088, binned=True, tile=64,
+                               post_program=post, device="cuda")
+    rc.set_scene(cornell_box())
+    cuda_lib.reset_launches()
+    rc_out = run_raster(rc, "raster", card)
+    after_rc = cuda_lib.launches()
+    if any(after_rc.values()):
+        raise AssertionError(f"raster (Cornell) launches {after_rc}")
+    log(f"  launches: raster_atrium {after_ra}, raster {after_rc}")
+    ra_stages = raster_stages(ra, 5, card)
+    ra_prof = profile_raster(ra, 3, ra_out["ms_per_frame"], card)
+
+    log("== phase 7: save_images")
     with tempfile.TemporaryDirectory() as tmp:
         for r in (cornell, sponza):
             stem = os.path.join(tmp, r.info.name)
@@ -411,25 +767,41 @@ def main() -> int:
                 img = read_pfm(f"{stem}_{kind}.pfm")
                 if img.shape != (r.info.height, r.info.width, 3) or not np.isfinite(img).all():
                     raise AssertionError(f"{stem}_{kind}.pfm: bad image {img.shape}")
+        ra.save_image(os.path.join(tmp, "raster_atrium.pfm"))
+        img = read_pfm(os.path.join(tmp, "raster_atrium.pfm"))
+        if img.shape != (1088, 1920, 3) or not np.isfinite(img).all():
+            raise AssertionError(f"raster_atrium.pfm: bad image {img.shape}")
     log("  PFMs finite")
 
+    def entry(name, source, replaces, launches, rec):
+        return dict(name=name, route="cuda", source=source, replaces=replaces,
+                    launches=launches, max_abs_err=rec["max_abs_err"],
+                    ms=rec["ms"], plain_ms=rec["plain_ms"],
+                    bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                    library_ms=None)
+
     kernels = [
-        dict(name="intersect_bruteforce (K1)", route="cuda",
-             source="hala_tpu_torch/csrc/intersect_bruteforce.cu",
-             replaces="hala_tpu/ops/pallas/intersect_kernel.py:182",
-             launches=counts["intersect_bruteforce"],
-             max_abs_err=k1_rec["max_abs_err"], ms=k1_rec["ms"],
-             plain_ms=k1_rec["plain_ms"], rays=k1_rec["rays"]),
-        dict(name="matrix_traverse (K2)", route="cuda",
-             source="hala_tpu_torch/csrc/matrix_traverse.cu",
-             replaces="hala_tpu/ops/traverse.py:1591",
-             launches=counts["matrix_traverse"],
-             max_abs_err=k2_rec["max_abs_err"], ms=k2_rec["ms"],
-             plain_ms=k2_rec["plain_ms"], rays=k2_rec["rays"]),
+        entry("intersect_bruteforce (K1)",
+              "hala_tpu_torch/csrc/intersect_bruteforce.cu",
+              "hala_tpu/ops/pallas/intersect_kernel.py:182",
+              after_cornell["intersect_bruteforce"], k1_rec),
+        entry("matrix_traverse (K2)", "hala_tpu_torch/csrc/matrix_traverse.cu",
+              "hala_tpu/ops/traverse.py:1591",
+              after_sponza["matrix_traverse"], k2_rec),
+        entry("raster_tiled (K3)", "hala_tpu_torch/csrc/raster_tiled.cu",
+              "hala_tpu/ops/raster_kernel.py:309",
+              after_ra["raster_tiled"], k3_rec),
     ]
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
-                   atrium_big_peak_bytes=peak, k2_anyhit_ms=k2_rec["anyhit_ms"],
+                   atrium_big_peak_bytes=peak, raster_atrium=ra_out,
+                   raster=rc_out, raster_atrium_profile=ra_prof,
+                   raster_atrium_stages=ra_stages,
+                   k1_rays=k1_rec["rays"], k2_rays=k2_rec["rays"],
+                   k2_anyhit_ms=k2_rec["anyhit_ms"],
+                   k2_live_pairs=k2_rec["live_pairs"],
                    k1_all_slots_on_atrium_big_ms=k2_rec["k1_ms"],
+                   k3_glue_ms=k3_rec["glue_ms"], k3_n_real=k3_rec["n_real"],
+                   k3_longest_segment=k3_rec["longest"],
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -1,5 +1,6 @@
-"""hala_tpu_torch — the path tracer of `hala_tpu`, ported to PyTorch and
-hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+"""hala_tpu_torch — the path tracer and the rasterizer of `hala_tpu`,
+ported to PyTorch and hand-written CUDA kernels for NVIDIA Hopper
+(sm_90a).
 
 The JAX package `hala_tpu` beside it is the reference this package is
 held against: same module paths and public names, same tables, the same
@@ -31,6 +32,8 @@ from .scene.loader.uploader import SceneUploader  # noqa: E402
 from .scene.gpu.scene import DeviceScene, from_numpy  # noqa: E402
 from .models.renderer import RendererInfo, RendererStatistics, BaseRenderer  # noqa: E402
 from .models.rt_renderer import RayTracingRenderer, EnvType  # noqa: E402
+from .models.rz_renderer import RasterizationRenderer  # noqa: E402
+from .programs import KernelCache, ComputeProgram, GraphicsProgram  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -44,5 +47,6 @@ __all__ = [
     "ImageData", "ImageFormat",
     "GltfLoader", "SceneUploader", "DeviceScene", "from_numpy",
     "RendererInfo", "RendererStatistics", "BaseRenderer",
-    "RayTracingRenderer", "EnvType",
+    "RayTracingRenderer", "EnvType", "RasterizationRenderer",
+    "KernelCache", "ComputeProgram", "GraphicsProgram",
 ]

@@ -1,11 +1,11 @@
-"""Native (C++) binned-SAH builder, loaded via ctypes.
+"""Native (C++) binned-SAH partition and meshlet clustering, via ctypes.
 
-The C++ source is the JAX package's `hala_tpu/native/meshopt.cpp`
-(compiled by path, never imported), built on first use with
-`g++ -O2 -shared` into `hala_tpu_torch/_build/`. Only the SAH leaf
-partition is bound here: it is the one native routine the upload path
-runs. Without a C++ toolchain `ops/sahbuild.py` takes its numpy path,
-which produces the identical slot map (tests/test_sahbuild.py).
+`meshopt.cpp` beside this file (the package's own copy of the JAX
+package's source) is built on first use with `g++ -O2 -shared` into
+`hala_tpu_torch/_build/`. Two routines are bound: the SAH leaf
+partition the upload path runs, and the meshlet clustering of the
+mesh-shader raster mode. Without a C++ toolchain `ops/sahbuild.py` and
+`ops/meshlets.py` take their numpy/Python paths.
 """
 
 from __future__ import annotations
@@ -21,14 +21,26 @@ import numpy as np
 logger = logging.getLogger("hala_tpu_torch.native")
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(_HERE)), "hala_tpu", "native", "meshopt.cpp"
-)
+_SRC = os.path.join(_HERE, "meshopt.cpp")
 _BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 _SO = os.path.join(_BUILD_DIR, "libhala_native.so")
 
 _lib = None
 _load_failed = False
+
+
+class _MeshletOut(ctypes.Structure):
+    _fields_ = [
+        ("center", ctypes.c_float * 3),
+        ("radius", ctypes.c_float),
+        ("cone_apex", ctypes.c_float * 3),
+        ("cone_cutoff", ctypes.c_float),
+        ("cone_axis", ctypes.c_float * 3),
+        ("num_vertices", ctypes.c_int32),
+        ("offset_vertices", ctypes.c_int32),
+        ("num_primitives", ctypes.c_int32),
+        ("offset_primitives", ctypes.c_int32),
+    ]
 
 
 def _build() -> bool:
@@ -69,6 +81,15 @@ def get_lib():
         logger.warning("Native load failed (%s); using Python fallback.", e)
         _load_failed = True
         return None
+    lib.hala_build_meshlets.restype = ctypes.c_int32
+    lib.hala_build_meshlets.argtypes = [
+        ctypes.POINTER(ctypes.c_uint32), ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64,
+        ctypes.c_int32, ctypes.c_int32,
+        ctypes.POINTER(_MeshletOut),
+        ctypes.POINTER(ctypes.c_uint32),
+        ctypes.POINTER(ctypes.c_uint32),
+    ]
     lib.hala_sah_slots.restype = ctypes.c_int64
     lib.hala_sah_slots.argtypes = [
         ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_float),
@@ -107,3 +128,56 @@ def sah_leaves_native(t_lo: np.ndarray, t_hi: np.ndarray,
     if n_leaves < 0:  # C side rejected the parameters
         return None
     return order, sizes[:n_leaves].copy()
+
+
+def build_meshlets_native(
+    indices: np.ndarray,
+    positions: np.ndarray,
+    max_vertices: int,
+    max_triangles: int,
+):
+    """C++ meshlet build. Returns (meshlets list, vertices u32, packed
+    primitives u32) matching ops.meshlets.build_meshlets, or None when
+    the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    from ..scene.meshlet import Meshlet
+
+    idx = np.ascontiguousarray(indices, np.uint32)
+    pos = np.ascontiguousarray(positions, np.float32)
+    num_tris = len(idx) // 3
+    out = (_MeshletOut * max(num_tris, 1))()
+    mv = np.empty(len(idx), np.uint32)
+    mp = np.empty(num_tris, np.uint32)
+    n = lib.hala_build_meshlets(
+        idx.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        ctypes.c_int64(len(idx)),
+        pos.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ctypes.c_int64(len(pos)),
+        ctypes.c_int32(max_vertices),
+        ctypes.c_int32(max_triangles),
+        out,
+        mv.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        mp.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+    )
+    meshlets = []
+    v_total = p_total = 0
+    for i in range(n):
+        m = out[i]
+        meshlets.append(
+            Meshlet(
+                center=np.array(m.center, np.float32),
+                radius=float(m.radius),
+                cone_apex=np.array(m.cone_apex, np.float32),
+                cone_cutoff=float(m.cone_cutoff),
+                cone_axis=np.array(m.cone_axis, np.float32),
+                num_of_vertices=m.num_vertices,
+                offset_of_vertices=m.offset_vertices,
+                num_of_primitives=m.num_primitives,
+                offset_of_primitives=m.offset_primitives,
+            )
+        )
+        v_total = max(v_total, m.offset_vertices + m.num_vertices)
+        p_total = max(p_total, m.offset_primitives + m.num_primitives)
+    return meshlets, mv[:v_total].copy(), mp[:p_total].copy()

@@ -1,8 +1,9 @@
 """Build, load and launch the hand-written CUDA kernels of csrc/.
 
-The sources compile on first use with nvcc into one shared library with
-a plain C interface under `hala_tpu_torch/_build/`, loaded with ctypes
-(no PyTorch headers, so a cold build takes seconds). Every C entry
+The sources compile on first use, one nvcc per source started
+together, and link into one shared library with a plain C interface
+under `hala_tpu_torch/_build/`, loaded with ctypes (no PyTorch
+headers, so a cold build takes seconds). Every C entry
 launches on the stream it is given, allocates nothing, and returns
 `cudaGetLastError()`; `Kernel.__call__` raises on a non-zero code.
 
@@ -56,26 +57,59 @@ def sources() -> list[str]:
 
 
 def build(verbose: bool = False) -> str:
-    """Compile csrc/*.cu into LIB_PATH (written under a temporary name
-    and renamed, so a concurrent loader never sees a partial file)."""
+    """Compile each csrc/*.cu to an object with its own nvcc, all
+    started together, then link them into LIB_PATH. Every object and
+    the library are written under temporary names of their own, so two
+    processes building at once share no path, and the library is
+    renamed into place, so a concurrent loader never sees a partial
+    file."""
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += ["-o", tmp, *sources()]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
-        )
-    if verbose and proc.stderr:
-        print(proc.stderr)
-    os.replace(tmp, LIB_PATH)
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    jobs, tmps = [], []
+    try:
+        for src in sources():
+            fd, obj = tempfile.mkstemp(suffix=".o", dir=BUILD_DIR)
+            os.close(fd)
+            tmps.append(obj)
+            cmd = [nvcc_path(), *compile_flags, "-c"]
+            if verbose:
+                cmd += ["-Xptxas", "-v"]
+            cmd += ["-o", obj, src]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+            )
+            jobs.append((cmd, obj, proc))
+        errors = []
+        for cmd, _, proc in jobs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                errors.append(
+                    f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{err}"
+                )
+            elif verbose and err:
+                print(err)
+        if errors:
+            raise RuntimeError("\n".join(errors))
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        tmps.append(tmp)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}"
+            )
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for _, _, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in tmps:
+            if os.path.exists(path):
+                os.unlink(path)
     build_seconds = time.perf_counter() - t0
     return LIB_PATH
 
@@ -145,9 +179,16 @@ MATRIX_TRAVERSE = Kernel(
     [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
 )
 
+# csrc/raster_tiled.cu
+RASTER_TILED = Kernel(
+    "hala_raster_tiled",
+    [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+)
+
 KERNELS = {
     "intersect_bruteforce": INTERSECT_BRUTEFORCE,
     "matrix_traverse": MATRIX_TRAVERSE,
+    "raster_tiled": RASTER_TILED,
 }
 
 

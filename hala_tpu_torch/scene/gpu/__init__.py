@@ -7,11 +7,12 @@ from .scene import (
     DeviceMaterials,
     DeviceLights,
     DeviceCameras,
+    DeviceMeshlets,
     TextureStack,
     from_numpy,
 )
 
 __all__ = [
     "DeviceScene", "DeviceGeometry", "DeviceMaterials", "DeviceLights",
-    "DeviceCameras", "TextureStack", "from_numpy",
+    "DeviceCameras", "DeviceMeshlets", "TextureStack", "from_numpy",
 ]

@@ -192,14 +192,34 @@ class TextureStack(TensorTables):
 
 
 @dataclasses.dataclass
+class DeviceMeshlets(TensorTables):
+    """Meshlet cull tables of the mesh-shader raster mode (reference
+    meshlet pipeline, gpu_uploader.rs:555-765, and the task shader's
+    cone culling). `tri_meshlet` maps every triangle slot to its
+    meshlet; `tri_ids` lists each meshlet's slots, the draw and binning
+    granularity of `ops/raster.rasterize_meshlet_binned`."""
+
+    cone_apex: torch.Tensor    # (M, 3)
+    cone_axis: torch.Tensor    # (M, 3)
+    cone_cutoff: torch.Tensor  # (M,)
+    center: torch.Tensor       # (M, 3)
+    radius: torch.Tensor       # (M,)
+    tri_meshlet: torch.Tensor  # (T,) i32, -1 for padding
+    tri_ids: torch.Tensor | None = None  # (M, 128) i32 slots, -1 padded
+    num_meshlets: int = 0
+
+
+@dataclasses.dataclass
 class DeviceScene(TensorTables):
-    """Everything the integrator reads (gpu/scene.rs:11-37 role)."""
+    """Everything the integrator and the rasterizer read
+    (gpu/scene.rs:11-37 role)."""
 
     geometry: DeviceGeometry
     materials: DeviceMaterials
     lights: DeviceLights
     cameras: DeviceCameras
     textures: TextureStack | None = None
+    meshlets: DeviceMeshlets | None = None
     name: str = "scene"
     # flattened primitive id -> scene node index (host metadata)
     prim_node: tuple = ()
@@ -239,6 +259,7 @@ _NESTED = {
     "lights": DeviceLights,
     "cameras": DeviceCameras,
     "textures": TextureStack,
+    "meshlets": DeviceMeshlets,
 }
 
 

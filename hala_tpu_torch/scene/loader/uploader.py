@@ -20,8 +20,9 @@ The tables are built in numpy exactly as the JAX package builds them
 (same slot order, padding and packing) and only the final wraps become
 tensors on the requested `device`. No BVH is built: the cluster tables
 are the acceleration structure the ported intersectors read (the
-skip-link "bvh" engine is not ported yet). Meshlets are left to the
-rasterizer's port; procedural spheres raise until they are ported.
+skip-link "bvh" engine is not ported yet). `use_mesh_shader` builds the
+per-primitive meshlet tables (gpu_uploader.rs:555-765). Procedural
+spheres raise until they are ported.
 """
 
 from __future__ import annotations
@@ -81,7 +82,11 @@ class SceneUploader:
     """Builds a DeviceScene from a host Scene (gpu_uploader.rs:63 role)."""
 
     @staticmethod
-    def upload(scene: Scene, device="cuda") -> DeviceScene:
+    def upload(
+        scene: Scene,
+        use_mesh_shader: bool = False,
+        device="cuda",
+    ) -> DeviceScene:
         dev = resolve_device(device)
         if getattr(scene, "procedurals", None):
             raise HalaRendererError("procedural spheres are not yet ported")
@@ -99,12 +104,19 @@ class SceneUploader:
             if node.mesh_index is not None
             for _ in scene.meshes[node.mesh_index].primitives
         )
+        meshlets = None
+        if use_mesh_shader:
+            from ...ops.meshlets import build_scene_meshlets
+
+            build_scene_meshlets(scene)
+            meshlets = SceneUploader._upload_meshlets(scene, geometry, dev)
         return DeviceScene(
             geometry=geometry,
             materials=materials,
             lights=lights,
             cameras=cameras,
             textures=textures,
+            meshlets=meshlets,
             prim_node=prim_node,
         )
 
@@ -554,6 +566,75 @@ class SceneUploader:
             num_triangles=n_tris,
             num_primitives=prim_id,
             prefix_layout=prefix_layout,
+        )
+
+    # -- meshlets ----------------------------------------------------------
+
+    @staticmethod
+    def _upload_meshlets(scene: Scene, geometry, device):
+        """World-space meshlet cone/sphere tables + the per-triangle
+        meshlet map over the slotted soup (the task-shader cone culling
+        data of the reference's meshlet pipeline)."""
+        from ..gpu.scene import DeviceMeshlets
+
+        apexes, axes, cuts, centers, radii = [], [], [], [], []
+        orig_mids = []
+        m_off = 0
+        for node in scene.nodes:
+            if node.mesh_index is None:
+                continue
+            w = node.world_transform
+            rot = w[:3, :3]
+            for prim in scene.meshes[node.mesh_index].primitives:
+                for m in prim.meshlets:
+                    apexes.append(rot @ m.cone_apex + w[:3, 3])
+                    ax = rot @ m.cone_axis
+                    ln = np.linalg.norm(ax)
+                    axes.append(ax / ln if ln > 0 else np.float32([0, 0, 1]))
+                    cuts.append(m.cone_cutoff)
+                    centers.append(rot @ m.center + w[:3, 3])
+                    # conservative world radius under (possibly scaled) rot
+                    scale = max(np.linalg.norm(rot, axis=0).max(), 1e-6)
+                    radii.append(m.radius * scale)
+                counts = np.array(
+                    [m.num_of_primitives for m in prim.meshlets], np.int64
+                )
+                ends = np.cumsum(counts)
+                local = np.searchsorted(
+                    ends, np.arange(prim.triangle_count), side="right"
+                )
+                orig_mids.append(local.astype(np.int32) + m_off)
+                m_off += len(prim.meshlets)
+
+        if m_off == 0:
+            return None
+        orig_mids = np.concatenate(orig_mids)
+        # map through the slot order recorded in shade column 30
+        orig_idx = geometry.shade_table[:, 30].cpu().numpy().astype(np.int64)
+        tri_mat = geometry.tri_mat.cpu().numpy()
+        tri_meshlet = np.where(
+            tri_mat >= 0, orig_mids[np.clip(orig_idx, 0, len(orig_mids) - 1)], -1
+        ).astype(np.int32)
+        # invert the map: per-meshlet triangle slot list (mesh-shader
+        # draw granularity; meshopt caps meshlets at 124 triangles)
+        max_tris = 128
+        order = np.argsort(tri_meshlet, kind="stable")
+        sorted_m = tri_meshlet[order]
+        first = np.searchsorted(sorted_m, np.arange(m_off), side="left")
+        last = np.searchsorted(sorted_m, np.arange(m_off), side="right")
+        tri_ids = np.full((m_off, max_tris), -1, np.int32)
+        for m in range(m_off):
+            members = order[first[m] : last[m]][:max_tris]
+            tri_ids[m, : len(members)] = members
+        return DeviceMeshlets(
+            cone_apex=_t(np.stack(apexes).astype(np.float32), device),
+            cone_axis=_t(np.stack(axes).astype(np.float32), device),
+            cone_cutoff=_t(np.array(cuts, np.float32), device),
+            center=_t(np.stack(centers).astype(np.float32), device),
+            radius=_t(np.array(radii, np.float32), device),
+            tri_meshlet=_t(tri_meshlet, device),
+            tri_ids=_t(tri_ids, device),
+            num_meshlets=m_off,
         )
 
     # -- textures --------------------------------------------------------

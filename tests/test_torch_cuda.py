@@ -15,6 +15,7 @@ import torch
 
 from hala_tpu_torch.models.integrator import Film, RenderSettings, Uniforms, render_frame
 from hala_tpu_torch.ops import cuda_lib
+from hala_tpu_torch.ops import raster_kernel as k3
 from hala_tpu_torch.ops import traverse as k2
 from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 from hala_tpu_torch.scene.cpu.scene import Scene
@@ -100,3 +101,26 @@ def test_cornell_golden_on_card(cuda_device):
     with np.load(os.path.join(HERE, "fixtures", "golden_cornell.npz")) as z:
         rmse = float(np.sqrt(np.mean((film.accum.cpu().numpy() - z["accum"]) ** 2)))
     assert rmse < 1e-3
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_k3_kernel_matches_plain(cuda_device, tile):
+    """K3 against its plain version, bit for bit, on atrium.glb's
+    triangles from its first camera: tiles 16, 32 and 64 take the 1-,
+    4- and 16-pixels-a-thread instantiations, tile 128 walks its
+    segment in four pixel passes."""
+    from hala_tpu_torch.models.rz_renderer import RasterSettings, _raster_setup
+
+    scene = SceneUploader.upload(
+        Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb")), device=cuda_device)
+    w, h = 320, 192
+    tris = _raster_setup(scene, 0, RasterSettings(w, h, binned=True, tile=tile))[:4]
+    seg = k3.build_segments(*tris, w, h, tile)
+    before = cuda_lib.RASTER_TILED.launches
+    got = k3.raster_segments(seg.starts, seg.data, seg.tw, seg.tile)
+    ref = k3.raster_segments_plain(seg.starts, seg.data, seg.tw, seg.tile)
+    torch.cuda.synchronize()
+    assert cuda_lib.RASTER_TILED.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert float(seg.over) == 0.0 and int(seg.n_real) > 0

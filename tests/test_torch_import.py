@@ -54,3 +54,13 @@ def test_chip_smoke_refuses_without_cuda():
         return  # exercised for real on the card
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_native_source_is_the_ports_own():
+    """The C++ routines compile from the port's own copy of meshopt.cpp,
+    never from a file of the JAX package."""
+    from hala_tpu_torch import native
+
+    pkg = os.path.join(REPO, "hala_tpu_torch") + os.sep
+    assert os.path.abspath(native._SRC).startswith(pkg), native._SRC
+    assert os.path.exists(native._SRC)

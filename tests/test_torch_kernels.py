@@ -259,7 +259,14 @@ def test_cpu_tensors_never_launch(cornell, sponza, rs):
     _, sdev = sponza
     k2.intersect_matrix(_t(o), _t(d), sdev.geometry)
     k2.occluded_matrix(_t(o), _t(d), torch.ones(64), sdev.geometry)
-    assert cuda_lib.launches() == {"intersect_bruteforce": 0, "matrix_traverse": 0}
+    from hala_tpu_torch.ops.raster_kernel import rasterize_tiled_exact
+
+    tri = torch.tensor([[[1.0, 1.0], [30.0, 2.0], [5.0, 30.0]]])
+    rasterize_tiled_exact(tri, torch.ones(1, 3), torch.ones(1, 3),
+                          torch.ones(1, dtype=torch.bool), 32, 32, tile=16)
+    assert cuda_lib.launches() == {
+        "intersect_bruteforce": 0, "matrix_traverse": 0, "raster_tiled": 0,
+    }
 
 
 def test_wrappers_reject_bad_inputs():
