@@ -14,13 +14,32 @@ Phases, in order; any failure raises and exits non-zero:
      K1, closest and any hit, the tile-segment raster kernel (K3) on
      atrium_big at 1920x1088 (tile 64, bench camera) against its plain
      version and at 256x256 against the full-scan `rasterize`, bit for
-     bit — then the golden renders (path tracer and rasterizer) held
-     against tests/fixtures (RMSE < 1e-3);
+     bit; the large-scene engines on atrium_big: the cull (K4) at K 4
+     and 16 and through a forced superchunk merge, the candidate walk
+     (K5) and the cluster stream (K6) at K 12 and 4, each bit for bit
+     against its plain version, `intersect_traversed` and K6 against
+     K2, the three kernels again at the main path's 2^21-ray queries
+     (timed there), and `intersect_traversed` over five translated
+     copies of atrium_big's clusters (9305 > 8191, two cull
+     superchunks) against K1 over all slots — then the golden renders
+     (path tracer and rasterizer) held against tests/fixtures
+     (RMSE < 1e-3);
   4. Cornell 512x512, depth 4, 16 frames through RayTracingRenderer
      (must go through K1 only);
-  5. atrium_big at 1920x1088, depth 4, 1 spp, 4 frames (must use K2);
-     each renderer first runs one untimed warm-up frame on a film it
-     then discards;
+  5. atrium_big at 1920x1088, depth 4, 1 spp, 4 frames (must use K2
+     and none of K4-K6), then the same through intersector="traverse"
+     (must launch K4, K5 and K6 and not K2; its relative RMSE to the K2
+     film is printed), a torch.profiler window over one traverse frame
+     and one more frame for the engine's counts (unresolved share,
+     clusters visited), then one frame through intersector="cluster"
+     (K6 only), which must match the traverse render's frame 0 within
+     relative RMSE 2e-3; then the witness for the K2 distance: rows
+     480-607 of frame 0 through K1 ("pallas", shadow rays batched as
+     the traverse engine's) must match the traverse frame 0 there within
+     2e-3, and the K2 frame 0's distance to them is printed; each
+     renderer first runs one untimed warm-up frame on a film it then
+     discards (frame 0 is kept for the comparisons), except the cluster
+     frame, whose kernels are already loaded;
   6. bench.py's raster cells through RasterizationRenderer with the
      ACES post program: raster_atrium (atrium_big 1920x1088, binned,
      tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
@@ -59,11 +78,20 @@ PEAK_BYTES = 3.35e12
 # (csrc/matrix_traverse.cu) 3 axes x 8 plus 8 to combine and widen;
 # a raster candidate x pixel (csrc/raster_tiled.cu): the three edge
 # functions 15 and their sign products 3 on every pair, then the
-# barycentrics 3 and the depth 5 only where the pixel is inside.
+# barycentrics 3 and the depth 5 only where the pixel is inside; the
+# reference's slab test of a ray x cluster box in the cull
+# (csrc/cull_topk.cu): 6 differences, 6 products, 10 min/max and 4
+# compares.
 OPS_MT = 45
 OPS_SLAB = 32
 OPS_RASTER_EDGE = 18
 OPS_RASTER_INSIDE = 8
+OPS_CULL = 26
+TRAVERSE_K = 12  # RenderSettings.traverse_k, the main path's K
+# traverse frame 0 vs the cluster frame and vs the brute-force band
+REL_RMSE_TOL = 2e-3
+# the witness band of frame 0: first row and row count of 1920x1088
+BAND_ROWS = (480, 128)
 RASTER_FRAMES = {"raster_atrium": 10, "raster": 10}
 JAX_TPU_REFERENCE = {  # (film mean, rays per primary) of the JAX package
     "cornell": (0.6949, 5.46),
@@ -325,6 +353,321 @@ def check_k2(dev_scene, n_cam_w: int, n_cam_h: int, n_rand: int, reps: int):
     return rec
 
 
+def equal_tensors(name: str, got, ref, labels) -> None:
+    """Raise unless every pair of tensors is equal bit for bit."""
+    import torch
+
+    for label, x, y in zip(labels, got, ref):
+        if x.dtype.is_floating_point:
+            x, y = x.view(torch.int32), y.view(torch.int32)
+        if not torch.equal(x, y):
+            raise AssertionError(f"{name}: {label} differs in "
+                                 f"{int((x != y).sum())} of {x.numel()}")
+
+
+def max_abs_diff(got, ref) -> float:
+    """Largest |x - y| over the pairs of tensors, in float64 for floats
+    and int64 for integers; equal values (infinities included) count 0."""
+    import torch
+
+    err = 0.0
+    for x, y in zip(got, ref):
+        x, y = (x.double(), y.double()) if x.dtype.is_floating_point else (
+            x.long(), y.long())
+        diff = torch.where(x == y, torch.zeros_like(x), (x - y).abs())
+        if diff.numel():
+            err = max(err, float(diff.max()))
+    return err
+
+
+def cull_misses(a, b, o, d, tm, g):
+    """Rays where hit `a` (a cull-based engine) misses the triangle of
+    hit `b` (an exact engine) because the reference's unpadded slab
+    test (K4's) does not enter the cluster holding b's triangle: the
+    JAX package's cull would miss it too. (N,) bool."""
+    import torch
+
+    from hala_tpu_torch.ops import cull
+
+    out = torch.zeros_like(a.tri, dtype=torch.bool)
+    rows = torch.nonzero((a.tri != b.tri) & (b.tri >= 0)).squeeze(1)
+    for r0 in range(0, rows.numel(), 1024):
+        r = rows[r0:r0 + 1024]
+        c = (b.tri[r] // 128).long()
+        _, hit = cull.slab_keys(o[r], d[r], tm[r], g.cluster_min[c],
+                                g.cluster_max[c])
+        out[r] = ~torch.diagonal(hit)
+    return out
+
+
+def compare_with_exact(name: str, a, b, o, d, tm, g):
+    """compare_hits(a, b) where a comes from the cull-based traversal:
+    rays whose b-winner lies in a cluster the reference cull misses are
+    counted (kept for parity, ROADMAP Queue 3) and left out. Returns
+    (max abs error, number of such rays)."""
+    import torch
+
+    from hala_tpu_torch.ops.intersect import Hit
+
+    graze = cull_misses(a, b, o, d, tm, g)
+    n = int(graze.sum())
+    if n:
+        log(f"  {name}: {n} rays miss the exact hit's cluster in the "
+            "reference cull (unpadded slab test), left out")
+        a = Hit(*(torch.where(graze, y, x) for x, y in zip(a, b)))
+    return compare_hits(name, a, b, o, d, g), n
+
+
+def check_k4(dev_scene, small, big, reps: int):
+    """K4 (csrc/cull_topk.cu) vs its plain version, bit for bit, at
+    K 4 and 16 on the mixed batch `small`, the superchunk merge, and at
+    the main path's K on the 2^21-ray batch `big` (timed there, with
+    the selection alone over the materialised key matrix as the
+    library yardstick)."""
+    import torch
+
+    from hala_tpu_torch.ops import cull
+    from hala_tpu_torch.ops import traverse as k5
+
+    g = dev_scene.geometry
+    cmin, cmax = g.cluster_min, g.cluster_max
+    o, d, tm = small
+    for k in (4, 16):
+        got = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
+        ref = cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k)
+        torch.cuda.synchronize()
+        equal_tensors(f"K4 K={k}", got, ref, ("pk", "cnt"))
+        log(f"  K4 K={k} N={o.shape[0]}: pk, cnt equal bit for bit; "
+            f"{float((got[1] > k).float().mean()):.3f} of rays truncated, "
+            f"mean count {float(got[1].float().mean()):.2f}")
+    one = k5.cull_candidates(o, d, tm, cmin, cmax, TRAVERSE_K)
+    merged = k5.cull_candidates(o, d, tm, cmin, cmax, TRAVERSE_K, superchunk=256)
+    torch.cuda.synchronize()
+    equal_tensors("cull_candidates superchunk 256 vs one call", merged, one,
+                  ("ids", "tns", "ovf"))
+    log(f"  cull_candidates: {-(-cmin.shape[0] // 256)} superchunks of 256 "
+        "merge to the single call's lists bit for bit")
+
+    o, d, tm = big
+    n, c, k = o.shape[0], cmin.shape[0], TRAVERSE_K
+    got = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
+    ref = cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k)
+    torch.cuda.synchronize()
+    equal_tensors(f"K4 K={k} N={n}", got, ref, ("pk", "cnt"))
+    b_ms, b_by = bound(n * c * OPS_CULL, n * 28 + c * 24 + n * k * 4 + n * 4)
+    rec = dict(
+        max_abs_err=max_abs_diff(got, ref), bound_ms=b_ms, bound_by=b_by, rays=n,
+        ms=cuda_ms(lambda: cull.cull_topk(o, d, tm, cmin, cmax, k=k), reps),
+        plain_ms=cuda_ms(lambda: cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k), 1),
+        truncated=float((got[1] > k).float().mean()),
+    )
+    keys = torch.empty((n, c), dtype=torch.int32, device=o.device)
+    for r0 in range(0, n, 4096):
+        sl = slice(r0, r0 + 4096)
+        keys[sl] = cull.slab_keys(o[sl], d[sl], tm[sl], cmin, cmax)[0]
+    sel = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
+    torch.cuda.synchronize()
+    if not torch.equal(sel, got[0]):
+        raise AssertionError("K4: torch.topk over the key matrix disagrees")
+    rec["library_ms"] = cuda_ms(
+        lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), reps)
+    del keys, sel
+    log(f"  K4 K={k} N={n} x {c} clusters: pk, cnt equal bit for bit; kernel "
+        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, torch.topk over "
+        f"the materialised keys (selection only) {rec['library_ms']:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}); {rec['truncated']:.3f} truncated")
+    return rec
+
+
+def check_k5_k6(dev_scene, small, big, reps: int):
+    """K5 (csrc/traverse_candidates.cu) and K6 (csrc/cluster_stream.cu)
+    vs their plain versions, bit for bit, at K 12 and 4 on `small`;
+    the traverse engine and K6 against K2 there; then both kernels at
+    the main path's K on `big` as `intersect_traversed` feeds them
+    (K6 with t_max = -inf for the rays K5 resolved), timed."""
+    import torch
+
+    from hala_tpu_torch.ops import cluster as k6
+    from hala_tpu_torch.ops import traverse as k5
+
+    g = dev_scene.geometry
+    cmin, cmax = g.cluster_min, g.cluster_max
+    c = cmin.shape[0]
+    real = (g.tri_mat >= 0).view(c, k5.TRI_CHUNK).sum(dim=1)
+    hit_labels = ("t", "tri", "u", "v")
+
+    def run(o, d, tm, k, label):
+        ids, tns, ovf = k5.cull_candidates(o, d, tm, cmin, cmax, k)
+        got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
+        ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, g.tri_packed)
+        torch.cuda.synchronize()
+        equal_tensors(f"K5 K={k} {label}", (*got[0], got[1], got[2]),
+                      (*ref[0], ref[1], ref[2]), hit_labels + ("unres", "runs"))
+        fb_tm = k5.fallback_t_max(got[0], got[1])
+        fk = k6.intersect_clustered(o, d, g, t_max=fb_tm)
+        fp = k6.intersect_clustered_plain(o, d, g, t_max=fb_tm)
+        torch.cuda.synchronize()
+        equal_tensors(f"K6 fallback K={k} {label}", fk, fp, hit_labels)
+        live = max(int((tm > 0).sum()), 1)
+        log(f"  K5, K6 fallback K={k} {label}: equal bit for bit; unresolved "
+            f"{int(got[1].sum()) / live:.4f} of live rays, "
+            f"{float(got[2].sum()) / live:.2f} clusters visited per live ray")
+        return ids, tns, ovf, got, ref, fb_tm, fk, fp
+
+    o, d, tm = small
+    hm = k5.intersect_matrix(o, d, g, t_max=tm)
+    for k in (TRAVERSE_K, 4):
+        run(o, d, tm, k, f"N={o.shape[0]}")
+        ht = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=k)
+        torch.cuda.synchronize()
+        _, graze = compare_with_exact(f"intersect_traversed K={k} vs K2",
+                                      ht, hm, o, d, tm, g)
+    hk = k6.intersect_clustered(o, d, g, t_max=tm)
+    hp = k6.intersect_clustered_plain(o, d, g, t_max=tm)
+    torch.cuda.synchronize()
+    equal_tensors("K6 full range", hk, hp, hit_labels)
+    compare_hits(f"K6 vs K2 (N={o.shape[0]})", hk, hm, o, d, g)
+    log(f"  K6 full range N={o.shape[0]}: equal to its plain version bit for bit")
+
+    o, d, tm = big
+    n, k = o.shape[0], TRAVERSE_K
+    ids, tns, ovf, got, ref, fb_tm, fk, fp = run(o, d, tm, k, f"N={n}")
+    runs = got[2]
+    walked = torch.arange(k, device=o.device)[None, :] < runs[:, None]
+    safe = torch.clamp(ids, max=c - 1).long()
+    k5_tris = int((real[safe] * walked).sum())
+    k5_ms, k5_by = bound(k5_tris * OPS_MT,
+                         n * 28 + n * k * 8 + n + g.tri_packed.numel() * 4 + n * 24)
+    k5_rec = dict(
+        # over t, u, v of the pair compared above; tri mismatches beside it
+        max_abs_err=max_abs_diff((got[0].t, got[0].u, got[0].v),
+                                 (ref[0].t, ref[0].u, ref[0].v)),
+        tri_mismatches=int((got[0].tri != ref[0].tri).sum()),
+        bound_ms=k5_ms, bound_by=k5_by, library_ms=None,
+        rays=n, visited=int(runs.sum()), real_tris=k5_tris,
+        unresolved=int(got[1].sum()),
+        ms=cuda_ms(lambda: k5.traverse_candidates(
+            o, d, tm, ids, tns, ovf, g.tri_packed), reps),
+        plain_ms=cuda_ms(lambda: k5.traverse_candidates_plain(
+            o, d, tm, ids, tns, ovf, g.tri_packed), 1),
+    )
+    # K6 on the fallback's inputs: the unresolved rays walk every box
+    # and run Moller-Trumbore on the real triangles of the clusters
+    # they enter before their closest hit.
+    act = torch.nonzero(fb_tm > 1e-4).squeeze(1)
+    t_end = torch.where(fk.tri >= 0, fk.t, fb_tm)[act]
+    live_tris = 0
+    for c0 in range(0, c, 64):
+        hit = k5.slab_live(o[act], d[act], cmin[c0:c0 + 64], cmax[c0:c0 + 64], t_end)
+        live_tris += int((hit.long() * real[None, c0:c0 + 64]).sum())
+    k6_ms, k6_by = bound(act.numel() * c * OPS_SLAB + live_tris * OPS_MT,
+                         n * 28 + c * 24 + g.tri_packed.numel() * 4 + n * 16)
+    k6_rec = dict(
+        max_abs_err=max_abs_diff((fk.t, fk.u, fk.v), (fp.t, fp.u, fp.v)),
+        tri_mismatches=int((fk.tri != fp.tri).sum()), bound_ms=k6_ms, bound_by=k6_by, library_ms=None,
+        rays=n, active=act.numel(), real_tris=live_tris,
+        ms=cuda_ms(lambda: k6.intersect_clustered(o, d, g, t_max=fb_tm), reps),
+        plain_ms=cuda_ms(lambda: k6.intersect_clustered_plain(o, d, g, t_max=fb_tm), 1),
+        full_ms=cuda_ms(lambda: k6.intersect_clustered(o, d, g, t_max=tm), 1),
+    )
+    log(f"  K5 K={k} N={n}: kernel {k5_rec['ms']:.3f} ms, plain "
+        f"{k5_rec['plain_ms']:.1f} ms, bound {k5_ms:.4f} ms ({k5_by}; "
+        f"{k5_rec['visited']} cluster visits, {k5_tris} real triangles)")
+    log(f"  K6 fallback N={n} ({act.numel()} unresolved): kernel "
+        f"{k6_rec['ms']:.3f} ms, plain {k6_rec['plain_ms']:.1f} ms, bound "
+        f"{k6_ms:.4f} ms ({k6_by}); K6 on the full range of all {n} rays "
+        f"(the cluster engine) {k6_rec['full_ms']:.1f} ms")
+    return k5_rec, k6_rec, graze
+
+
+def tiled_geometry(dev_scene, copies: int):
+    """`copies` translated copies of the scene's cluster tables, side by
+    side along x, built on the card (tri_packed rows 0-2 and the row-9
+    sub-box x lanes, and the real cluster boxes, offset; the 3e37 empty
+    sentinels stay far away), with the slot arrays K1 reads."""
+    import types
+
+    import torch
+
+    g = dev_scene.geometry
+    real = g.tri_mat >= 0
+    v0 = g.tri_v0[real]
+    ext = float(v0[:, 0].amax() - v0[:, 0].amin())
+    mins, maxs, blocks = [], [], []
+    finite = g.cluster_min[:, :1] < 1e30
+    for j in range(copies):
+        dx = j * (ext + 2.0)
+        shift = torch.tensor([dx, 0.0, 0.0], device=v0.device)
+        mins.append(torch.where(finite, g.cluster_min + shift, g.cluster_min))
+        maxs.append(torch.where(finite, g.cluster_max + shift, g.cluster_max))
+        blk = g.tri_packed.clone()
+        blk[:, 0, :] += dx
+        for s in range(8):
+            blk[:, 9, 6 * s] += dx
+            blk[:, 9, 6 * s + 3] += dx
+        blocks.append(blk)
+    tri_packed = torch.cat(blocks).contiguous()
+    slots = tri_packed[:, 0:9, :].permute(0, 2, 1).reshape(-1, 9)
+    return types.SimpleNamespace(
+        cluster_min=torch.cat(mins).contiguous(),
+        cluster_max=torch.cat(maxs).contiguous(), tri_packed=tri_packed,
+        tri_v0=slots[:, 0:3].contiguous(), tri_e1=slots[:, 3:6].contiguous(),
+        tri_e2=slots[:, 6:9].contiguous(),
+    ), ext
+
+
+def check_past_key_width(dev_scene, n_rand: int):
+    """intersect_traversed over more than MATRIX_MAX_CLUSTERS clusters
+    (two cull superchunks) against K1 over all slots."""
+    import torch
+
+    from hala_tpu_torch.ops import cull
+    from hala_tpu_torch.ops import traverse as k5
+    from hala_tpu_torch.ops.pallas import intersect_kernel as k1
+
+    g, ext = tiled_geometry(dev_scene, 5)
+    c = g.cluster_min.shape[0]
+    if not c > cull.CULL_MAX_CLUSTERS:
+        raise AssertionError(f"{c} clusters: no second superchunk")
+    finite = g.cluster_min[:, 0] < 1e30
+    lo = g.cluster_min[finite].amin(0).cpu().numpy()
+    hi = g.cluster_max[finite].amax(0).cpu().numpy()
+    rs = np.random.RandomState(41)
+    o = rs.uniform(lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo), (n_rand, 3))
+    dd = rs.normal(size=(n_rand, 3))
+    dd /= np.linalg.norm(dd, axis=1, keepdims=True)
+    dev = g.tri_packed.device
+    o = torch.from_numpy(o.astype(np.float32)).to(dev)
+    d = torch.from_numpy(dd.astype(np.float32)).to(dev)
+    tm = torch.full((n_rand,), 3.0e38, device=dev)
+    tm[1::4] = 4.0
+    cuda_lib_before = _launches()
+    ht = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K)
+    hb = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm)
+    torch.cuda.synchronize()
+    calls = {k: v - cuda_lib_before[k] for k, v in _launches().items()}
+    if calls["cull_topk"] != 2:
+        raise AssertionError(f"expected two cull superchunks, got {calls}")
+    _, graze = compare_with_exact(
+        f"intersect_traversed vs K1 over {c} clusters ({g.tri_v0.shape[0]} slots)",
+        ht, hb, o, d, tm, g)
+    hits = int((hb.tri >= 0).sum())
+    far = int((hb.tri >= k5.TRI_CHUNK * cull.CULL_MAX_CLUSTERS).sum())
+    log(f"  {c} clusters in 2 superchunks, {n_rand} rays: {hits} hits, {far} of "
+        f"them in clusters past id {cull.CULL_MAX_CLUSTERS - 1}; copies "
+        f"{ext + 2.0:.1f} apart")
+    if far == 0:
+        raise AssertionError("no hit past the key width: the check proves nothing")
+    return dict(clusters=c, rays=n_rand, hits=hits, hits_past_key_width=far,
+                cull_misses=graze)
+
+
+def _launches():
+    from hala_tpu_torch.ops import cuda_lib
+
+    return cuda_lib.launches()
+
+
 def raster_inputs(dev_scene, width: int, height: int, tile: int):
     """Screen-space triangles of the scene's first camera (the bench
     camera), as RasterizationRenderer sets them up."""
@@ -516,22 +859,99 @@ def golden_renders(device) -> None:
                     raise AssertionError(f"golden_{name} {k}: RMSE {rmse}")
 
 
-def warm_up(r) -> None:
-    """One frame to load PyTorch's own kernels, then a fresh film."""
+def warm_up(r):
+    """One frame to load PyTorch's own kernels, then a fresh film.
+    Returns the warm-up frame's RGB film (frame 0)."""
     import torch
 
     r.render_loop(1)
     torch.cuda.synchronize()
+    first = r.film.accum[..., :3].clone()
     r.reset_accumulation()
     r.total_rays = 0.0
+    return first
 
 
-def run_render(r, frames: int, k: int, name: str, card: str):
-    """Drive one renderer through render_loop; check bench invariants."""
+def rel_rmse(a, b) -> float:
+    """RMSE of a - b relative to the RMS of b."""
+    import torch
+
+    return float(torch.sqrt(torch.mean((a - b) ** 2)) / torch.sqrt(torch.mean(b ** 2)))
+
+
+def band_frame0(r, intersector: str):
+    """Frame 0 of rows BAND_ROWS of r's image through `intersector`:
+    render_frame with row_offset/full_height traces the same camera
+    rays with the same RNG as those rows of the full frame. Returns the
+    RGB band (rows, W, 3)."""
+    import dataclasses
+
+    import torch
+
+    from hala_tpu_torch.models.integrator import Film, render_frame
+
+    off, rows = BAND_ROWS
+    st = dataclasses.replace(r.settings, height=rows, intersector=intersector)
+    film = Film.create(st.width, rows, r.device)
+    render_frame(r.scene, None, r.uniforms, film, 0, st, row_offset=off,
+                 full_height=r.settings.height)
+    torch.cuda.synchronize()
+    return film.accum[..., :3]
+
+
+def shadow_range_witness(k2_renderer, trav_frame0, k2_frame0, card: str):
+    """Where the traverse film's distance to the K2 film comes from.
+    Frame 0 of the band BAND_ROWS through K1 ("pallas": brute force
+    over every slot; shadow rays in the batched closest-hit query, their
+    range shortened once by 1 - 1e-4, as the traverse engine's) must
+    match the traverse frame 0 on those rows. K2's frame 0 (shadow rays
+    in a split any-hit query, their range shortened twice) is held
+    against the same band and reported. The band also goes through
+    "traverse" and "matrix", which must give those rows of their full
+    frames."""
+    off, rows = BAND_ROWS
+    sl = slice(off, off + rows)
+    k1 = band_frame0(k2_renderer, "pallas")
+    tr = band_frame0(k2_renderer, "traverse")
+    k2 = band_frame0(k2_renderer, "matrix")
+
+    def differ(a, b) -> int:
+        return int((a != b).any(dim=-1).sum())
+
+    out = dict(
+        rows=[off, off + rows],
+        k1_vs_traverse=rel_rmse(trav_frame0[sl], k1),
+        k1_vs_k2=rel_rmse(k2_frame0[sl], k1),
+        traverse_vs_k2_frame0=rel_rmse(trav_frame0, k2_frame0),
+        pixels_k1_traverse_differ=differ(trav_frame0[sl], k1),
+        pixels_k1_k2_differ=differ(k2_frame0[sl], k1),
+        traverse_band_vs_rows=rel_rmse(tr, trav_frame0[sl]),
+        k2_band_vs_rows=rel_rmse(k2, k2_frame0[sl]),
+    )
+    log(f"  witness, rows {off}-{off + rows - 1} of frame 0 "
+        f"({k1.shape[0] * k1.shape[1]} pixels): relative RMSE of the traverse "
+        f"frame to the K1 band {out['k1_vs_traverse']:.3g} "
+        f"({out['pixels_k1_traverse_differ']} pixels differ), of the K2 frame "
+        f"{out['k1_vs_k2']:.3g} ({out['pixels_k1_k2_differ']} pixels differ); "
+        f"whole frame 0, traverse vs K2: {out['traverse_vs_k2_frame0']:.3g}; "
+        f"bands vs the rows of their full frames: traverse "
+        f"{out['traverse_band_vs_rows']:.3g}, K2 {out['k2_band_vs_rows']:.3g} "
+        f"[{card}]")
+    for key in ("k1_vs_traverse", "traverse_band_vs_rows", "k2_band_vs_rows"):
+        if not out[key] < REL_RMSE_TOL:
+            raise AssertionError(f"witness {key}: relative RMSE {out[key]}")
+    return out
+
+
+def run_render(r, frames: int, k: int, name: str, card: str,
+               cell: str | None = None):
+    """Drive one renderer through render_loop; check the invariants of
+    bench.py's `cell` (default: `name`)."""
     import torch
 
     from bench import check_invariants
 
+    cell = cell or name
     t0 = time.perf_counter()
     r.render_loop(frames, frames_per_dispatch=k)
     torch.cuda.synchronize()
@@ -541,8 +961,8 @@ def run_render(r, frames: int, k: int, name: str, card: str):
         raise AssertionError(f"{name}: non-finite film")
     mean = float(accum[..., :3].mean())
     primaries = r.info.width * r.info.height * frames
-    check_invariants(name, mean, r.total_rays, primaries)
-    ref = JAX_TPU_REFERENCE[name]
+    check_invariants(cell, mean, r.total_rays, primaries)
+    ref = JAX_TPU_REFERENCE[cell]
     out = dict(
         mean=mean, rays_per_primary=r.total_rays / primaries,
         mrays_per_s=r.total_rays / dt / 1e6, ms_per_frame=dt / frames * 1e3,
@@ -627,17 +1047,17 @@ def raster_stages(r, reps: int, card: str):
     return out
 
 
-def profile_raster(r, frames: int, wall_ms: float, card: str):
-    """torch.profiler over `frames` warm frames: device time by kernel
-    (kernel events only), and the busy share of the unprofiled frame
-    time `wall_ms`."""
+def profile_frames(label: str, step, frames: int, wall_ms: float, card: str):
+    """torch.profiler over `frames` warm calls of `step` (one frame
+    each): device time by kernel (kernel events only), and the busy
+    share of the unprofiled frame time `wall_ms`."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(frames):
-            r.update()
+            step()
         torch.cuda.synchronize()
     rows = []
     for ev in prof.key_averages():
@@ -651,7 +1071,7 @@ def profile_raster(r, frames: int, wall_ms: float, card: str):
     rows.sort(reverse=True)
     busy = sum(ms for ms, _, _ in rows)
     launches = sum(c for _, c, _ in rows)
-    log(f"  profile raster_atrium, {frames} frames: kernels {busy:.3f} ms and "
+    log(f"  profile {label}, {frames} frames: kernels {busy:.3f} ms and "
         f"{launches:.0f} launches per frame; busy share of the unprofiled "
         f"{wall_ms:.2f} ms/frame: {busy / wall_ms:.3f} [{card}]")
     for ms, count, key in rows[:12]:
@@ -671,6 +1091,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import traverse as k5
     from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
     from hala_tpu_torch.models.rz_renderer import RasterizationRenderer
     from hala_tpu_torch.scene.cpu.scene import Scene
@@ -703,7 +1124,12 @@ def main() -> int:
     k1_rec = check_k1(cornell_dev, soup_dev, 2 * 512 * 512, 77, reps=20)
     k2_rec = check_k2(big_dev, 256, 128, 32768, reps=3)
     k3_rec = check_k3(big_dev, reps=10)
-    del big_dev
+    small = mixed_batch(big_dev, 256, 128, 32768, 31)
+    big = mixed_batch(big_dev, 1024, 1024, 1 << 20, 33)
+    k4_rec = check_k4(big_dev, small, big, reps=5)
+    k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
+    wide_rec = check_past_key_width(big_dev, 32768)
+    del big_dev, small, big
     golden_renders(dev)
     golden_raster(dev)
 
@@ -717,7 +1143,7 @@ def main() -> int:
     sponza.set_scene(big_host)
     sponza.commit()
     warm_up(cornell)
-    warm_up(sponza)
+    k2_frame0 = warm_up(sponza)
     cuda_lib.reset_launches()
     c_out = run_render(cornell, 16, 16, "cornell", card)
     after_cornell = cuda_lib.launches()
@@ -729,11 +1155,77 @@ def main() -> int:
     cuda_lib.reset_launches()
     s_out = run_render(sponza, 4, 4, "sponza", card)
     after_sponza = cuda_lib.launches()
-    if after_sponza["matrix_traverse"] <= 0:
+    large = ("cull_topk", "traverse_candidates", "cluster_stream")
+    if after_sponza["matrix_traverse"] <= 0 or any(after_sponza[k] for k in large):
         raise AssertionError(f"atrium_big launches {after_sponza}")
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches: cornell {after_cornell}, atrium_big {after_sponza}; "
         f"atrium_big peak memory {peak / 2**30:.2f} GiB [{card}]")
+
+    trav = RayTracingRenderer("atrium_big_traverse", 1920, 1088, max_depth=4,
+                              rr_depth=2, spp=1, intersector="traverse",
+                              device="cuda")
+    trav.set_scene(big_host)
+    trav.commit()
+    trav_frame0 = warm_up(trav)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    t_out = run_render(trav, 4, 4, "atrium_big traverse", card, cell="sponza")
+    after_trav = cuda_lib.launches()
+    t_peak = torch.cuda.max_memory_allocated()
+    if not (all(after_trav[k] > 0 for k in large)
+            and after_trav["matrix_traverse"] == 0
+            and after_trav["intersect_bruteforce"] == 0):
+        raise AssertionError(f"atrium_big traverse launches {after_trav}")
+    # The K2 render splits its shadow rays into an any-hit query whose
+    # range the reference shortens by a second factor (1 - 1e-4); the
+    # traverse and cluster engines answer them in the batched closest
+    # hit, as the JAX package does. So their estimator differs from K2's
+    # there: the relative RMSE to the K2 film is reported, and the gates
+    # are the cluster engine's frame 0 and, below, a band of frame 0
+    # through the brute-force kernel K1 (batched shadow rays, no
+    # clusters at all).
+    t_out["rel_rmse_vs_k2"] = rel_rmse(trav.film.accum[..., :3],
+                                       sponza.film.accum[..., :3])
+    t_out["peak_bytes"] = t_peak
+    t_prof = profile_frames("atrium_big traverse", lambda: trav.render_loop(1), 1,
+                            t_out["ms_per_frame"], card)
+    # The engine's counts, from one more frame outside the timed window
+    # (each query adds three device reductions while they are on).
+    k5.stats.reset()
+    k5.stats.enabled = True
+    trav.render_loop(1)
+    torch.cuda.synchronize()
+    k5.stats.enabled = False
+    t_out.update(k5.stats.summary())
+    log(f"  atrium_big traverse: film relative RMSE vs the K2 render "
+        f"{t_out['rel_rmse_vs_k2']:.3g} (its shadow rays end 1e-4 earlier); "
+        f"{t_out['unresolved_share']:.4f} of live rays unresolved by K5, "
+        f"{t_out['visits_per_ray']:.2f} clusters visited per live ray over "
+        f"{t_out['queries']} queries of one frame; launches {after_trav}; peak memory "
+        f"{t_peak / 2**30:.2f} GiB [{card}]")
+    del trav
+    clus = RayTracingRenderer("atrium_big_cluster", 1920, 1088, max_depth=4,
+                              rr_depth=2, spp=1, intersector="cluster",
+                              device="cuda")
+    clus.set_scene(big_host)
+    clus.commit()
+    cuda_lib.reset_launches()
+    cl_out = run_render(clus, 1, 1, "atrium_big cluster", card, cell="sponza")
+    after_clus = cuda_lib.launches()
+    if not (after_clus["cluster_stream"] > 0
+            and sum(after_clus.values()) == after_clus["cluster_stream"]):
+        raise AssertionError(f"atrium_big cluster launches {after_clus}")
+    t_out["rel_rmse_frame0_vs_cluster"] = rel_rmse(trav_frame0,
+                                                   clus.film.accum[..., :3])
+    log(f"  launches: atrium_big cluster {after_clus}; frame 0 of the traverse "
+        f"render vs the cluster render: relative RMSE "
+        f"{t_out['rel_rmse_frame0_vs_cluster']:.3g}")
+    if not t_out["rel_rmse_frame0_vs_cluster"] < REL_RMSE_TOL:
+        raise AssertionError("traverse frame 0 vs cluster: relative RMSE "
+                             f"{t_out['rel_rmse_frame0_vs_cluster']}")
+    del clus
+    witness = shadow_range_witness(sponza, trav_frame0, k2_frame0, card)
 
     post = post_program()
     ra = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=64,
@@ -756,7 +1248,8 @@ def main() -> int:
         raise AssertionError(f"raster (Cornell) launches {after_rc}")
     log(f"  launches: raster_atrium {after_ra}, raster {after_rc}")
     ra_stages = raster_stages(ra, 5, card)
-    ra_prof = profile_raster(ra, 3, ra_out["ms_per_frame"], card)
+    ra_prof = profile_frames("raster_atrium", ra.update, 3, ra_out["ms_per_frame"],
+                             card)
 
     log("== phase 7: save_images")
     with tempfile.TemporaryDirectory() as tmp:
@@ -778,7 +1271,7 @@ def main() -> int:
                     launches=launches, max_abs_err=rec["max_abs_err"],
                     ms=rec["ms"], plain_ms=rec["plain_ms"],
                     bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-                    library_ms=None)
+                    library_ms=rec.get("library_ms"))
 
     kernels = [
         entry("intersect_bruteforce (K1)",
@@ -791,17 +1284,37 @@ def main() -> int:
         entry("raster_tiled (K3)", "hala_tpu_torch/csrc/raster_tiled.cu",
               "hala_tpu/ops/raster_kernel.py:309",
               after_ra["raster_tiled"], k3_rec),
+        entry("cull_topk (K4)", "hala_tpu_torch/csrc/cull_topk.cu",
+              "hala_tpu/ops/cull.py:237", after_trav["cull_topk"], k4_rec),
+        entry("traverse_candidates (K5)",
+              "hala_tpu_torch/csrc/traverse_candidates.cu",
+              "hala_tpu/ops/traverse.py:463",
+              after_trav["traverse_candidates"], k5_rec),
+        entry("cluster_stream (K6)", "hala_tpu_torch/csrc/cluster_stream.cu",
+              "hala_tpu/ops/cluster.py:285", after_trav["cluster_stream"], k6_rec),
     ]
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
                    atrium_big_peak_bytes=peak, raster_atrium=ra_out,
                    raster=rc_out, raster_atrium_profile=ra_prof,
                    raster_atrium_stages=ra_stages,
+                   atrium_big_traverse_profile=t_prof,
                    k1_rays=k1_rec["rays"], k2_rays=k2_rec["rays"],
                    k2_anyhit_ms=k2_rec["anyhit_ms"],
                    k2_live_pairs=k2_rec["live_pairs"],
                    k1_all_slots_on_atrium_big_ms=k2_rec["k1_ms"],
                    k3_glue_ms=k3_rec["glue_ms"], k3_n_real=k3_rec["n_real"],
                    k3_longest_segment=k3_rec["longest"],
+                   atrium_big_traverse=t_out, atrium_big_cluster=cl_out,
+                   k4_rays=k4_rec["rays"], k4_truncated=k4_rec["truncated"],
+                   k5_visits=k5_rec["visited"], k5_real_tris=k5_rec["real_tris"],
+                   k5_unresolved=k5_rec["unresolved"],
+                   k6_fallback_active=k6_rec["active"],
+                   k6_full_range_ms=k6_rec["full_ms"],
+                   k5_tri_mismatches=k5_rec["tri_mismatches"],
+                   k6_tri_mismatches=k6_rec["tri_mismatches"],
+                   shadow_range_witness=witness,
+                   traverse_cull_misses_vs_k2=graze_k2,
+                   past_key_width=wide_rec,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

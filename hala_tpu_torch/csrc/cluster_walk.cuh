@@ -1,0 +1,180 @@
+// Device code shared by the cluster kernels (matrix_traverse.cu,
+// cluster_stream.cu, traverse_candidates.cu): the conservative slab test
+// of a ray against a cluster AABB, Moller-Trumbore over one 128-slot
+// cluster block of `tri_packed`, and the ascending walk over every
+// cluster that K2 and K6 both run.
+//
+// The arithmetic is written in the order of the plain PyTorch versions
+// (ops/cluster.py `slab_live`, ops/intersect.py `mt_components`); the
+// kernels are compiled with --fmad=false, so both round alike.
+//
+// The slab test must be conservative (never skip a cluster whose
+// triangles Moller-Trumbore would accept):
+//   * every box is padded by 1e-5 of its coordinates' magnitude plus
+//     1e-6, which covers the zero-thickness boxes of axis-aligned walls
+//     and Moller-Trumbore's acceptance slack at triangle edges;
+//   * direction components below 1e-20 in magnitude are treated as
+//     parallel (inside-the-padded-slab test), which avoids 0 * inf;
+//   * entry/exit distances are widened by a relative 1e-6 without
+//     producing NaN from infinities, so rounding of (lo - o) * (1 / d)
+//     cannot exclude a hit at the box boundary;
+//   * empty clusters carry far point boxes at 3e37 whose slots have
+//     zero edges: they may pass the test but never produce a hit;
+//   * rays whose range ends at or below t_min (dead rays with t_max 0,
+//     resolved rays with t_max -inf) do no work at all.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace hala {
+
+constexpr int kSlots = 128;            // triangle slots per cluster
+constexpr int kBlock = 16 * kSlots;    // floats per packed cluster block
+constexpr float kEps = 1.0e-7f;
+constexpr float kTMin = 1.0e-4f;
+constexpr float kPadRel = 1.0e-5f;
+constexpr float kPadAbs = 1.0e-6f;
+constexpr float kTinyDir = 1.0e-20f;
+constexpr float kWiden = 1.0e-6f;
+
+struct Ray {
+  float ox, oy, oz, dx, dy, dz, invx, invy, invz;
+};
+
+struct Best {
+  float t;   // best hit distance so far (t_max while there is none)
+  int tri;   // its global slot, -1 while there is none
+  float u, v;
+};
+
+__device__ __forceinline__ Ray load_ray(const float* o, const float* d,
+                                        int i) {
+  Ray r;
+  r.ox = o[3 * i];
+  r.oy = o[3 * i + 1];
+  r.oz = o[3 * i + 2];
+  r.dx = d[3 * i];
+  r.dy = d[3 * i + 1];
+  r.dz = d[3 * i + 2];
+  r.invx = 1.0f / r.dx;
+  r.invy = 1.0f / r.dy;
+  r.invz = 1.0f / r.dz;
+  return r;
+}
+
+// One axis of the slab test; false when the ray misses the padded slab.
+__device__ __forceinline__ bool slab_axis(float lo, float hi, float o,
+                                          float d, float inv, float* tn,
+                                          float* tf) {
+  const float pad = kPadRel * (fabsf(lo) + fabsf(hi)) + kPadAbs;
+  const float lo_p = lo - pad;
+  const float hi_p = hi + pad;
+  if (fabsf(d) < kTinyDir) {
+    *tn = -CUDART_INF_F;
+    *tf = CUDART_INF_F;
+    return lo_p <= o && o <= hi_p;
+  }
+  const float t0 = (lo_p - o) * inv;
+  const float t1 = (hi_p - o) * inv;
+  *tn = fminf(t0, t1);
+  *tf = fmaxf(t0, t1);
+  return true;
+}
+
+__device__ __forceinline__ float widen_down(float t) {
+  return t < 0.f ? t * (1.0f + kWiden) : t * (1.0f - kWiden);
+}
+
+__device__ __forceinline__ float widen_up(float t) {
+  return t > 0.f ? t * (1.0f + kWiden) : t * (1.0f - kWiden);
+}
+
+// Conservative slab test of cluster c: true where a hit in its box could
+// still beat t_cur.
+__device__ __forceinline__ bool slab_live(const float* __restrict__ cmin,
+                                          const float* __restrict__ cmax,
+                                          int c, const Ray& r,
+                                          float t_cur) {
+  float tnx, tfx, tny, tfy, tnz, tfz;
+  const bool in_x = slab_axis(__ldg(cmin + 3 * c), __ldg(cmax + 3 * c),
+                              r.ox, r.dx, r.invx, &tnx, &tfx);
+  const bool in_y = slab_axis(__ldg(cmin + 3 * c + 1),
+                              __ldg(cmax + 3 * c + 1), r.oy, r.dy, r.invy,
+                              &tny, &tfy);
+  const bool in_z = slab_axis(__ldg(cmin + 3 * c + 2),
+                              __ldg(cmax + 3 * c + 2), r.oz, r.dz, r.invz,
+                              &tnz, &tfz);
+  const float tn = widen_down(fmaxf(fmaxf(tnx, tny), tnz));
+  const float tf = widen_up(fminf(fminf(tfx, tfy), tfz));
+  return in_x && in_y && in_z && tn <= tf && tf > 0.f && tn < t_cur;
+}
+
+// Moller-Trumbore over cluster c's 128 slots in ascending order. A slot
+// replaces the best hit when it is nearer (strict <: the lower slot wins
+// a tie within the walk's order); with kLex also at an equal t when its
+// global slot id is lower than the best's, so the result is the
+// lexicographic (t, slot) minimum whatever order the clusters come in.
+// With any_hit the walk stops at the first hit; returns true then.
+template <bool kLex>
+__device__ __forceinline__ bool mt_cluster(const float* __restrict__ tri_packed,
+                                           int c, const Ray& r, Best& b,
+                                           bool any_hit) {
+  const float* blk = tri_packed + static_cast<size_t>(c) * kBlock;
+  for (int k = 0; k < kSlots; ++k) {
+    const float v0x = __ldg(blk + 0 * kSlots + k);
+    const float v0y = __ldg(blk + 1 * kSlots + k);
+    const float v0z = __ldg(blk + 2 * kSlots + k);
+    const float e1x = __ldg(blk + 3 * kSlots + k);
+    const float e1y = __ldg(blk + 4 * kSlots + k);
+    const float e1z = __ldg(blk + 5 * kSlots + k);
+    const float e2x = __ldg(blk + 6 * kSlots + k);
+    const float e2y = __ldg(blk + 7 * kSlots + k);
+    const float e2z = __ldg(blk + 8 * kSlots + k);
+    // pvec = d x e2
+    const float px = r.dy * e2z - r.dz * e2y;
+    const float py = r.dz * e2x - r.dx * e2z;
+    const float pz = r.dx * e2y - r.dy * e2x;
+    const float det = px * e1x + py * e1y + pz * e1z;
+    const bool ok_det = fabsf(det) > kEps;
+    const float inv_det = ok_det ? 1.0f / det : 0.0f;
+    const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+    const float u = (tx * px + ty * py + tz * pz) * inv_det;
+    // qvec = tvec x e1
+    const float qx = ty * e1z - tz * e1y;
+    const float qy = tz * e1x - tx * e1z;
+    const float qz = tx * e1y - ty * e1x;
+    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+    const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+    const int slot = c * kSlots + k;
+    bool closer = tt < b.t;
+    if (kLex) closer = closer || (tt == b.t && b.tri >= 0 && slot < b.tri);
+    if (ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && tt > kTMin &&
+        closer) {
+      b.t = tt;
+      b.tri = slot;
+      b.u = u;
+      b.v = v;
+      if (any_hit) return true;
+    }
+  }
+  return false;
+}
+
+// Every cluster in ascending id order: the slab test against the current
+// best t, then Moller-Trumbore where it passes. Ascending clusters and
+// ascending slots with a strict `<` give brute force's tie order (lowest
+// slot wins), so the result equals the brute force over all slots.
+__device__ __forceinline__ void walk_all_clusters(
+    const float* __restrict__ cmin, const float* __restrict__ cmax,
+    const float* __restrict__ tri_packed, int n_clusters, const Ray& r,
+    bool any_hit, Best& b) {
+  if (!(b.t > kTMin)) return;
+  for (int c = 0; c < n_clusters; ++c) {
+    if (!slab_live(cmin, cmax, c, r, b.t)) continue;
+    if (mt_cluster<false>(tri_packed, c, r, b, any_hit)) return;
+  }
+}
+
+}  // namespace hala

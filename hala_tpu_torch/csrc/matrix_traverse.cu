@@ -8,27 +8,11 @@
 // Design (simple and exact first): one thread per ray walks the
 // clusters in ascending id order, slab-tests each AABB against its
 // current best t, and runs Moller-Trumbore over the cluster's 128 slots
-// when the test passes. Ascending clusters and ascending slots with a
-// strict `<` give brute force's tie order (lowest slot wins), so the
-// result equals the brute force over all slots. The TPU kernel's
-// front-to-back visit order, the row-9 16-triangle pretest and the
-// coherence sort of matrix_query change no output and are left to
-// later work.
-//
-// The slab test must be conservative (never skip a cluster whose
-// triangles Moller-Trumbore would accept):
-//   * every box is padded by 1e-5 of its coordinates' magnitude plus
-//     1e-6, which covers the zero-thickness boxes of axis-aligned walls
-//     and Moller-Trumbore's acceptance slack at triangle edges;
-//   * direction components below 1e-20 in magnitude are treated as
-//     parallel (inside-the-padded-slab test), which avoids 0 * inf;
-//   * entry/exit distances are widened by a relative 1e-6 without
-//     producing NaN from infinities, so rounding of (lo - o) * (1 / d)
-//     cannot exclude a hit at the box boundary;
-//   * empty clusters carry far point boxes at 3e37 whose slots have
-//     zero edges: they may pass the test but never produce a hit;
-//   * rays whose range ends at or below t_min (dead rays, t_max = 0)
-//     do no work at all.
+// when the test passes (cluster_walk.cuh, shared with K6, whose plain
+// version is also this kernel's). The result equals the brute force
+// over all slots. The TPU kernel's front-to-back visit order, the row-9
+// 16-triangle pretest and the coherence sort of matrix_query change no
+// output and are left to later work.
 //
 // What bounds it on an H100: with ascending (not front-to-back) order
 // a closest-hit ray runs Moller-Trumbore on every cluster its shrinking
@@ -39,49 +23,13 @@
 // With any_hit set a ray stops at its first hit.
 //
 // Compiled with --fmad=false: the slab test and Moller-Trumbore round
-// exactly as the plain PyTorch version in ops/traverse.py.
+// exactly as the plain PyTorch version in ops/cluster.py.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "cluster_walk.cuh"
 
 namespace {
 
-constexpr int kSlots = 128;            // triangle slots per cluster
-constexpr int kBlock = 16 * kSlots;    // floats per packed cluster block
 constexpr int kThreads = 128;
-constexpr float kEps = 1.0e-7f;
-constexpr float kTMin = 1.0e-4f;
-constexpr float kPadRel = 1.0e-5f;
-constexpr float kPadAbs = 1.0e-6f;
-constexpr float kTinyDir = 1.0e-20f;
-constexpr float kWiden = 1.0e-6f;
-
-// One axis of the slab test; false when the ray misses the padded slab.
-__device__ __forceinline__ bool slab_axis(float lo, float hi, float o,
-                                          float d, float inv, float* tn,
-                                          float* tf) {
-  const float pad = kPadRel * (fabsf(lo) + fabsf(hi)) + kPadAbs;
-  const float lo_p = lo - pad;
-  const float hi_p = hi + pad;
-  if (fabsf(d) < kTinyDir) {
-    *tn = -CUDART_INF_F;
-    *tf = CUDART_INF_F;
-    return lo_p <= o && o <= hi_p;
-  }
-  const float t0 = (lo_p - o) * inv;
-  const float t1 = (hi_p - o) * inv;
-  *tn = fminf(t0, t1);
-  *tf = fmaxf(t0, t1);
-  return true;
-}
-
-__device__ __forceinline__ float widen_down(float t) {
-  return t < 0.f ? t * (1.0f + kWiden) : t * (1.0f - kWiden);
-}
-
-__device__ __forceinline__ float widen_up(float t) {
-  return t > 0.f ? t * (1.0f + kWiden) : t * (1.0f - kWiden);
-}
 
 __global__ void __launch_bounds__(kThreads)
 matrix_traverse_kernel(
@@ -94,69 +42,14 @@ matrix_traverse_kernel(
     float* __restrict__ u_out, float* __restrict__ v_out) {
   const int i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
-  const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
-  float t_cur = tmax[i];
-  int best = -1;
-  float bu = 0.f, bv = 0.f;
-  if (t_cur > kTMin) {
-    const float invx = 1.0f / dx, invy = 1.0f / dy, invz = 1.0f / dz;
-    for (int c = 0; c < n_clusters; ++c) {
-      float tnx, tfx, tny, tfy, tnz, tfz;
-      const bool in_x = slab_axis(__ldg(cmin + 3 * c), __ldg(cmax + 3 * c),
-                                  ox, dx, invx, &tnx, &tfx);
-      const bool in_y = slab_axis(__ldg(cmin + 3 * c + 1),
-                                  __ldg(cmax + 3 * c + 1), oy, dy, invy,
-                                  &tny, &tfy);
-      const bool in_z = slab_axis(__ldg(cmin + 3 * c + 2),
-                                  __ldg(cmax + 3 * c + 2), oz, dz, invz,
-                                  &tnz, &tfz);
-      const float tn = widen_down(fmaxf(fmaxf(tnx, tny), tnz));
-      const float tf = widen_up(fminf(fminf(tfx, tfy), tfz));
-      if (!(in_x && in_y && in_z && tn <= tf && tf > 0.f && tn < t_cur))
-        continue;
-      const float* blk = tri_packed + static_cast<size_t>(c) * kBlock;
-      for (int k = 0; k < kSlots; ++k) {
-        const float v0x = __ldg(blk + 0 * kSlots + k);
-        const float v0y = __ldg(blk + 1 * kSlots + k);
-        const float v0z = __ldg(blk + 2 * kSlots + k);
-        const float e1x = __ldg(blk + 3 * kSlots + k);
-        const float e1y = __ldg(blk + 4 * kSlots + k);
-        const float e1z = __ldg(blk + 5 * kSlots + k);
-        const float e2x = __ldg(blk + 6 * kSlots + k);
-        const float e2y = __ldg(blk + 7 * kSlots + k);
-        const float e2z = __ldg(blk + 8 * kSlots + k);
-        // pvec = d x e2
-        const float px = dy * e2z - dz * e2y;
-        const float py = dz * e2x - dx * e2z;
-        const float pz = dx * e2y - dy * e2x;
-        const float det = px * e1x + py * e1y + pz * e1z;
-        const bool ok_det = fabsf(det) > kEps;
-        const float inv_det = ok_det ? 1.0f / det : 0.0f;
-        const float tx = ox - v0x, ty = oy - v0y, tz = oz - v0z;
-        const float u = (tx * px + ty * py + tz * pz) * inv_det;
-        // qvec = tvec x e1
-        const float qx = ty * e1z - tz * e1y;
-        const float qy = tz * e1x - tx * e1z;
-        const float qz = tx * e1y - ty * e1x;
-        const float v = (dx * qx + dy * qy + dz * qz) * inv_det;
-        const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-        if (ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && tt > kTMin &&
-            tt < t_cur) {
-          t_cur = tt;
-          best = c * kSlots + k;
-          bu = u;
-          bv = v;
-          if (any_hit) break;
-        }
-      }
-      if (any_hit && best >= 0) break;
-    }
-  }
-  t_out[i] = t_cur;
-  tri_out[i] = best;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  const hala::Ray r = hala::load_ray(o, d, i);
+  hala::Best b{tmax[i], -1, 0.f, 0.f};
+  hala::walk_all_clusters(cmin, cmax, tri_packed, n_clusters, r,
+                          any_hit != 0, b);
+  t_out[i] = b.t;
+  tri_out[i] = b.tri;
+  u_out[i] = b.u;
+  v_out[i] = b.v;
 }
 
 }  // namespace

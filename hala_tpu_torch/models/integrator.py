@@ -17,7 +17,8 @@ pixel id, so results do not depend on tiling.
 
 Not ported yet (each raises HalaRendererError when requested): the HDR
 environment map, blue-noise sampling, pushed kernel hooks, procedural
-spheres and the geometry-sharded `scene_axis` mode.
+spheres, the geometry-sharded `scene_axis` mode and the "wavefront",
+"grouped" and "bvh" engines.
 """
 
 from __future__ import annotations
@@ -31,10 +32,13 @@ from ..error import HalaRendererError
 from ..ops import rng
 from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_materials
 from ..ops.camera import generate_rays
+from ..ops.cluster import intersect_clustered
+from ..ops.compaction import permute, sort_rays
 from ..ops.env import sky_radiance
 from ..ops.intersect import (
     T_MAX,
     Hit,
+    full_t_max,
     intersect_bruteforce,
     occluded_bruteforce,
 )
@@ -51,7 +55,11 @@ from ..ops.sampling import (
     to_world,
 )
 from ..ops.texture import sample_textures_packed
-from ..ops.traverse import MATRIX_MAX_CLUSTERS, matrix_query
+from ..ops.traverse import (
+    MATRIX_MAX_CLUSTERS,
+    intersect_traversed,
+    matrix_query,
+)
 from ..scene.gpu.scene import TensorTables, resolve_device
 
 ENV_SKY = 0  # rt_renderer.rs:23-41 HalaEnvType
@@ -68,9 +76,17 @@ class RenderSettings:
     `intersector` selects the visibility backend; "auto" resolves per
     scene in `_backend`. Explicit values: "pallas" (the brute-force
     kernel, csrc/intersect_bruteforce.cu), "matrix" (the cluster
-    traversal kernel, csrc/matrix_traverse.cu) and "bruteforce" (the
-    chunked plain PyTorch scan, the ground truth). The JAX package's
-    other engines are not ported yet and raise.
+    traversal kernel, csrc/matrix_traverse.cu), "traverse" (the
+    candidate cull csrc/cull_topk.cu, the candidate walk
+    csrc/traverse_candidates.cu and the exact fallback
+    csrc/cluster_stream.cu), "cluster" (csrc/cluster_stream.cu alone)
+    and "bruteforce" (the chunked plain PyTorch scan, the ground truth).
+    The JAX package's other engines are not ported yet and raise.
+
+    `sort_rays` runs the "traverse" and "cluster" queries under the
+    coherence sort (ops/compaction.py); the "matrix" query is unsorted
+    here whatever it says (the sort changes no output). `traverse_k`
+    bounds the "traverse" candidate lists (at most 16).
 
     `tile_size` defaults to 2^20 rays (the JAX package: 65536): on the
     GPU a tile's time is dominated by per-operation launch cost well
@@ -92,6 +108,8 @@ class RenderSettings:
     spp: int = 1
     # Geometry-sharded rendering: not ported yet (must stay None).
     scene_axis: str | None = None
+    sort_rays: bool = True
+    traverse_k: int = 12
 
 
 @dataclasses.dataclass
@@ -142,16 +160,17 @@ class Film(TensorTables):
         return Film(accum=z(), albedo=z(), normal=z())
 
 
-_BACKENDS = ("auto", "pallas", "matrix", "bruteforce")
-_NOT_PORTED = ("wavefront", "grouped", "traverse", "cluster", "bvh", "legacy")
+_BACKENDS = ("auto", "pallas", "matrix", "traverse", "cluster", "bruteforce")
+_NOT_PORTED = ("wavefront", "grouped", "bvh", "legacy")
 
 
 def _backend(settings: RenderSettings, scene) -> str:
     """Resolve the visibility backend. "auto": scenes of at most 4096
     triangles on the prefix (Morton) layout go to the brute-force
     kernel, larger ones of at most MATRIX_MAX_CLUSTERS clusters to the
-    cluster traversal. The same rule holds on every device: for CPU
-    tensors the kernels' wrappers run their plain versions."""
+    cluster traversal, and larger still (the 13-bit key width of K2) to
+    the candidate traversal. The same rule holds on every device: for
+    CPU tensors the kernels' wrappers run their plain versions."""
     sel = settings.intersector
     if sel in _NOT_PORTED:
         raise HalaRendererError(f"intersector {sel!r} is not yet ported")
@@ -166,16 +185,26 @@ def _backend(settings: RenderSettings, scene) -> str:
         return "pallas"
     if g.tri_packed.shape[0] <= MATRIX_MAX_CLUSTERS:
         return "matrix"
-    raise HalaRendererError(
-        f"{g.tri_packed.shape[0]} clusters exceed {MATRIX_MAX_CLUSTERS}: "
-        "the 'traverse' engine for such scenes is not yet ported"
-    )
+    return "traverse"
 
 
 def _num_real(g) -> int:
     # The prefix trim is valid only for the Morton tail-padded layout;
     # the SAH layout has interior padding, so every slot is scanned.
     return g.num_triangles if g.prefix_layout else g.tri_v0.shape[0]
+
+
+def _sorted_dispatch(scene, o, d, t_max, query) -> Hit:
+    """Run `query(o, d, t_max) -> Hit` under the coherence sort
+    (ops/compaction.py) and undo the permutation."""
+    g = scene.geometry
+    tm = full_t_max(t_max, o.shape[0], o.device)
+    smin = g.cluster_min.amin(dim=0)
+    smax = torch.where(g.cluster_max < 1e30, g.cluster_max, -torch.inf).amax(dim=0)
+    ro = sort_rays(o, d, tm > 0, smin, smax)
+    o_s, d_s, t_s = permute(ro.order, o, d, tm)
+    hit = query(o_s, d_s, t_s)
+    return Hit(*(permute(ro.inverse, x) for x in hit))
 
 
 def _intersect(scene, o, d, settings: RenderSettings, t_max=None) -> Hit:
@@ -185,6 +214,17 @@ def _intersect(scene, o, d, settings: RenderSettings, t_max=None) -> Hit:
     o, d = o.contiguous(), d.contiguous()
     if backend == "matrix":
         return matrix_query(o, d, g, t_max=t_max)
+    if backend in ("traverse", "cluster"):
+        if backend == "traverse":
+            def query(o_q, d_q, t_q):
+                return intersect_traversed(o_q, d_q, g, t_max=t_q,
+                                           k_per_ray=settings.traverse_k)
+        else:
+            def query(o_q, d_q, t_q):
+                return intersect_clustered(o_q, d_q, g, t_max=t_q)
+        if settings.sort_rays:
+            return _sorted_dispatch(scene, o, d, t_max, query)
+        return query(o, d, full_t_max(t_max, o.shape[0], o.device))
     if backend == "pallas":
         return intersect_pallas(
             o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=t_max,
@@ -205,6 +245,8 @@ def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
         return matrix_query(
             o, d, g, t_max=t_far * (1.0 - 1e-4), any_hit=True
         ).tri >= 0
+    if backend in ("traverse", "cluster"):
+        return _intersect(scene, o, d, settings, t_max=t_far * (1.0 - 1e-4)).tri >= 0
     if backend == "pallas":
         return occluded_pallas(
             o, d, t_far, g.tri_v0, g.tri_e1, g.tri_e2, num_real=_num_real(g)

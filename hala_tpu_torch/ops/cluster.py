@@ -1,0 +1,172 @@
+"""Cluster streaming: the CUDA kernel csrc/cluster_stream.cu, its wrapper,
+and its plain version.
+
+Counterpart of the JAX package's ops/cluster.py: `intersect_clustered`
+is the exact closest hit over clusters of 128 triangle slots with
+per-cluster AABBs (`cluster_min`/`cluster_max`, (C, 3)) and the packed
+slot blocks `tri_packed` (C, 16, 128) whose rows 0-8 hold v0/e1/e2. It
+serves `intersector="cluster"` and the exact fallback of the candidate
+traversal (ops/traverse.py `intersect_traversed`). No cap on C.
+
+Each ray walks every cluster in ascending order with the conservative
+slab test `slab_live` (csrc/cluster_walk.cuh explains each case): the
+TPU kernel's safety net, testing a 1024-ray block's union of slab hits,
+does not exist for one ray alone. Ascending clusters and a strict `<`
+give brute force's tie order, so results equal the brute force over all
+slots. K2 (ops/traverse.py) runs the same walk, capped at
+MATRIX_MAX_CLUSTERS, so `stream_plain` is the plain version of both.
+
+The JAX module's `subchunk_aabb_row`, `cull_clusters`,
+`build_cluster_tables_device` and `refit_clusters` are not ported: no
+path of the port calls them yet.
+
+The wrappers run the kernel for CUDA tensors and the plain PyTorch
+version for CPU tensors; there is no other fallback.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import cuda_lib
+from .intersect import T_MAX, Hit, full_t_max, ray_triangle
+
+TRI_CHUNK = 128  # == scene/gpu TRI_PAD
+# clusters per step of the plain walk: (N, 16 * 128) temporaries
+_PLAIN_GROUP = 16
+
+# Slab-test constants, as float32 values identical to the kernels'.
+_PAD_REL = float(np.float32(1e-5))
+_PAD_ABS = float(np.float32(1e-6))
+_TINY_DIR = float(np.float32(1e-20))
+_WIDEN_UP = float(np.float32(1.0) + np.float32(1e-6))
+_WIDEN_DOWN = float(np.float32(1.0) - np.float32(1e-6))
+
+
+def slab_live(o, d, cmin, cmax, t_cur):
+    """Conservative slab test of rays (N, 3) against boxes (G, 3):
+    (N, G) bool, True where a hit in the box could still beat t_cur.
+    Same operations, in the same order, as csrc/cluster_walk.cuh."""
+    tn = tf = None
+    inside = None
+    for ax in range(3):
+        lo = cmin[None, :, ax]
+        hi = cmax[None, :, ax]
+        pad = _PAD_REL * (torch.abs(lo) + torch.abs(hi)) + _PAD_ABS
+        lo_p = lo - pad
+        hi_p = hi + pad
+        oa = o[:, ax:ax + 1]
+        da = d[:, ax:ax + 1]
+        inv = 1.0 / da
+        t0 = (lo_p - oa) * inv
+        t1 = (hi_p - oa) * inv
+        par = torch.abs(da) < _TINY_DIR
+        tn_a = torch.where(par, -torch.inf, torch.minimum(t0, t1))
+        tf_a = torch.where(par, torch.inf, torch.maximum(t0, t1))
+        in_a = ~par | ((lo_p <= oa) & (oa <= hi_p))
+        tn = tn_a if tn is None else torch.maximum(tn, tn_a)
+        tf = tf_a if tf is None else torch.minimum(tf, tf_a)
+        inside = in_a if inside is None else inside & in_a
+    tn = torch.where(tn < 0.0, tn * _WIDEN_UP, tn * _WIDEN_DOWN)
+    tf = torch.where(tf > 0.0, tf * _WIDEN_UP, tf * _WIDEN_DOWN)
+    return inside & (tn <= tf) & (tf > 0.0) & (tn < t_cur[:, None])
+
+
+def _slot_table(tri_packed):
+    """(C, 16, 128) blocks -> v0, e1, e2 as (C * 128, 3) in slot order."""
+    rows = tri_packed[:, 0:9, :].permute(0, 2, 1).reshape(-1, 9)
+    return rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
+
+
+def stream_plain(o, d, tm, cmin, cmax, tri_packed) -> Hit:
+    """The plain ascending cluster walk of K2 and K6: clusters in
+    ascending groups; each (ray, cluster) pair runs Moller-Trumbore only
+    where the slab test passes against the ray's best t at the start of
+    the group (first argmin inside a group, strict `<` across groups:
+    brute force's tie order). The kernels test each cluster against the
+    current best t, which only prunes clusters that cannot win."""
+    n = o.shape[0]
+    c = cmin.shape[0]
+    v0, e1, e2 = _slot_table(tri_packed)
+    t_best = tm.clone()
+    tri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
+    u_best = torch.zeros(n, dtype=torch.float32, device=o.device)
+    v_best = torch.zeros(n, dtype=torch.float32, device=o.device)
+    for g0 in range(0, c, _PLAIN_GROUP):
+        g1 = min(g0 + _PLAIN_GROUP, c)
+        live = slab_live(o, d, cmin[g0:g1], cmax[g0:g1], t_best)
+        rows = torch.nonzero(live.any(dim=1)).squeeze(1)
+        if rows.numel() == 0:
+            continue
+        sl = slice(g0 * TRI_CHUNK, g1 * TRI_CHUNK)
+        t, u, v = ray_triangle(o[rows], d[rows], v0[sl], e1[sl], e2[sl])
+        t = torch.where(
+            live[rows].repeat_interleave(TRI_CHUNK, dim=1), t, T_MAX
+        )
+        t_min, arg = torch.min(t, dim=1)
+        better = t_min < t_best[rows]
+        r = torch.arange(rows.numel(), device=o.device)
+        t_best[rows] = torch.where(better, t_min, t_best[rows])
+        tri[rows] = torch.where(
+            better, (g0 * TRI_CHUNK + arg).to(torch.int32), tri[rows]
+        )
+        u_best[rows] = torch.where(better, u[r, arg], u_best[rows])
+        v_best[rows] = torch.where(better, v[r, arg], v_best[rows])
+    return Hit(t=t_best, tri=tri, u=u_best, v=v_best)
+
+
+def check_stream_inputs(name, o, d, tm, cmin, cmax, tri_packed) -> None:
+    """Raise unless the walk's inputs are contiguous float32 tensors on
+    one CUDA device with the shapes the kernels read."""
+    n = o.shape[0]
+    c = cmin.shape[0]
+    cuda_lib.check_cuda(
+        name,
+        dict(o=o, d=d, t_max=tm, cluster_min=cmin, cluster_max=cmax,
+             tri_packed=tri_packed),
+        {}, o.device,
+    )
+    if o.shape != (n, 3) or d.shape != (n, 3) or tm.shape != (n,):
+        raise ValueError(f"{name}: o, d must be (N, 3), t_max (N,)")
+    if cmax.shape != (c, 3) or cmin.shape != (c, 3):
+        raise ValueError(f"{name}: cluster AABBs must be (C, 3)")
+    if tri_packed.shape != (c, 16, TRI_CHUNK):
+        raise ValueError(
+            f"{name}: tri_packed has shape {tuple(tri_packed.shape)}"
+        )
+
+
+def _launch(o, d, tm, cmin, cmax, tri_packed) -> Hit:
+    dev = o.device
+    n = o.shape[0]
+    check_stream_inputs("intersect_clustered", o, d, tm, cmin, cmax, tri_packed)
+    t_out = torch.empty(n, dtype=torch.float32, device=dev)
+    tri_out = torch.empty(n, dtype=torch.int32, device=dev)
+    u_out = torch.empty(n, dtype=torch.float32, device=dev)
+    v_out = torch.empty(n, dtype=torch.float32, device=dev)
+    P = cuda_lib.ptr
+    cuda_lib.CLUSTER_STREAM(
+        P(o), P(d), P(tm), P(cmin), P(cmax), P(tri_packed),
+        n, cmin.shape[0],
+        P(t_out), P(tri_out), P(u_out), P(v_out), cuda_lib.stream_ptr(dev),
+    )
+    return Hit(t=t_out, tri=tri_out, u=u_out, v=v_out)
+
+
+def intersect_clustered_plain(o, d, geometry, t_max=None) -> Hit:
+    """The plain version of `intersect_clustered`, on any device."""
+    tm = full_t_max(t_max, o.shape[0], o.device)
+    return stream_plain(o, d, tm, geometry.cluster_min, geometry.cluster_max,
+                        geometry.tri_packed)
+
+
+def intersect_clustered(o, d, geometry, t_max=None) -> Hit:
+    """Exact closest hit in (1e-4, t_max) streaming every cluster. Rays
+    with t_max at or below 1e-4 (-inf included) keep t_max and miss."""
+    if o.device.type == "cpu":
+        return intersect_clustered_plain(o, d, geometry, t_max)
+    tm = full_t_max(t_max, o.shape[0], o.device)
+    return _launch(o, d, tm, geometry.cluster_min, geometry.cluster_max,
+                   geometry.tri_packed)
+

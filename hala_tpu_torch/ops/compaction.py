@@ -1,0 +1,42 @@
+"""Wavefront ray stream compaction and coherence sorting.
+
+The JAX package's ops/compaction.py: one argsort per query on the key
+[dead | direction octant | origin Morton cell], so dead rays sink to the
+end and live rays with similar direction and origin sit side by side
+(neighbouring threads then fetch the same cluster blocks). The sort is
+stable, as `jnp.argsort`, so the permutation equals the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .morton import morton3d
+
+
+class RayOrder(NamedTuple):
+    order: torch.Tensor      # (N,) int64: permutation old -> sorted
+    inverse: torch.Tensor    # (N,) int64: scatter sorted results back
+    num_alive: torch.Tensor  # () int64
+
+
+def sort_rays(o, d, active, scene_min, scene_max, cell_bits: int = 9) -> RayOrder:
+    """Coherence key sort. Returns the permutation and its inverse."""
+    octant = ((d[:, 0] >= 0).to(torch.int64)
+              | ((d[:, 1] >= 0).to(torch.int64) << 1)
+              | ((d[:, 2] >= 0).to(torch.int64) << 2))
+    cell = morton3d(o, scene_min, scene_max) >> (30 - cell_bits * 3)
+    key = (((~active).to(torch.int64) << 31) | (octant << 27)
+           | (cell & ((1 << 27) - 1)))
+    order = torch.argsort(key, stable=True)
+    inverse = torch.empty_like(order)
+    inverse[order] = torch.arange(o.shape[0], device=o.device)
+    return RayOrder(order=order, inverse=inverse, num_alive=active.sum())
+
+
+def permute(order: torch.Tensor, *arrays):
+    """Apply a permutation to any number of ray-major arrays."""
+    out = tuple(a[order] for a in arrays)
+    return out if len(out) > 1 else out[0]

@@ -56,6 +56,10 @@ def sources() -> list[str]:
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def headers() -> list[str]:
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def build(verbose: bool = False) -> str:
     """Compile each csrc/*.cu to an object with its own nvcc, all
     started together, then link them into LIB_PATH. Every object and
@@ -119,7 +123,7 @@ def lib() -> ctypes.CDLL:
     than any source."""
     global _lib
     if _lib is None:
-        newest = max(os.path.getmtime(p) for p in sources())
+        newest = max(os.path.getmtime(p) for p in sources() + headers())
         if not os.path.exists(LIB_PATH) or os.path.getmtime(LIB_PATH) < newest:
             build()
         _lib = ctypes.CDLL(LIB_PATH)
@@ -184,11 +188,29 @@ RASTER_TILED = Kernel(
     "hala_raster_tiled",
     [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
 )
+# csrc/cull_topk.cu
+CULL_TOPK = Kernel(
+    "hala_cull_topk",
+    [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+)
+# csrc/traverse_candidates.cu
+TRAVERSE_CANDIDATES = Kernel(
+    "hala_traverse_candidates",
+    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+)
+# csrc/cluster_stream.cu
+CLUSTER_STREAM = Kernel(
+    "hala_cluster_stream",
+    [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+)
 
 KERNELS = {
     "intersect_bruteforce": INTERSECT_BRUTEFORCE,
     "matrix_traverse": MATRIX_TRAVERSE,
     "raster_tiled": RASTER_TILED,
+    "cull_topk": CULL_TOPK,
+    "traverse_candidates": TRAVERSE_CANDIDATES,
+    "cluster_stream": CLUSTER_STREAM,
 }
 
 

@@ -44,11 +44,20 @@ def full_t_max(t_max, n: int, device) -> torch.Tensor:
 def ray_triangle(o, d, v0, e1, e2, t_min: float = T_MIN):
     """Moller-Trumbore of rays o, d (N, 3) against v0, e1, e2 (C, 3).
     Returns (t, u, v), each (N, C), with t = T_MAX where invalid."""
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    ox, oy, oz = o[:, 0:1], o[:, 1:2], o[:, 2:3]
-    v0x, v0y, v0z = v0[None, :, 0], v0[None, :, 1], v0[None, :, 2]
-    e1x, e1y, e1z = e1[None, :, 0], e1[None, :, 1], e1[None, :, 2]
-    e2x, e2y, e2z = e2[None, :, 0], e2[None, :, 1], e2[None, :, 2]
+    t, u, v, valid = mt_components(
+        (o[:, 0:1], o[:, 1:2], o[:, 2:3]), (d[:, 0:1], d[:, 1:2], d[:, 2:3]),
+        [a[None, :, i] for a in (v0, e1, e2) for i in range(3)], t_min,
+    )
+    return torch.where(valid, t, T_MAX), u, v
+
+
+def mt_components(o3, d3, tri9, t_min: float = T_MIN):
+    """Moller-Trumbore on broadcastable components: o3 = (ox, oy, oz),
+    d3 = (dx, dy, dz), tri9 = (v0x, v0y, v0z, e1x, ..., e2z). Returns
+    (t, u, v, valid) with t as computed (not masked)."""
+    ox, oy, oz = o3
+    dx, dy, dz = d3
+    v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = tri9
     # pvec = d x e2
     px = dy * e2z - dz * e2y
     py = dz * e2x - dx * e2z
@@ -67,7 +76,7 @@ def ray_triangle(o, d, v0, e1, e2, t_min: float = T_MIN):
     v = (dx * qx + dy * qy + dz * qz) * inv_det
     t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
     valid = ok_det & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > t_min)
-    return torch.where(valid, t, T_MAX), u, v
+    return t, u, v, valid
 
 
 def canonical_hit(o, d, tri_v0, tri_e1, tri_e2, hit: Hit) -> Hit:

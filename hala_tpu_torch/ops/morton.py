@@ -1,14 +1,17 @@
-"""Morton (Z-order) codes on the host (numpy).
+"""Morton (Z-order) codes: host (numpy) and device (torch) versions.
 
 The uploader orders small scenes' triangles into spatially coherent
-clusters with these codes (scene/loader/uploader.py). The device-side
-(LBVH) half of the JAX package's module belongs to the "bvh" engine,
+clusters with the host codes (scene/loader/uploader.py); the ray
+coherence sort (ops/compaction.py) keys rays on the device codes. Both
+give the JAX package's 30-bit codes (10 bits per axis) bit for bit.
+`sort_by_morton` (the device LBVH build) belongs to the "bvh" engine,
 which this package has not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def _expand_bits_np(v: np.ndarray) -> np.ndarray:
@@ -30,4 +33,27 @@ def morton3d_np(points: np.ndarray, bounds_min, bounds_max) -> np.ndarray:
         (_expand_bits_np(cells[:, 0]) << 2)
         | (_expand_bits_np(cells[:, 1]) << 1)
         | _expand_bits_np(cells[:, 2])
+    )
+
+
+def _expand_bits(v: torch.Tensor) -> torch.Tensor:
+    """Spread 10 bits to every 3rd bit, in int64 with the uint32 masks
+    (torch's uint32 has few operations on the CPU)."""
+    v = v & 0x3FF
+    v = (v | (v << 16)) & 0x030000FF
+    v = (v | (v << 8)) & 0x0300F00F
+    v = (v | (v << 4)) & 0x030C30C3
+    v = (v | (v << 2)) & 0x09249249
+    return v
+
+
+def morton3d(points: torch.Tensor, bounds_min, bounds_max) -> torch.Tensor:
+    """30-bit Morton codes for (N, 3) float32 points, as (N,) int64."""
+    ext = torch.clamp(bounds_max - bounds_min, min=1e-9)
+    q = torch.clamp((points - bounds_min) / ext, 0.0, 1.0 - 1e-7)
+    cells = (q * 1024.0).to(torch.int64)
+    return (
+        (_expand_bits(cells[:, 0]) << 2)
+        | (_expand_bits(cells[:, 1]) << 1)
+        | _expand_bits(cells[:, 2])
     )

@@ -14,9 +14,12 @@ import pytest
 import torch
 
 from hala_tpu_torch.models.integrator import Film, RenderSettings, Uniforms, render_frame
+from hala_tpu_torch.ops import cluster as k6
 from hala_tpu_torch.ops import cuda_lib
+from hala_tpu_torch.ops import cull as k4
 from hala_tpu_torch.ops import raster_kernel as k3
 from hala_tpu_torch.ops import traverse as k2
+from hala_tpu_torch.ops import traverse as k5
 from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 from hala_tpu_torch.scene.cpu.scene import Scene
 from hala_tpu_torch.scene.loader.uploader import SceneUploader
@@ -124,3 +127,76 @@ def test_k3_kernel_matches_plain(cuda_device, tile):
     for a, b in zip(got, ref):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert float(seg.over) == 0.0 and int(seg.n_real) > 0
+
+
+@pytest.fixture(scope="module")
+def atrium_batch():
+    """atrium.glb (369 clusters) on the card and 4096 rays around its
+    centre: a quarter bounded at 2, every 13th dead."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb"))
+    g = SceneUploader.upload(scene, device=dev).geometry
+    real = g.tri_v0[g.tri_mat >= 0]
+    center = ((real.amin(0) + real.amax(0)) / 2).cpu().numpy()
+    o, d = (x.to(dev) for x in _rays(4096, 6, center, 2.0))
+    tm = torch.full((o.shape[0],), 3.0e38, device=dev)
+    tm[1::4] = 2.0
+    tm[::13] = 0.0
+    return g, o, d, tm
+
+
+@pytest.mark.parametrize("k", [4, 12, 16])
+def test_k4_kernel_matches_plain(atrium_batch, k):
+    g, o, d, tm = atrium_batch
+    before = cuda_lib.CULL_TOPK.launches
+    pk, cnt = k4.cull_topk(o, d, tm, g.cluster_min, g.cluster_max, k=k)
+    pk_p, cnt_p = k4.cull_topk_plain(o, d, tm, g.cluster_min, g.cluster_max, k=k)
+    torch.cuda.synchronize()
+    assert cuda_lib.CULL_TOPK.launches == before + 1
+    assert torch.equal(pk, pk_p) and torch.equal(cnt, cnt_p)
+    if k == 4:
+        assert int((cnt > k).sum()) > 0  # truncated lists
+
+
+@pytest.mark.parametrize("k", [4, 12])
+def test_k5_k6_kernels_match_plain(atrium_batch, k):
+    """K5 on K4's lists, then K6 on the fallback's inputs (t_max = -inf
+    for resolved rays) and on the full range: bit for bit."""
+    g, o, d, tm = atrium_batch
+    ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, k)
+    before = (cuda_lib.TRAVERSE_CANDIDATES.launches, cuda_lib.CLUSTER_STREAM.launches)
+    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
+    ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, g.tri_packed)
+    torch.cuda.synchronize()
+    for a, b in zip((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2])):
+        assert torch.equal(a, b)
+    fb_tm = k5.fallback_t_max(got[0], got[1])
+    for t_max in (fb_tm, tm):
+        hk = k6.intersect_clustered(o, d, g, t_max=t_max)
+        hp = k6.intersect_clustered_plain(o, d, g, t_max=t_max)
+        torch.cuda.synchronize()
+        for a, b in zip(hk, hp):
+            assert torch.equal(a, b)
+    assert cuda_lib.TRAVERSE_CANDIDATES.launches == before[0] + 1
+    assert cuda_lib.CLUSTER_STREAM.launches == before[1] + 2
+    if k == 4:
+        assert int(got[1].sum()) > 0  # the fallback has rays to rerun
+
+
+def test_traverse_engine_on_card_equals_cpu(atrium_batch):
+    """intersect_traversed on CUDA tensors launches K4, K5 and K6 once
+    each and returns what its plain versions return on the CPU."""
+    g, o, d, tm = atrium_batch
+    before = cuda_lib.launches()
+    got = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=8)
+    torch.cuda.synchronize()
+    after = cuda_lib.launches()
+    for name in ("cull_topk", "traverse_candidates", "cluster_stream"):
+        assert after[name] == before[name] + 1, name
+    assert after["matrix_traverse"] == before["matrix_traverse"]
+    ref = k5.intersect_traversed(o.cpu(), d.cpu(), g.to("cpu"), t_max=tm.cpu(),
+                                 k_per_ray=8)
+    for a, b in zip(got, ref):
+        assert torch.equal(a.cpu(), b)

@@ -264,8 +264,14 @@ def test_cpu_tensors_never_launch(cornell, sponza, rs):
     tri = torch.tensor([[[1.0, 1.0], [30.0, 2.0], [5.0, 30.0]]])
     rasterize_tiled_exact(tri, torch.ones(1, 3), torch.ones(1, 3),
                           torch.ones(1, dtype=torch.bool), 32, 32, tile=16)
+    from hala_tpu_torch.ops.cluster import intersect_clustered
+    from hala_tpu_torch.ops.traverse import intersect_traversed
+
+    intersect_traversed(_t(o), _t(d), sdev.geometry, k_per_ray=2)
+    intersect_clustered(_t(o), _t(d), sdev.geometry)
     assert cuda_lib.launches() == {
         "intersect_bruteforce": 0, "matrix_traverse": 0, "raster_tiled": 0,
+        "cull_topk": 0, "traverse_candidates": 0, "cluster_stream": 0,
     }
 
 
