@@ -21,9 +21,16 @@ Phases, in order; any failure raises and exits non-zero:
      K2, the three kernels again at the main path's 2^21-ray queries
      (timed there), and `intersect_traversed` over five translated
      copies of atrium_big's clusters (9305 > 8191, two cull
-     superchunks) against K1 over all slots — then the golden renders
-     (path tracer and rasterizer) held against tests/fixtures
-     (RMSE < 1e-3);
+     superchunks) against K1 over all slots; the grouped walk (K8) and
+     the wavefront walk (K7) against their plain versions, bit for bit,
+     closest and any-hit, on 65,536 coherence-sorted mixed rays at tight
+     caps (k_cap 2; k_per_ray 3, m_group 8: lists truncate, the fallback
+     runs) and at the defaults, both engines there against K2's
+     canonical hits, and again at 2^21 sorted rays (timed there, with
+     the walked and tested entries per group and the share of rays sent
+     to the fallback) — then the golden renders (path tracer, with the
+     environment-map golden, and rasterizer) held against
+     tests/fixtures (RMSE < 1e-3);
   4. Cornell 512x512, depth 4, 16 frames through RayTracingRenderer
      (must go through K1 only);
   5. atrium_big at 1920x1088, depth 4, 1 spp, 4 frames (must use K2
@@ -39,7 +46,18 @@ Phases, in order; any failure raises and exits non-zero:
      2e-3, and the K2 frame 0's distance to them is printed; each
      renderer first runs one untimed warm-up frame on a film it then
      discards (frame 0 is kept for the comparisons), except the cluster
-     frame, whose kernels are already loaded;
+     frame, whose kernels are already loaded; then the K2 render again
+     without and with matrix_query's coherence sort, in turns (the films
+     must be equal bit for bit); atrium_big through
+     intersector="grouped" (K8 + K2 as its fallback), "wavefront" (K4 +
+     K7 + K2) and "matrix" with shadow_intersector and
+     extend_intersector "wavefront" (K 8), each within relative RMSE
+     2e-3 of the K2 film of the same frames, with the engines' counts
+     from one more frame, and a torch.profiler window over one
+     wavefront frame; bench.py's envmap configuration (Cornell box
+     without its light under a seeded 64x128 map, 512x512, 16 frames;
+     K1 only) and a short Cornell render with a seeded blue-noise
+     texture;
   6. bench.py's raster cells through RasterizationRenderer with the
      ACES post program: raster_atrium (atrium_big 1920x1088, binned,
      tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
@@ -58,6 +76,7 @@ before printing any result. It imports neither jax nor hala_tpu.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -87,6 +106,11 @@ OPS_SLAB = 32
 OPS_RASTER_EDGE = 18
 OPS_RASTER_INSIDE = 8
 OPS_CULL = 26
+# the factored Moller-Trumbore of csrc/mm_chunk_test.cuh per (ray, slot)
+# pair: the 19 products of the four sums (18 multiplies and the
+# subtraction of c0), 13 more adds and 2 negations, then the epilogue
+# (3 sign products, the reciprocal, t, us + vs, 6 compares)
+OPS_MM = 48
 TRAVERSE_K = 12  # RenderSettings.traverse_k, the main path's K
 # traverse frame 0 vs the cluster frame and vs the brute-force band
 REL_RMSE_TOL = 2e-3
@@ -96,6 +120,7 @@ RASTER_FRAMES = {"raster_atrium": 10, "raster": 10}
 JAX_TPU_REFERENCE = {  # (film mean, rays per primary) of the JAX package
     "cornell": (0.6949, 5.46),
     "sponza": (0.4850, 6.49),
+    "envmap": (0.0352, 7.92),
 }
 
 
@@ -580,6 +605,268 @@ def check_k5_k6(dev_scene, small, big, reps: int):
     return k5_rec, k6_rec, graze
 
 
+def grazes(hit):
+    """Rays whose canonical hit lies within 1e-4 (barycentric) of an
+    edge of its triangle: the factored Moller-Trumbore of K7 and K8 and
+    the classic one of K1 and K2 round differently, so such a hit may
+    be accepted by one and rejected by the other."""
+    import torch
+
+    w0 = 1.0 - hit.u - hit.v
+    return (hit.tri >= 0) & (torch.minimum(torch.minimum(hit.u, hit.v), w0) < 1e-4)
+
+
+GRAZE_EXCUSED_MAX = 64  # per query of at most 2^21 rays
+
+
+def canonical_equal(name: str, a, b) -> int:
+    """Raise unless two canonical hits agree by the statement of
+    tests/test_wavefront.py: the hit mask equal; where the triangle
+    differs |dt| < 1e-4 (a near-tie); where it agrees t at rtol 1e-6
+    and u, v at atol 1e-6. A ray either side hits at a graze (`grazes`)
+    is excused from the first two, and at most GRAZE_EXCUSED_MAX rays
+    may be excused so. Returns the number of winner flips and grazes."""
+    import torch
+
+    graze = grazes(a) | grazes(b)
+    mask_diff = (a.tri >= 0) != (b.tri >= 0)
+    if bool((mask_diff & ~graze).any()):
+        raise AssertionError(f"{name}: hit masks differ in "
+                             f"{int((mask_diff & ~graze).sum())} rays away from any edge")
+    same = a.tri == b.tri
+    far = ~same & ~((a.t - b.t).abs() < 1e-4)
+    if bool((far & ~graze).any()):
+        raise AssertionError(f"{name}: {int((far & ~graze).sum())} winner flips "
+                             "beyond a near-tie")
+    excused = int(((mask_diff | far) & graze).sum())
+    if excused > GRAZE_EXCUSED_MAX:
+        raise AssertionError(f"{name}: {excused} grazing rays differ in the hit mask "
+                             f"or beyond a near-tie, more than {GRAZE_EXCUSED_MAX}")
+    m = same & (b.tri >= 0)
+    if not torch.allclose(a.t[m], b.t[m], rtol=1e-6, atol=0.0):
+        raise AssertionError(f"{name}: t differs beyond rtol 1e-6")
+    for x, y in ((a.u, b.u), (a.v, b.v)):
+        if not torch.allclose(x[m], y[m], rtol=0.0, atol=1e-6):
+            raise AssertionError(f"{name}: u, v differ beyond atol 1e-6")
+    flips = int((~same).sum())
+    log(f"  {name}: {flips} rays differ in the winner ({excused} excused as grazes "
+        f"of at most {GRAZE_EXCUSED_MAX}, the others near-ties), t/u/v agree on the rest")
+    return flips
+
+
+def anyhit_equal(name: str, occ, ref, a, b) -> None:
+    """Raise unless the any-hit masks agree, except on at most
+    GRAZE_EXCUSED_MAX rays whose closest hit by either engine (a, b
+    canonical) is a graze."""
+    diff = occ != ref
+    bad = diff & ~(grazes(a) | grazes(b))
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: any-hit differs in {int(bad.sum())} rays "
+                             "away from any edge")
+    excused = int(diff.sum())
+    if excused > GRAZE_EXCUSED_MAX:
+        raise AssertionError(f"{name}: any-hit differs on {excused} grazing rays, "
+                             f"more than {GRAZE_EXCUSED_MAX}")
+    log(f"  {name}: any-hit differs on {excused} grazing rays "
+        f"(at most {GRAZE_EXCUSED_MAX} excused)")
+
+
+class TestedPairs:
+    """Counts what the walks' plain versions test: for every (group,
+    entry) they hand to `mm_chunk_test_plain`, the group's live rays
+    (t_max > 1e-4; the kernels' lanes return before the first product
+    otherwise) times the cluster's real triangles. The kernels walk and
+    test the same entries (their counts are held equal), so this is the
+    work the function needs on these inputs."""
+
+    def __init__(self, module, real):
+        self.module, self.real, self.pairs = module, real, 0
+
+    def __enter__(self):
+        self.inner = self.module.mm_chunk_test_plain
+
+        def counted(coef, cc, cid, o, d, tm, any_hit):
+            self.pairs += int(((tm > 1e-4).sum(dim=1) * self.real[cid]).sum())
+            return self.inner(coef, cc, cid, o, d, tm, any_hit)
+
+        self.module.mm_chunk_test_plain = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.module.mm_chunk_test_plain = self.inner
+
+
+def check_k7_k8(dev_scene, small, big, reps: int):
+    """K8 (csrc/grouped_walk.cu) and K7 (csrc/wavefront_walk.cu) vs
+    their plain versions, bit for bit, closest and any-hit: on `small`
+    with tight caps (k_cap 2; k_per_ray 3, m_group 8), so that lists
+    truncate and the fallback runs, and with the defaults; the two
+    engines there against K2's canonical hits and any-hit mask; then on
+    `big` in coherence order, as matrix_query feeds them, at the
+    defaults (k_cap 32; k_per_ray 16 and 8, m_group 32), timed."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k8
+    from hala_tpu_torch.ops import wavefront as k7
+    from hala_tpu_torch.ops.intersect import canonical_hit
+
+    g = dev_scene.geometry
+    cmin, cmax, blk = g.cluster_min, g.cluster_max, g.tri_packed
+    c = cmin.shape[0]
+    real = (g.tri_mat >= 0).view(c, k8.TRI_CHUNK).sum(dim=1)
+    walk_labels = ("t", "tri", "u", "v", "walked")
+
+    def coherent(batch):
+        o, d, tm = k8.pad_to_groups(*batch)
+        order = torch.argsort(k8._coherence_key(o, d, tm, cmin, cmax), stable=True)
+        return o[order].contiguous(), d[order].contiguous(), tm[order].contiguous()
+
+    def k8_args(o, d, tm, k_cap):
+        k = min(k_cap, c)
+        ids, tns, usz = k8._group_candidates(o, d, tm, cmin, cmax, k)
+        return (o, d, tm, torch.clamp(usz, max=k),
+                torch.clamp(ids, max=c - 1).contiguous(), tns.view(torch.int32),
+                blk, cmin, cmax), usz
+
+    def k7_args(o, d, tm, k, m):
+        w = k7.wavefront_lists(o, d, tm, g, k, m)
+        return (w.o, w.d, w.t_max, w.tnb, w.want, w.own_last, blk, cmin, cmax), w
+
+    def need_share(tm, need):
+        return int(need.sum()) / max(int((tm > 0).sum()), 1)
+
+    o, d, tm = coherent(small)
+    n = o.shape[0]
+    k2 = k8.intersect_matrix(o, d, g, t_max=tm)
+    k2c = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2, k2)
+    k2_any = k8.intersect_matrix(o, d, g, t_max=tm, any_hit=True).tri >= 0
+    for k_cap in (2, 32):
+        args, usz = k8_args(o, d, tm, k_cap)
+        for any_hit in (False, True):
+            got = k8.grouped_walk(*args, any_hit)
+            ref = k8.grouped_walk_plain(*args, any_hit)
+            torch.cuda.synchronize()
+            equal_tensors(f"K8 k_cap={k_cap} any_hit={any_hit}", got, ref, walk_labels)
+        hit = k8.intersect_grouped(o, d, g, t_max=tm, k_cap=k_cap)
+        canonical_equal(f"intersect_grouped k_cap={k_cap} vs K2 (N={n})", hit, k2c)
+        occ = k8.intersect_grouped(o, d, g, t_max=tm, k_cap=k_cap, any_hit=True)
+        anyhit_equal(f"intersect_grouped k_cap={k_cap}", occ.tri >= 0, k2_any, hit, k2c)
+        log(f"  K8 k_cap={k_cap} N={n}: closest and any-hit equal to the plain "
+            f"version bit for bit; {float((usz > k_cap).float().mean()):.3f} of "
+            f"groups truncated; any-hit mask held against K2's")
+    for k, m in ((3, 8), (16, 32)):
+        args, w = k7_args(o, d, tm, k, m)
+        for any_hit in (False, True):
+            got = k7.wavefront_walk(*args, any_hit)
+            ref = k7.wavefront_walk_plain(*args, any_hit)
+            torch.cuda.synchronize()
+            equal_tensors(f"K7 k={k} m={m} any_hit={any_hit}", got, ref,
+                          walk_labels[:4] + ("stats",))
+        hit = k7.intersect_wavefront(o, d, g, t_max=tm, k_per_ray=k, m_group=m)
+        canonical_equal(f"intersect_wavefront k={k} m={m} vs K2 (N={n})", hit, k2c)
+        occ = k7.intersect_wavefront(o, d, g, t_max=tm, k_per_ray=k, m_group=m,
+                                     any_hit=True)
+        anyhit_equal(f"intersect_wavefront k={k} m={m}", occ.tri >= 0, k2_any, hit, k2c)
+        log(f"  K7 k={k} m={m} N={n}: closest and any-hit equal to the plain "
+            f"version bit for bit; {float((w.cnt > k).float().mean()):.3f} of rays "
+            f"truncated by the cull, {float((w.grp_bound != k7.INF_KEY).float().mean()):.3f} "
+            f"of groups by the cap; any-hit mask held against K2's")
+
+    # the main path's query size, in the order matrix_query gives K8
+    o, d, tm = coherent(big)
+    n = o.shape[0]
+    g_total = n // k8.GROUP
+    ray_bytes = n * 28 + n * 16 + blk.numel() * 4 + c * 24
+    args, usz = k8_args(o, d, tm, 32)
+    got = k8.grouped_walk(*args)
+    with TestedPairs(k8, real) as work:
+        ref = k8.grouped_walk_plain(*args)
+    torch.cuda.synchronize()
+    equal_tensors(f"K8 k_cap=32 N={n}", got, ref, walk_labels)
+    walked = int(got[4].sum())
+    t_fin = torch.where(got[0] < 3.0e38, got[0], tm)
+    bound8 = torch.where(usz > 32, args[5].view(torch.float32)[:, -1], 3.0e38)
+    need8 = t_fin > bound8.repeat_interleave(k8.GROUP)
+    b_ms, b_by = bound(work.pairs * OPS_MM,
+                       ray_bytes + g_total * (4 + 32 * 8) + g_total * 4)
+    k8_rec = dict(
+        max_abs_err=max_abs_diff(got[:1] + got[2:4], ref[:1] + ref[2:4]),
+        tri_mismatches=int((got[1] != ref[1]).sum()),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, rays=n,
+        tested_pairs=work.pairs, slot_fill=work.pairs / (walked * 128 * 128),
+        walked_per_group=walked / g_total, need_share=need_share(tm, need8),
+        truncated_groups=float((usz > 32).float().mean()),
+        ms=cuda_ms(lambda: k8.grouped_walk(*args), reps),
+        anyhit_ms=cuda_ms(lambda: k8.grouped_walk(*args, True), reps),
+        plain_ms=cuda_ms(lambda: k8.grouped_walk_plain(*args), 1),
+        lists_ms=cuda_ms(lambda: k8._group_candidates(o, d, tm, cmin, cmax, 32), 1),
+        engine_ms=cuda_ms(lambda: k8.intersect_grouped(o, d, g, t_max=tm), 1),
+    )
+    log(f"  K8 k_cap=32 N={n}: equal bit for bit; kernel {k8_rec['ms']:.3f} ms "
+        f"(any-hit {k8_rec['anyhit_ms']:.3f}), plain {k8_rec['plain_ms']:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}; {work.pairs} live ray x real triangle "
+        f"pairs, {k8_rec['slot_fill']:.3f} of the walked entries' 128 x 128); "
+        f"{k8_rec['walked_per_group']:.2f} entries walked per group, {k8_rec['truncated_groups']:.3f} of groups truncated, "
+        f"{k8_rec['need_share']:.4f} of live rays to the fallback; list glue "
+        f"{k8_rec['lists_ms']:.1f} ms, the whole engine {k8_rec['engine_ms']:.1f} ms")
+    del args, got, ref
+
+    k7_rec = None
+    for k in (16, 8):
+        args, w = k7_args(o, d, tm, k, 32)
+        got = k7.wavefront_walk(*args)
+        with TestedPairs(k8, real) as work:
+            ref = k7.wavefront_walk_plain(*args)
+        torch.cuda.synchronize()
+        equal_tensors(f"K7 k={k} m=32 N={n}", got, ref, walk_labels[:4] + ("stats",))
+        walked, tested = (int(x) for x in got[4].sum(dim=0))
+        t_fin = torch.where(got[0] < 3.0e38, got[0], w.t_max)
+        need7 = torch.clamp(t_fin, min=0.0).view(torch.int32) > k7.fallback_bound(
+            w.pk, w.cnt, w.grp_bound, k)
+        b_ms, b_by = bound(work.pairs * OPS_MM,
+                           ray_bytes + g_total * 32 * 4 + n * 8 + g_total * 8)
+        rec = dict(
+            max_abs_err=max_abs_diff(got[:1] + got[2:4], ref[:1] + ref[2:4]),
+            tri_mismatches=int((got[1] != ref[1]).sum()),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None, rays=n, k=k,
+            tested_pairs=work.pairs, slot_fill=work.pairs / (tested * 128 * 128),
+            walked_per_group=walked / g_total, tested_per_group=tested / g_total,
+            need_share=need_share(w.t_max, need7),
+            list_len=float((w.tnb != k7.INF_KEY).sum()) / g_total,
+            ms=cuda_ms(lambda: k7.wavefront_walk(*args), reps),
+            anyhit_ms=cuda_ms(lambda: k7.wavefront_walk(*args, True), reps),
+            plain_ms=cuda_ms(lambda: k7.wavefront_walk_plain(*args), 1),
+            lists_ms=cuda_ms(lambda: k7.wavefront_lists(o, d, tm, g, k, 32), 1),
+            engine_ms=cuda_ms(lambda: k7.intersect_wavefront(
+                o, d, g, t_max=tm, k_per_ray=k), 1),
+        )
+        log(f"  K7 k={k} m=32 N={n}: equal bit for bit; kernel {rec['ms']:.3f} ms "
+            f"(any-hit {rec['anyhit_ms']:.3f}), plain {rec['plain_ms']:.1f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}; {work.pairs} live ray x real triangle "
+            f"pairs, {rec['slot_fill']:.3f} of the tested entries' 128 x 128); "
+            f"lists of {rec['list_len']:.2f} entries, "
+            f"{rec['walked_per_group']:.2f} walked and {rec['tested_per_group']:.2f} "
+            f"tested per group, {rec['need_share']:.4f} of live rays to the "
+            f"fallback; list glue (cull, sort, merge) {rec['lists_ms']:.1f} ms, the "
+            f"whole engine {rec['engine_ms']:.1f} ms")
+        if k7_rec is None:
+            k7_rec = rec
+        else:
+            k7_rec["k8"] = {key: rec[key] for key in (
+                "ms", "anyhit_ms", "bound_ms", "tested_pairs", "walked_per_group",
+                "tested_per_group", "need_share", "list_len", "engine_ms")}
+        del args, got, ref, w
+    # both engines against K2 at this size, the defaults
+    k2c = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2,
+                        k8.intersect_matrix(o, d, g, t_max=tm))
+    k8_rec["flips_vs_k2"] = canonical_equal(
+        f"intersect_grouped vs K2 (N={n})", k8.intersect_grouped(o, d, g, t_max=tm), k2c)
+    k7_rec["flips_vs_k2"] = canonical_equal(
+        f"intersect_wavefront vs K2 (N={n})", k7.intersect_wavefront(o, d, g, t_max=tm),
+        k2c)
+    return k7_rec, k8_rec
+
+
 def tiled_geometry(dev_scene, copies: int):
     """`copies` translated copies of the scene's cluster tables, side by
     side along x, built on the card (tri_packed rows 0-2 and the row-9
@@ -828,10 +1115,29 @@ def golden_raster(device) -> None:
             raise AssertionError(f"golden_{name}: RMSE {rmse}")
 
 
+def golden_envmap_array():
+    """The map of the envmap golden: seeded noise with one hot texel."""
+    rs = np.random.RandomState(11)
+    rgb = rs.uniform(0.05, 0.4, (16, 32, 3)).astype(np.float32)
+    rgb[4, 9] = 30.0
+    return rgb
+
+
+def bench_envmap_array():
+    """bench.py's envmap configuration: a seeded 64x128 map with a hot
+    "sun" patch the CDF must find."""
+    rs = np.random.RandomState(7)
+    rgb = rs.uniform(0.05, 0.3, (64, 128, 3)).astype(np.float32)
+    rgb[20:26, 40:48] = 60.0
+    return rgb
+
+
 def golden_renders(device) -> None:
-    """Small renders through the auto path held against the fixtures."""
+    """Small renders held against the fixtures: the auto path, and the
+    environment-map golden through the brute force."""
+    from hala_tpu_torch.envmap import EnvMap
     from hala_tpu_torch.models.integrator import (
-        Film, RenderSettings, Uniforms, render_frame,
+        ENV_MAP, Film, RenderSettings, Uniforms, render_frame,
     )
     from hala_tpu_torch.scene.cpu.scene import Scene
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
@@ -839,16 +1145,23 @@ def golden_renders(device) -> None:
 
     cases = (
         ("cornell", cornell_box(), RenderSettings(32, 32, max_depth=3), 8,
-         ("accum", "albedo", "normal")),
+         ("accum", "albedo", "normal"), None),
         ("atrium", Scene.load(os.path.join(HERE, "assets", "atrium.glb")),
-         RenderSettings(24, 24, max_depth=2), 4, ("accum", "albedo")),
+         RenderSettings(24, 24, max_depth=2), 4, ("accum", "albedo"), None),
+        # tests/test_golden.py TestGoldenEnvmap: the map of
+        # tests/fixtures/regen_golden.py, no ceiling light
+        ("envmap", cornell_box(light_intensity=0.0),
+         RenderSettings(32, 32, max_depth=3, rr_depth=2, tile_size=1024,
+                        intersector="bruteforce", env_type=ENV_MAP), 8,
+         ("accum",), golden_envmap_array()),
     )
-    for name, host, settings, frames, keys in cases:
+    for name, host, settings, frames, keys, env_rgb in cases:
         ds = SceneUploader.upload(host, device=device)
         film = Film.create(settings.width, settings.height, device)
         uni = Uniforms.default(device)
+        env = None if env_rgb is None else EnvMap.from_array(env_rgb, device=device)
         for f in range(frames):
-            render_frame(ds, None, uni, film, f, settings)
+            render_frame(ds, env, uni, film, f, settings)
         with np.load(os.path.join(HERE, "tests", "fixtures",
                                   f"golden_{name}.npz")) as z:
             for k in keys:
@@ -884,8 +1197,6 @@ def band_frame0(r, intersector: str):
     render_frame with row_offset/full_height traces the same camera
     rays with the same RNG as those rows of the full frame. Returns the
     RGB band (rows, W, 3)."""
-    import dataclasses
-
     import torch
 
     from hala_tpu_torch.models.integrator import Film, render_frame
@@ -973,6 +1284,53 @@ def run_render(r, frames: int, k: int, name: str, card: str,
         f"{out['mrays_per_s']:.2f} Mrays/s, {out['ms_per_frame']:.1f} ms/frame "
         f"[{card}]")
     return out
+
+
+def family_render(name: str, host_scene, frames: int, k2_film, card: str,
+                  size=(1920, 1088), device="cuda", **kw):
+    """One matrix-family render of atrium_big at 1920x1088: a warm-up
+    frame, `frames` timed frames with the launch counts read around
+    them, bench.py's sponza invariants, the film's relative RMSE to the
+    K2 film of the same frames (gated at REL_RMSE_TOL: the whole family
+    shares the split shadow query), then one more frame for the
+    engines' counts. Returns (record, launches, renderer)."""
+    import torch
+
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import traverse as k8
+
+    r = RayTracingRenderer(name.replace(" ", "_"), *size, max_depth=4,
+                           rr_depth=2, spp=1, device=device, **kw)
+    r.set_scene(host_scene)
+    r.commit()
+    warm_up(r)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    out = run_render(r, frames, frames, name, card, cell="sponza")
+    counts = cuda_lib.launches()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["rel_rmse_vs_k2"] = rel_rmse(r.film.accum[..., :3], k2_film)
+    out["launches_per_frame"] = {
+        key: counts[key] / frames
+        for key in ("matrix_traverse", "cull_topk", "wavefront_walk", "grouped_walk")}
+    if not out["rel_rmse_vs_k2"] < REL_RMSE_TOL:
+        raise AssertionError(f"{name}: relative RMSE to the K2 film "
+                             f"{out['rel_rmse_vs_k2']}")
+    k8.walk_stats.reset()
+    k8.walk_stats.enabled = True
+    r.render_loop(1)
+    torch.cuda.synchronize()
+    k8.walk_stats.enabled = False
+    out.update(k8.walk_stats.summary())
+    log(f"  {name}: film relative RMSE vs the K2 film of the same {frames} "
+        f"frame(s) {out['rel_rmse_vs_k2']:.3g}; launches per frame "
+        f"{out['launches_per_frame']}; over the {out['queries']} walk queries of "
+        f"one more frame: {out['walked_per_group']:.2f} entries walked and "
+        f"{out['tested_per_group']:.2f} tested per group, {out['need_share']:.4f} "
+        f"of live rays to the fallback; peak memory "
+        f"{out['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    return out, counts, r
 
 
 def post_program():
@@ -1090,6 +1448,7 @@ def main() -> int:
               "this smoke test needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from hala_tpu_torch.envmap import EnvMap
     from hala_tpu_torch.ops import cuda_lib
     from hala_tpu_torch.ops import traverse as k5
     from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
@@ -1128,6 +1487,7 @@ def main() -> int:
     big = mixed_batch(big_dev, 1024, 1024, 1 << 20, 33)
     k4_rec = check_k4(big_dev, small, big, reps=5)
     k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
+    k7_rec, k8_rec = check_k7_k8(big_dev, small, big, reps=5)
     wide_rec = check_past_key_width(big_dev, 32768)
     del big_dev, small, big
     golden_renders(dev)
@@ -1227,6 +1587,82 @@ def main() -> int:
     del clus
     witness = shadow_range_witness(sponza, trav_frame0, k2_frame0, card)
 
+    # The same K2 render without matrix_query's coherence sort, before
+    # and after a second sorted window: K2 is exact under any order, so
+    # the films must be equal bit for bit.
+    unsorted = RayTracingRenderer("sponza_unsorted", 1920, 1088, max_depth=4,
+                                  rr_depth=2, spp=1, device="cuda")
+    unsorted.set_scene(big_host)
+    unsorted.commit()
+    unsorted.settings = dataclasses.replace(unsorted.settings, sort_rays=False)
+    warm_up(unsorted)
+    u_out = run_render(unsorted, 2, 2, "atrium_big K2 unsorted", card, cell="sponza")
+    k2_two = unsorted.film.accum[..., :3].clone()
+    sponza.reset_accumulation()
+    sponza.total_rays = 0.0
+    s2_out = run_render(sponza, 2, 2, "atrium_big K2 sorted", card, cell="sponza")
+    if not torch.equal(sponza.film.accum, unsorted.film.accum):
+        raise AssertionError("the coherence sort changed the K2 film")
+    unsorted.reset_accumulation()
+    unsorted.total_rays = 0.0
+    u2_out = run_render(unsorted, 2, 2, "atrium_big K2 unsorted", card, cell="sponza")
+    sort_out = dict(unsorted_ms=[u_out["ms_per_frame"], u2_out["ms_per_frame"]],
+                    sorted_ms=[s_out["ms_per_frame"], s2_out["ms_per_frame"]])
+    log(f"  K2 frame with / without the coherence sort: sorted "
+        f"{sort_out['sorted_ms'][0]:.1f} and {sort_out['sorted_ms'][1]:.1f} "
+        f"ms/frame, unsorted {sort_out['unsorted_ms'][0]:.1f} and "
+        f"{sort_out['unsorted_ms'][1]:.1f}; films equal bit for bit [{card}]")
+    del unsorted
+
+    # The grouped and the wavefront engine, and the matrix backend with
+    # its shadow and bounce rays routed to the wavefront (K 8).
+    g_out, after_grouped, r = family_render(
+        "atrium_big grouped", big_host, 1, k2_frame0, card, intersector="grouped")
+    if not (after_grouped["grouped_walk"] > 0 and after_grouped["matrix_traverse"] > 0
+            and after_grouped["wavefront_walk"] == 0 and after_grouped["cull_topk"] == 0):
+        raise AssertionError(f"atrium_big grouped launches {after_grouped}")
+    del r
+    w_out, after_wave, wave = family_render(
+        "atrium_big wavefront", big_host, 2, k2_two, card, intersector="wavefront")
+    if not (after_wave["wavefront_walk"] > 0 and after_wave["cull_topk"] > 0
+            and after_wave["matrix_traverse"] > 0 and after_wave["grouped_walk"] == 0):
+        raise AssertionError(f"atrium_big wavefront launches {after_wave}")
+    w_prof = profile_frames("atrium_big wavefront", lambda: wave.render_loop(1), 1,
+                            w_out["ms_per_frame"], card)
+    del wave
+    x_out, after_mixed, r = family_render(
+        "atrium_big matrix + wavefront shadow/extend", big_host, 2, k2_two, card,
+        intersector="matrix", shadow_intersector="wavefront",
+        extend_intersector="wavefront")
+    if not all(after_mixed[k] > 0 for k in ("matrix_traverse", "cull_topk",
+                                            "wavefront_walk")):
+        raise AssertionError(f"matrix + wavefront routes launches {after_mixed}")
+    del r
+
+    # bench.py's envmap configuration through K1, and a short render
+    # with a seeded blue-noise texture.
+    envr = RayTracingRenderer("envmap", 512, 512, max_depth=4, rr_depth=2,
+                              device="cuda")
+    envr.set_scene(cornell_box(light_intensity=0.0))
+    envr.set_envmap(EnvMap.from_array(bench_envmap_array(), device="cuda"))
+    envr.commit()
+    warm_up(envr)
+    cuda_lib.reset_launches()
+    e_out = run_render(envr, 16, 16, "envmap", card)
+    after_env = cuda_lib.launches()
+    if not (after_env["intersect_bruteforce"] > 0
+            and sum(after_env.values()) == after_env["intersect_bruteforce"]):
+        raise AssertionError(f"envmap launches {after_env}")
+    bn = RayTracingRenderer("cornell_blue_noise", 256, 256, max_depth=4, rr_depth=2,
+                            device="cuda")
+    bn.set_scene(cornell_box())
+    bn.blue_noise = torch.rand((64, 64, 4), device="cuda",
+                               generator=torch.Generator("cuda").manual_seed(5))
+    bn.commit()
+    bn_out = run_render(bn, 4, 4, "cornell blue noise", card, cell="cornell")
+    log(f"  launches: envmap {after_env}")
+    del envr, bn
+
     post = post_program()
     ra = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=64,
                                post_program=post, device="cuda")
@@ -1292,6 +1728,10 @@ def main() -> int:
               after_trav["traverse_candidates"], k5_rec),
         entry("cluster_stream (K6)", "hala_tpu_torch/csrc/cluster_stream.cu",
               "hala_tpu/ops/cluster.py:285", after_trav["cluster_stream"], k6_rec),
+        entry("wavefront_walk (K7)", "hala_tpu_torch/csrc/wavefront_walk.cu",
+              "hala_tpu/ops/wavefront.py:287", after_wave["wavefront_walk"], k7_rec),
+        entry("grouped_walk (K8)", "hala_tpu_torch/csrc/grouped_walk.cu",
+              "hala_tpu/ops/traverse.py:2013", after_grouped["grouped_walk"], k8_rec),
     ]
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
                    atrium_big_peak_bytes=peak, raster_atrium=ra_out,
@@ -1315,6 +1755,11 @@ def main() -> int:
                    shadow_range_witness=witness,
                    traverse_cull_misses_vs_k2=graze_k2,
                    past_key_width=wide_rec,
+                   k7=k7_rec, k8=k8_rec, k2_sort=sort_out,
+                   atrium_big_grouped=g_out, atrium_big_wavefront=w_out,
+                   atrium_big_wavefront_profile=w_prof,
+                   atrium_big_matrix_wavefront_routes=x_out,
+                   envmap=e_out, cornell_blue_noise=bn_out,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -30,6 +30,7 @@ from .scene.cpu.image_data import ImageData, ImageFormat  # noqa: E402
 from .scene.loader.gltf_loader import GltfLoader  # noqa: E402
 from .scene.loader.uploader import SceneUploader  # noqa: E402
 from .scene.gpu.scene import DeviceScene, from_numpy  # noqa: E402
+from .envmap import EnvMap  # noqa: E402
 from .models.renderer import RendererInfo, RendererStatistics, BaseRenderer  # noqa: E402
 from .models.rt_renderer import RayTracingRenderer, EnvType  # noqa: E402
 from .models.rz_renderer import RasterizationRenderer  # noqa: E402
@@ -45,7 +46,7 @@ __all__ = [
     "Light", "LightType",
     "Camera", "PerspectiveCamera", "OrthographicCamera",
     "ImageData", "ImageFormat",
-    "GltfLoader", "SceneUploader", "DeviceScene", "from_numpy",
+    "GltfLoader", "SceneUploader", "DeviceScene", "from_numpy", "EnvMap",
     "RendererInfo", "RendererStatistics", "BaseRenderer",
     "RayTracingRenderer", "EnvType", "RasterizationRenderer",
     "KernelCache", "ComputeProgram", "GraphicsProgram",

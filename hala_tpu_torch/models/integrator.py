@@ -4,7 +4,8 @@
 Honored algorithm parameters (SURVEY.md section 2.2): max bounce depth
 and Russian-roulette start depth (rt_renderer.rs:572-573),
 frame-index-seeded progressive accumulation (rt_renderer.rs:408-427),
-NEE over the analytic lights with MIS, DOF camera, two-sided shading
+NEE over the analytic lights and the HDR environment map with MIS,
+blue-noise sampling, DOF camera, two-sided shading
 with Oren-Nayar / Disney BSDF dispatch (textures, normal maps, UV
 transforms, transmission), alpha any-hit surfaces, absorbing,
 scattering and emissive media, and albedo/normal AOVs on first hit.
@@ -15,10 +16,9 @@ Rays are flat (N,) SoA batches. The film is traced in tiles of
 in place. Every pixel's samples come from PCG4D keyed on its global
 pixel id, so results do not depend on tiling.
 
-Not ported yet (each raises HalaRendererError when requested): the HDR
-environment map, blue-noise sampling, pushed kernel hooks, procedural
-spheres, the geometry-sharded `scene_axis` mode and the "wavefront",
-"grouped" and "bvh" engines.
+Not ported yet (each raises HalaRendererError when requested): pushed
+kernel hooks, procedural spheres, the geometry-sharded `scene_axis` mode
+and the "bvh" engine.
 """
 
 from __future__ import annotations
@@ -33,8 +33,8 @@ from ..ops import rng
 from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_materials
 from ..ops.camera import generate_rays
 from ..ops.cluster import intersect_clustered
-from ..ops.compaction import permute, sort_rays
-from ..ops.env import sky_radiance
+from ..ops.compaction import order_by, permute
+from ..ops.env import env_eval, env_sample, sky_radiance
 from ..ops.intersect import (
     T_MAX,
     Hit,
@@ -55,11 +55,16 @@ from ..ops.sampling import (
     to_world,
 )
 from ..ops.texture import sample_textures_packed
+from ..ops.cull import _ID_MASK as _CULL_ID_MASK
 from ..ops.traverse import (
     MATRIX_MAX_CLUSTERS,
+    _coherence_key,
+    intersect_grouped,
+    intersect_matrix,
     intersect_traversed,
     matrix_query,
 )
+from ..ops.wavefront import intersect_wavefront
 from ..scene.gpu.scene import TensorTables, resolve_device
 
 ENV_SKY = 0  # rt_renderer.rs:23-41 HalaEnvType
@@ -76,17 +81,31 @@ class RenderSettings:
     `intersector` selects the visibility backend; "auto" resolves per
     scene in `_backend`. Explicit values: "pallas" (the brute-force
     kernel, csrc/intersect_bruteforce.cu), "matrix" (the cluster
-    traversal kernel, csrc/matrix_traverse.cu), "traverse" (the
-    candidate cull csrc/cull_topk.cu, the candidate walk
-    csrc/traverse_candidates.cu and the exact fallback
+    traversal kernel, csrc/matrix_traverse.cu), "grouped" (per-group
+    candidate lists walked by csrc/grouped_walk.cu), "wavefront" (the
+    cull csrc/cull_topk.cu and merged per-group lists walked by
+    csrc/wavefront_walk.cu; both fall back to the matrix kernel for
+    rays their lists truncate), "traverse" (the cull, the candidate
+    walk csrc/traverse_candidates.cu and the exact fallback
     csrc/cluster_stream.cu), "cluster" (csrc/cluster_stream.cu alone)
     and "bruteforce" (the chunked plain PyTorch scan, the ground truth).
-    The JAX package's other engines are not ported yet and raise.
+    "auto" never picks "grouped" or "wavefront". "bvh" is not ported
+    yet and raises.
 
-    `sort_rays` runs the "traverse" and "cluster" queries under the
-    coherence sort (ops/compaction.py); the "matrix" query is unsorted
-    here whatever it says (the sort changes no output). `traverse_k`
-    bounds the "traverse" candidate lists (at most 16).
+    `sort_rays` runs every large-scene query under a coherence sort
+    (`matrix_query` for the matrix family, ops/compaction.py for
+    "traverse" and "cluster"). `traverse_k` bounds the "traverse"
+    candidate lists, `wavefront_k` the wavefront's per-ray lists (both
+    at most 16) and `wavefront_m` its per-group merged lists (at most
+    32).
+
+    On a matrix-family backend, `shadow_intersector="wavefront"` sends
+    the shadow rays' any-hit query to the wavefront with
+    `shadow_wavefront_k` candidates per ray, and
+    `extend_intersector="wavefront"` the bounce rays' closest-hit query
+    with `extend_wavefront_k` (where the shadow rays have a query of
+    their own, that is without alpha materials); "auto" and "matrix"
+    leave both with the backend.
 
     `tile_size` defaults to 2^20 rays (the JAX package: 65536): on the
     GPU a tile's time is dominated by per-operation launch cost well
@@ -110,6 +129,12 @@ class RenderSettings:
     scene_axis: str | None = None
     sort_rays: bool = True
     traverse_k: int = 12
+    wavefront_k: int = 16
+    wavefront_m: int = 32
+    shadow_intersector: str = "auto"
+    shadow_wavefront_k: int = 8
+    extend_intersector: str = "auto"
+    extend_wavefront_k: int = 8
 
 
 @dataclasses.dataclass
@@ -160,8 +185,10 @@ class Film(TensorTables):
         return Film(accum=z(), albedo=z(), normal=z())
 
 
-_BACKENDS = ("auto", "pallas", "matrix", "traverse", "cluster", "bruteforce")
-_NOT_PORTED = ("wavefront", "grouped", "bvh", "legacy")
+_BACKENDS = ("auto", "pallas", "matrix", "grouped", "wavefront", "traverse",
+             "cluster", "bruteforce")
+_MATRIX_FAMILY = ("wavefront", "matrix", "grouped")
+_NOT_PORTED = ("bvh", "legacy")
 
 
 def _backend(settings: RenderSettings, scene) -> str:
@@ -199,21 +226,69 @@ def _sorted_dispatch(scene, o, d, t_max, query) -> Hit:
     (ops/compaction.py) and undo the permutation."""
     g = scene.geometry
     tm = full_t_max(t_max, o.shape[0], o.device)
-    smin = g.cluster_min.amin(dim=0)
-    smax = torch.where(g.cluster_max < 1e30, g.cluster_max, -torch.inf).amax(dim=0)
-    ro = sort_rays(o, d, tm > 0, smin, smax)
-    o_s, d_s, t_s = permute(ro.order, o, d, tm)
-    hit = query(o_s, d_s, t_s)
-    return Hit(*(permute(ro.inverse, x) for x in hit))
+    order, inverse = order_by(
+        _coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+    hit = query(*permute(order, o, d, tm))
+    return Hit(*(permute(inverse, x) for x in hit))
 
 
-def _intersect(scene, o, d, settings: RenderSettings, t_max=None) -> Hit:
-    """Closest-hit dispatch."""
+def _wavefront_route(settings: RenderSettings, scene, choice: str) -> bool:
+    """A ray class routes to the wavefront only on an explicit
+    "wavefront" for it, a matrix-family backend and a cluster count
+    inside the cull's key width; "auto" never does."""
+    return (
+        choice == "wavefront"
+        and _backend(settings, scene) in _MATRIX_FAMILY
+        and scene.geometry.tri_packed.shape[0] < _CULL_ID_MASK
+    )
+
+
+def _shadow_wavefront_route(settings: RenderSettings, scene) -> bool:
+    """True iff shadow-class queries route to the any-hit wavefront."""
+    return _wavefront_route(settings, scene, settings.shadow_intersector)
+
+
+def _extend_wavefront_route(settings: RenderSettings, scene) -> bool:
+    """True iff extend-class (closest-hit bounce ray) queries route to
+    the wavefront."""
+    return _wavefront_route(settings, scene, settings.extend_intersector)
+
+
+def _matrix_family(scene, o, d, t_max, any_hit: bool,
+                   settings: RenderSettings) -> Hit:
+    """One query of a matrix-family backend: under `matrix_query`'s
+    coherence sort, or the engine alone with sort_rays off."""
+    g = scene.geometry
+    backend = _backend(settings, scene)
+    if settings.sort_rays:
+        return matrix_query(
+            o, d, g, t_max=t_max, any_hit=any_hit, kernel=backend,
+            wavefront_k=settings.wavefront_k, wavefront_m=settings.wavefront_m,
+        )
+    if backend == "wavefront":
+        return intersect_wavefront(
+            o, d, g, t_max=t_max, any_hit=any_hit,
+            k_per_ray=settings.wavefront_k, m_group=settings.wavefront_m,
+        )
+    if backend == "grouped":
+        return intersect_grouped(o, d, g, t_max=t_max, any_hit=any_hit)
+    return intersect_matrix(o, d, g, t_max=t_max, any_hit=any_hit)
+
+
+def _intersect(scene, o, d, settings: RenderSettings, t_max=None,
+               extend: bool = False) -> Hit:
+    """Closest-hit dispatch. `extend` marks a bounce rays' query, which
+    `extend_intersector` may send to the wavefront."""
     g = scene.geometry
     backend = _backend(settings, scene)
     o, d = o.contiguous(), d.contiguous()
-    if backend == "matrix":
-        return matrix_query(o, d, g, t_max=t_max)
+    if backend in _MATRIX_FAMILY:
+        if extend and _extend_wavefront_route(settings, scene):
+            return intersect_wavefront(
+                o, d, g, t_max=t_max, k_per_ray=settings.extend_wavefront_k,
+                m_group=settings.wavefront_m,
+            )
+        return _matrix_family(scene, o, d, t_max, False, settings)
     if backend in ("traverse", "cluster"):
         if backend == "traverse":
             def query(o_q, d_q, t_q):
@@ -241,10 +316,17 @@ def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
     g = scene.geometry
     backend = _backend(settings, scene)
     o, d = o.contiguous(), d.contiguous()
-    if backend == "matrix":
-        return matrix_query(
-            o, d, g, t_max=t_far * (1.0 - 1e-4), any_hit=True
-        ).tri >= 0
+    if backend in _MATRIX_FAMILY:
+        tf = t_far * (1.0 - 1e-4)
+        if _shadow_wavefront_route(settings, scene) or (
+                backend == "wavefront" and not settings.sort_rays):
+            # shadow segments are short: their own, smaller K
+            return intersect_wavefront(
+                o, d, g, t_max=tf, any_hit=True,
+                k_per_ray=settings.shadow_wavefront_k,
+                m_group=settings.wavefront_m,
+            ).tri >= 0
+        return _matrix_family(scene, o, d, tf, True, settings).tri >= 0
     if backend in ("traverse", "cluster"):
         return _intersect(scene, o, d, settings, t_max=t_far * (1.0 - 1e-4)).tri >= 0
     if backend == "pallas":
@@ -256,11 +338,7 @@ def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
     )
 
 
-def _check_ported(env, settings: RenderSettings, blue_noise, hooks) -> None:
-    if settings.env_type == ENV_MAP and env is not None:
-        raise HalaRendererError("environment map lighting is not yet ported")
-    if blue_noise is not None:
-        raise HalaRendererError("blue-noise sampling is not yet ported")
+def _check_ported(settings: RenderSettings, hooks) -> None:
     if hooks is not None:
         raise HalaRendererError("pushed kernel hooks are not yet ported")
     if settings.scene_axis is not None:
@@ -269,11 +347,13 @@ def _check_ported(env, settings: RenderSettings, blue_noise, hooks) -> None:
 
 def _path_context(
     scene,
+    env,
     uniforms: Uniforms,
     pixel_idx: torch.Tensor,
     frame_index,
     settings: RenderSettings,
     full_height: int | None = None,
+    blue_noise=None,
 ):
     """Build the per-trace path-tracing closures.
 
@@ -284,9 +364,21 @@ def _path_context(
     rays) — exactly as the JAX package's bounce_pre/bounce_post pair.
     """
     geom = scene.geometry
+    has_env_map = settings.env_type == ENV_MAP and env is not None
 
-    def s4(bounce, seed):
-        return rng.sample4(pixel_idx, frame_index, bounce, seed=seed)
+    if blue_noise is None:
+        def s4(bounce, seed):
+            return rng.sample4(pixel_idx, frame_index, bounce, seed=seed)
+    else:
+        # Blue-noise sampling for every dimension: a per-pixel texel
+        # plus a per-(frame, bounce, stream) Cranley-Patterson rotation.
+        # Screen coordinates come from the global pixel id.
+        bn_px = pixel_idx % settings.width
+        bn_py = pixel_idx // settings.width
+
+        def s4(bounce, seed):
+            return rng.bn_sample4(blue_noise, bn_px, bn_py, frame_index,
+                                  bounce, seed)
 
     # Scene capability specialization: unused BSDF lobes are skipped.
     w_disney = bool(scene.materials.has_disney)
@@ -295,7 +387,8 @@ def _path_context(
     # Large scenes split the shadow rays into an ANY-HIT query when no
     # alpha material needs stochastic pass-through.
     split_shadow = (
-        not scene.materials.has_alpha and _backend(settings, scene) == "matrix"
+        not scene.materials.has_alpha
+        and _backend(settings, scene) in _MATRIX_FAMILY
     )
 
     # Per-pixel cone angle for mip LOD (texture footprint ~ dist * angle).
@@ -363,16 +456,28 @@ def _path_context(
             0.0,
         )
 
-        # --- miss: sky (not if the ray scattered first) -----------------
+        # --- miss: environment (not if the ray scattered first) ----------
         miss = (hit.tri < 0) & ~scatter
-        env_rad = (
-            sky_radiance(
-                d, uniforms.ground_color[None, :], uniforms.sky_color[None, :]
+        if has_env_map:
+            # one direction -> equirect transform for radiance and pdf
+            env_rad, pdf_e = env_eval(
+                env, d, uniforms.env_rotation, uniforms.env_intensity
             )
-            * uniforms.env_intensity
-        )
+            w_env = torch.where(
+                prev_pdf > 0.0, power_heuristic(prev_pdf, pdf_e), 1.0
+            )
+        else:
+            env_rad = (
+                sky_radiance(
+                    d, uniforms.ground_color[None, :], uniforms.sky_color[None, :]
+                )
+                * uniforms.env_intensity
+            )
+            w_env = torch.ones_like(zeros)
         radiance = radiance + torch.where(
-            (active & miss & ~light_first)[:, None], throughput * env_rad, 0.0
+            (active & miss & ~light_first)[:, None],
+            throughput * env_rad * w_env[:, None],
+            0.0,
         )
 
         active = active & ~miss & ~light_first
@@ -578,6 +683,29 @@ def _path_context(
             nee_dir = ns_f
             nee_tmax = zeros
 
+        # --- NEE: environment map (occlusion deferred likewise) ---------
+        env_carry = {}
+        if has_env_map:
+            r_env = s4(bounce, 17)
+            wi_e, rad_e, pdf_e = env_sample(
+                env, r_env[:, :2], uniforms.env_rotation, uniforms.env_intensity
+            )
+            wi_el = to_local(wi_e, t_b, b_b, ns_f)
+            f_e, pdf_be = bsdf_eval(mp, wo_l, wi_el, w_disney, w_trans)
+            cos_e = torch.abs(wi_el[:, 2])
+            cand_e = on_surface & ~pass_through & (pdf_e > 0) & (cos_e > 1e-6)
+            w_mis_e = power_heuristic(pdf_e, pdf_be)
+            env_contrib = (
+                throughput
+                * f_e
+                * (cos_e / torch.clamp(pdf_e, min=1e-12) * w_mis_e)[:, None]
+                * rad_e
+            )
+            env_carry = dict(
+                cand_e=cand_e, env_contrib=env_contrib, wi_e=wi_e,
+                env_tmax=torch.where(cand_e, 1.0e7, 0.0),
+            )
+
         # --- BSDF sampling / continuation -------------------------------
         r_bsdf = s4(bounce, 19)
         wi_s, f_s, pdf_s = bsdf_sample(mp, wo_l, r_bsdf, w_disney, w_trans)
@@ -649,16 +777,21 @@ def _path_context(
             new_g=new_g, new_color=new_color,
             candidate=candidate, nee_contrib=nee_contrib,
             shadow_o=shadow_o, nee_dir=nee_dir, nee_tmax=nee_tmax,
-            r_alpha=r_alpha,
+            r_alpha=r_alpha, **env_carry,
         )
 
-    def bounce_post(c, qhit, blocked):
+    def bounce_post(c, qhit, blocked, blocked_e):
         n = c["active"].shape[0]
         active = c["active"]
         radiance = c["radiance"] + torch.where(
             (c["candidate"] & ~blocked)[:, None], c["nee_contrib"], 0.0
         )
         rays = c["rays"] + c["candidate"].to(torch.float32)
+        if has_env_map:
+            radiance = radiance + torch.where(
+                (c["cand_e"] & ~blocked_e)[:, None], c["env_contrib"], 0.0
+            )
+            rays = rays + c["cand_e"].to(torch.float32)
         return dict(
             o=c["next_o"],
             d=c["next_d"],
@@ -683,7 +816,7 @@ def _path_context(
         m = geom.tri_mat[torch.clamp(tri, min=0).long()]
         return scene.materials.packed[:, 3][torch.clamp(m, min=0).long()]
 
-    def transmit(bounce, c, tri0, t0, r_first, seed0):
+    def transmit(bounce, c, tri0, t0, dir_s, tmax_s, r_first, seed0):
         """Stochastic transparent shadow transmittance: pass each
         alpha-tested blocker with probability 1 - opacity, continuing
         past up to settings.shadow_surfaces stacked surfaces (one more
@@ -693,7 +826,7 @@ def _path_context(
         blocked0 = tri0 >= 0
         if not scene.materials.has_alpha:
             return blocked0
-        shadow_o, dir_s, tmax_s = c["shadow_o"], c["nee_dir"], c["nee_tmax"]
+        shadow_o = c["shadow_o"]
         passed = blocked0 & (r_first >= opacity_of(tri0))
         blocked_acc = blocked0 & ~passed
         t_base = t0
@@ -714,32 +847,50 @@ def _path_context(
     def bounce_body(bounce, st):
         c = bounce_pre(bounce, st)
         n = c["active"].shape[0]
+        q_o = [c["shadow_o"]]
+        q_d = [c["nee_dir"]]
+        q_t = [c["nee_tmax"]]
+        if has_env_map:
+            q_o.append(c["shadow_o"])
+            q_d.append(c["wi_e"])
+            q_t.append(c["env_tmax"])
         if split_shadow:
             qhit = _intersect(
-                scene, c["next_o"], c["next_d"], settings, t_max=c["ext_tmax"]
+                scene, c["next_o"], c["next_d"], settings, t_max=c["ext_tmax"],
+                extend=True,
             )
-            blocked = _occluded(
-                scene, c["shadow_o"], c["nee_dir"], c["nee_tmax"], settings
+            occ = _occluded(
+                scene, torch.cat(q_o), torch.cat(q_d), torch.cat(q_t), settings
             )
-            return bounce_post(c, qhit, blocked)
+            blocked_e = occ[n:2 * n] if has_env_map else None
+            return bounce_post(c, qhit, occ[:n], blocked_e)
         qhit = _intersect(
             scene,
-            torch.cat([c["next_o"], c["shadow_o"]]),
-            torch.cat([c["next_d"], c["nee_dir"]]),
+            torch.cat([c["next_o"], *q_o]),
+            torch.cat([c["next_d"], *q_d]),
             settings,
-            t_max=torch.cat([c["ext_tmax"], c["nee_tmax"]]),
+            t_max=torch.cat([c["ext_tmax"], *q_t]),
         )
         blocked = transmit(
-            bounce, c, qhit.tri[n:2 * n], qhit.t[n:2 * n],
-            c["r_alpha"][:, 2], 37,
+            bounce, c, qhit.tri[n:2 * n], qhit.t[n:2 * n], c["nee_dir"],
+            c["nee_tmax"], c["r_alpha"][:, 2], 37,
         )
-        return bounce_post(c, qhit, blocked)
+        blocked_e = (
+            transmit(
+                bounce, c, qhit.tri[2 * n:3 * n], qhit.t[2 * n:3 * n],
+                c["wi_e"], c["env_tmax"], c["r_alpha"][:, 3], 53,
+            )
+            if has_env_map
+            else None
+        )
+        return bounce_post(c, qhit, blocked, blocked_e)
 
     return init_state, bounce_body
 
 
 def trace_paths(
     scene,
+    env,
     uniforms: Uniforms,
     o: torch.Tensor,
     d: torch.Tensor,
@@ -747,6 +898,7 @@ def trace_paths(
     frame_index,
     settings: RenderSettings,
     full_height: int | None = None,
+    blue_noise=None,
 ):
     """Trace full paths for a flat ray batch.
 
@@ -754,7 +906,8 @@ def trace_paths(
     rays_traced (N,) f32 — extension + shadow rays, for Mrays/s).
     """
     init_state, bounce_body = _path_context(
-        scene, uniforms, pixel_idx, frame_index, settings, full_height
+        scene, env, uniforms, pixel_idx, frame_index, settings, full_height,
+        blue_noise,
     )
     # Prologue: closest hit for the camera rays; every later bounce folds
     # its extension ray into the batched end-of-bounce query.
@@ -764,8 +917,8 @@ def trace_paths(
     return state["radiance"], state["albedo"], state["normal"], state["rays"]
 
 
-def _tile_raygen(scene, uniforms, fidx, start, w, cam_h, row_offset, spp,
-                 tile, swizzle, device):
+def _tile_raygen(scene, uniforms, blue_noise, fidx, start, w, cam_h, row_offset,
+                 spp, tile, swizzle, device):
     """Camera rays for one film tile: ray r is sample r % spp of pixel
     start + r // spp, running as virtual RNG frame fidx*spp + s.
     Returns (o, d, gpix, fidx_r)."""
@@ -788,7 +941,12 @@ def _tile_raygen(scene, uniforms, fidx, start, w, cam_h, row_offset, spp,
         py_i = pix // w
     py_i = py_i + row_offset
     gpix = py_i * w + px_i  # globally unique pixel id
-    r_jit = rng.sample4(gpix, fidx_r, 0, seed=1)
+    if blue_noise is not None:
+        # pixel jitter and lens sample through the same construction
+        # the path context uses
+        r_jit = rng.bn_sample4(blue_noise, gpix % w, gpix // w, fidx_r, 0, seed=1)
+    else:
+        r_jit = rng.sample4(gpix, fidx_r, 0, seed=1)
     o, d = generate_rays(
         scene.cameras, uniforms.camera_index,
         px_i.to(torch.float32), py_i.to(torch.float32), w, cam_h,
@@ -811,7 +969,7 @@ def _render_frame_impl(
 ) -> torch.Tensor:
     """One progressive frame (settings.spp samples per pixel) added to
     `film` in place; returns the traced-ray count (0-d f32 tensor)."""
-    _check_ported(env, settings, blue_noise, hooks)
+    _check_ported(settings, hooks)
     h, w = settings.height, settings.width
     dev = film.accum.device
     cam_h = full_height if full_height is not None else h
@@ -860,11 +1018,12 @@ def _render_frame_impl(
     for t in range(n_tiles):
         start = t * pp
         o, d, gpix, fidx_r = _tile_raygen(
-            scene, uniforms, fidx, start, w, cam_h, row_offset, spp, tile,
-            swizzle, dev,
+            scene, uniforms, blue_noise, fidx, start, w, cam_h, row_offset, spp,
+            tile, swizzle, dev,
         )
         L, alb, nrm, rays = trace_paths(
-            scene, uniforms, o, d, gpix, fidx_r, settings, full_height=cam_h
+            scene, env, uniforms, o, d, gpix, fidx_r, settings,
+            full_height=cam_h, blue_noise=blue_noise,
         )
         L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
         if spp > 1:

@@ -9,16 +9,19 @@ HalaRayTracingRenderer), as in the JAX package's `models/rt_renderer.py`:
   without CUDA raises rather than running on the CPU, so CPU runs pass
   device="cpu" explicitly;
 * `set_scene` uploads the scene to the device (rt_renderer.rs:1161-1178);
-* the sky knobs set_ground_color / set_sky_color / set_env_intensity /
-  set_exposure_value (rt_renderer.rs:1184-1219);
+* the lighting-environment knobs set_envmap / set_ground_color /
+  set_sky_color / set_env_intensity / set_exposure_value
+  (rt_renderer.rs:1184-1219);
+* `load_blue_noise_texture` (rt_renderer.rs:1117-1156): the texture
+  becomes the per-pixel low-discrepancy source of every sampling
+  dimension (ops/rng.py `bn_sample4`);
 * `update` skips once the max_frames progressive budget is reached
   (rt_renderer.rs:393-396) and seeds sampling with the frame index;
 * `save_images` writes {name}_color/albedo/normal .pfm with the selected
   tonemap applied to color only (rt_renderer.rs:1224-1352).
 
-Not ported yet (raise HalaRendererError): set_envmap,
-load_blue_noise_texture and the push_*_kernel hooks. `staged=` is
-accepted and does nothing: the port has one frame loop.
+Not ported yet (raise HalaRendererError): the push_*_kernel hooks.
+`staged=` is accepted and does nothing: the port has one frame loop.
 """
 
 from __future__ import annotations
@@ -31,8 +34,10 @@ import time
 import numpy as np
 import torch
 
+from ..envmap import EnvMap
 from ..error import HalaRendererError
 from ..ops.tonemap import apply_tonemap
+from ..scene.cpu.image_data import ImageData
 from ..scene.cpu.scene import Scene
 from ..scene.gpu.scene import resolve_device
 from ..scene.loader.uploader import SceneUploader
@@ -74,6 +79,8 @@ class RayTracingRenderer(BaseRenderer):
         intersector: str = "auto",
         spp: int = 1,
         staged: bool = False,
+        shadow_intersector: str = "auto",
+        extend_intersector: str = "auto",
         device="cuda",
     ):
         super().__init__(name, width, height, resolve_device(device))
@@ -87,10 +94,14 @@ class RayTracingRenderer(BaseRenderer):
         self._tile_size = tile_size
         self._spp = spp
         self._intersector = intersector
+        self._shadow_intersector = shadow_intersector
+        self._extend_intersector = extend_intersector
 
         self.scene = None          # DeviceScene
         self._host_scene: Scene | None = None
+        self.env: EnvMap | None = None
         self.env_type = EnvType.SKY
+        self.blue_noise: torch.Tensor | None = None
         self.uniforms = Uniforms.default(self.device)
         self.film = Film.create(width, height, self.device)
         self.settings: RenderSettings | None = None
@@ -105,8 +116,16 @@ class RayTracingRenderer(BaseRenderer):
         self._host_scene = scene
         self.scene = SceneUploader.upload(scene, device=self.device)
 
-    def set_envmap(self, env, rotation: float = 0.0) -> None:
-        raise HalaRendererError("environment maps are not yet ported")
+    def set_envmap(self, env: "EnvMap | str", rotation: float = 0.0) -> None:
+        """rt_renderer.rs:1184-1192; rotation in degrees, normalized by
+        /360 into the uniform (rt_renderer.rs:420). `env` is an EnvMap
+        or the path of a float image."""
+        if isinstance(env, str):
+            env = EnvMap.load(env, device=self.device)
+        self.env = env.to(self.device)
+        self.env_type = EnvType.MAP
+        self.uniforms.env_rotation = self._f32(rotation / 360.0)
+        self.settings = None  # the env type is part of the settings
 
     def _f32(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32).to(self.device)
@@ -135,7 +154,9 @@ class RayTracingRenderer(BaseRenderer):
         raise HalaRendererError("pushed kernels are not yet ported")
 
     def load_blue_noise_texture(self, path: str) -> None:
-        raise HalaRendererError("blue-noise sampling is not yet ported")
+        """rt_renderer.rs:1117-1156: the texture becomes the per-pixel
+        low-discrepancy source of every sampling dimension."""
+        self.blue_noise = self._f32(ImageData.load(path).as_float_rgba())
 
     # -- frame loop ------------------------------------------------------
 
@@ -152,6 +173,8 @@ class RayTracingRenderer(BaseRenderer):
             tile_size=self._tile_size,
             intersector=self._intersector,
             spp=self._spp,
+            shadow_intersector=self._shadow_intersector,
+            extend_intersector=self._extend_intersector,
         )
 
     def update(self, delta_time: float = 0.0, ui_fn=None) -> None:
@@ -168,8 +191,8 @@ class RayTracingRenderer(BaseRenderer):
             return  # progressive budget reached (rt_renderer.rs:393-396)
         t0 = time.monotonic()
         _, rays = render_frame(
-            self.scene, None, self.uniforms, self.film, self._frame_index,
-            self.settings,
+            self.scene, self.env, self.uniforms, self.film, self._frame_index,
+            self.settings, blue_noise=self.blue_noise,
         )
         self._pending = True
         self._last_rays = rays
@@ -210,8 +233,9 @@ class RayTracingRenderer(BaseRenderer):
         while left > 0:
             k = min(k_max, left)
             _, rays = render_frames(
-                self.scene, None, self.uniforms, self.film,
+                self.scene, self.env, self.uniforms, self.film,
                 self._frame_index, k, self.settings,
+                blue_noise=self.blue_noise,
             )
             rays_acc.append(rays)
             self._frame_index += k

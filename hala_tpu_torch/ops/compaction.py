@@ -22,17 +22,30 @@ class RayOrder(NamedTuple):
     num_alive: torch.Tensor  # () int64
 
 
-def sort_rays(o, d, active, scene_min, scene_max, cell_bits: int = 9) -> RayOrder:
-    """Coherence key sort. Returns the permutation and its inverse."""
+def coherence_key(o, d, active, scene_min, scene_max, cell_bits: int = 9):
+    """[dead | direction octant | origin Morton cell] as int64 holding
+    the JAX package's uint32 key."""
     octant = ((d[:, 0] >= 0).to(torch.int64)
               | ((d[:, 1] >= 0).to(torch.int64) << 1)
               | ((d[:, 2] >= 0).to(torch.int64) << 2))
     cell = morton3d(o, scene_min, scene_max) >> (30 - cell_bits * 3)
-    key = (((~active).to(torch.int64) << 31) | (octant << 27)
-           | (cell & ((1 << 27) - 1)))
+    return (((~active).to(torch.int64) << 31) | (octant << 27)
+            | (cell & ((1 << 27) - 1)))
+
+
+def order_by(key: torch.Tensor):
+    """The stable ascending order of `key` and its inverse: (order
+    old -> sorted, inverse to scatter sorted results back), both int64."""
     order = torch.argsort(key, stable=True)
     inverse = torch.empty_like(order)
-    inverse[order] = torch.arange(o.shape[0], device=o.device)
+    inverse[order] = torch.arange(key.shape[0], device=key.device)
+    return order, inverse
+
+
+def sort_rays(o, d, active, scene_min, scene_max, cell_bits: int = 9) -> RayOrder:
+    """Coherence key sort. Returns the permutation and its inverse."""
+    order, inverse = order_by(
+        coherence_key(o, d, active, scene_min, scene_max, cell_bits))
     return RayOrder(order=order, inverse=inverse, num_alive=active.sum())
 
 

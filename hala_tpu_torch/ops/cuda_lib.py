@@ -203,6 +203,16 @@ CLUSTER_STREAM = Kernel(
     "hala_cluster_stream",
     [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
 )
+# csrc/grouped_walk.cu
+GROUPED_WALK = Kernel(
+    "hala_grouped_walk",
+    [_P] * 9 + [_I] * 3 + [_P] * 6,
+)
+# csrc/wavefront_walk.cu
+WAVEFRONT_WALK = Kernel(
+    "hala_wavefront_walk",
+    [_P] * 9 + [_I] * 5 + [_P] * 6,
+)
 
 KERNELS = {
     "intersect_bruteforce": INTERSECT_BRUTEFORCE,
@@ -211,6 +221,8 @@ KERNELS = {
     "cull_topk": CULL_TOPK,
     "traverse_candidates": TRAVERSE_CANDIDATES,
     "cluster_stream": CLUSTER_STREAM,
+    "grouped_walk": GROUPED_WALK,
+    "wavefront_walk": WAVEFRONT_WALK,
 }
 
 

@@ -65,3 +65,35 @@ def sample4(
     bits = pcg4d(ctr)
     # top 24 bits convert to f32 exactly: uniform on [0, 1), never 1.0
     return (bits >> 8).to(torch.float32) * _INV_U24
+
+
+def bn_sample4(
+    blue_noise: torch.Tensor, px, py, frame_index, bounce, seed=0
+) -> torch.Tensor:
+    """Blue-noise-seeded four-dimensional sample, as the JAX package's
+    `bn_sample4` (the reference binds its blue-noise texture as the
+    per-pixel low-discrepancy source of all shader sampling,
+    rt_renderer.rs:1117-1156).
+
+    Cranley-Patterson construction: the texture supplies the per-pixel
+    value (so estimation error is blue-distributed in screen space),
+    while PCG4D supplies a per-(frame, bounce, stream) rotation shared
+    by all pixels and a per-(bounce, stream) toroidal texture shift, so
+    distinct sampling dimensions read decorrelated regions.
+
+    px/py are global screen coordinates (integer tensors), so the output
+    does not depend on tiling. blue_noise: (H, W, 4) float32 in [0, 1).
+    """
+    bh, bw = blue_noise.shape[0], blue_noise.shape[1]
+    ss = torch.stack([
+        _u32(bounce, px.new_zeros(())), _u32(seed, px.new_zeros(())),
+        _u32(0x9E3779B9, px.new_zeros(())), _u32(0x85EBCA6B, px.new_zeros(())),
+    ], dim=-1)
+    hsh = pcg4d(ss)
+    tx = (px.to(torch.int64) + hsh[..., 0] % bw) % bw
+    ty = (py.to(torch.int64) + hsh[..., 1] % bh) % bh
+    texel = blue_noise[ty, tx, :4]
+    # the rotation's pixel counter is fixed at 0 (shared by all pixels);
+    # frame_index may be per ray (spp > 1 virtual frames)
+    rot = sample4(torch.zeros_like(px), frame_index, bounce, seed)
+    return torch.remainder(texel + rot, 1.0)

@@ -20,6 +20,8 @@ from hala_tpu_torch.ops import cull as k4
 from hala_tpu_torch.ops import raster_kernel as k3
 from hala_tpu_torch.ops import traverse as k2
 from hala_tpu_torch.ops import traverse as k5
+from hala_tpu_torch.ops import traverse as k8
+from hala_tpu_torch.ops import wavefront as k7
 from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 from hala_tpu_torch.scene.cpu.scene import Scene
 from hala_tpu_torch.scene.loader.uploader import SceneUploader
@@ -200,3 +202,88 @@ def test_traverse_engine_on_card_equals_cpu(atrium_batch):
                                  k_per_ray=8)
     for a, b in zip(got, ref):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("k_cap", [2, 32])
+def test_k8_kernel_matches_plain(atrium_batch, any_hit, k_cap):
+    """K8 on the group lists of 4096 coherence-sorted rays, bit for bit;
+    k_cap 2 truncates every list."""
+    g, o, d, tm = atrium_batch
+    cmin, cmax = g.cluster_min, g.cluster_max
+    order = torch.argsort(k8._coherence_key(o, d, tm, cmin, cmax), stable=True)
+    o, d, tm = o[order].contiguous(), d[order].contiguous(), tm[order].contiguous()
+    c = cmin.shape[0]
+    ids, tns, usz = k8._group_candidates(o, d, tm, cmin, cmax, k_cap)
+    args = (o, d, tm, torch.clamp(usz, max=k_cap),
+            torch.clamp(ids, max=c - 1).contiguous(), tns.view(torch.int32),
+            g.tri_packed, cmin, cmax)
+    before = cuda_lib.GROUPED_WALK.launches
+    got = k8.grouped_walk(*args, any_hit)
+    ref = k8.grouped_walk_plain(*args, any_hit)
+    torch.cuda.synchronize()
+    assert cuda_lib.GROUPED_WALK.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((got[1] >= 0).sum()) > (100 if k_cap == 2 else 1000)
+    if k_cap == 2:
+        assert int((usz > 2).sum()) > 0
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("k,m", [(3, 8), (16, 32)])
+def test_k7_kernel_matches_plain(atrium_batch, any_hit, k, m):
+    """K7 on the merged lists of 4096 rays, bit for bit, stats included;
+    (3, 8) truncates rays' and groups' lists."""
+    g, o, d, tm = atrium_batch
+    w = k7.wavefront_lists(o, d, tm, g, k, m)
+    args = (w.o, w.d, w.t_max, w.tnb, w.want, w.own_last, g.tri_packed,
+            g.cluster_min, g.cluster_max)
+    before = cuda_lib.WAVEFRONT_WALK.launches
+    got = k7.wavefront_walk(*args, any_hit)
+    ref = k7.wavefront_walk_plain(*args, any_hit)
+    torch.cuda.synchronize()
+    assert cuda_lib.WAVEFRONT_WALK.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int((got[1] >= 0).sum()) > (500 if k == 3 else 1000)
+    assert bool((got[4][:, 1] <= got[4][:, 0]).all())  # tested <= walked
+    if k == 3:
+        assert int((w.cnt > k).sum()) > 0 and int((w.grp_bound != k7.INF_KEY).sum()) > 0
+
+
+def test_grouped_and_wavefront_engines_on_card_equal_cpu(atrium_batch):
+    """Both engines on CUDA tensors launch their kernels (the wavefront
+    K4 and K7, the grouped K8, both K2 as the fallback) and return what
+    their plain versions return on the CPU, at caps that truncate."""
+    g, o, d, tm = atrium_batch
+    g_cpu = g.to("cpu")
+    before = cuda_lib.launches()
+    got_g = k8.intersect_grouped(o, d, g, t_max=tm, k_cap=4)
+    got_w = k7.intersect_wavefront(o, d, g, t_max=tm, k_per_ray=3, m_group=8)
+    torch.cuda.synchronize()
+    after = cuda_lib.launches()
+    delta = {key: after[key] - before[key] for key in after}
+    assert delta["grouped_walk"] == 1 and delta["wavefront_walk"] == 1
+    assert delta["cull_topk"] == 1 and delta["matrix_traverse"] == 2
+    ref_g = k8.intersect_grouped(o.cpu(), d.cpu(), g_cpu, t_max=tm.cpu(), k_cap=4)
+    ref_w = k7.intersect_wavefront(o.cpu(), d.cpu(), g_cpu, t_max=tm.cpu(),
+                                   k_per_ray=3, m_group=8)
+    for got, ref in ((got_g, ref_g), (got_w, ref_w)):
+        for a, b in zip(got, ref):
+            assert torch.equal(a.cpu(), b)
+
+
+def test_wrappers_of_the_walks_check_before_launch(atrium_batch):
+    g, o, d, tm = atrium_batch
+    w = k7.wavefront_lists(o, d, tm, g, 3, 8)
+    args = [w.o, w.d, w.t_max, w.tnb, w.want, w.own_last, g.tri_packed,
+            g.cluster_min, g.cluster_max]
+    before = cuda_lib.WAVEFRONT_WALK.launches
+    with pytest.raises(ValueError):
+        k7.wavefront_walk(w.o[:100], w.d[:100], w.t_max[:100], *args[3:])  # not whole groups
+    with pytest.raises(ValueError):
+        k7.wavefront_walk(*args[:4], w.want.long(), *args[5:])
+    with pytest.raises(ValueError):
+        k7.wavefront_walk(*args[:3], w.tnb.cpu(), *args[4:])
+    assert cuda_lib.WAVEFRONT_WALK.launches == before

@@ -272,6 +272,7 @@ def test_cpu_tensors_never_launch(cornell, sponza, rs):
     assert cuda_lib.launches() == {
         "intersect_bruteforce": 0, "matrix_traverse": 0, "raster_tiled": 0,
         "cull_topk": 0, "traverse_candidates": 0, "cluster_stream": 0,
+        "grouped_walk": 0, "wavefront_walk": 0,
     }
 
 

@@ -219,9 +219,7 @@ def test_renderer_error_probes():
     with pytest.raises(HalaRendererError, match="no camera"):
         r.set_scene(scene)
     r.set_scene(cornell_box())
-    for call in (lambda: r.set_envmap("x.hdr"),
-                 lambda: r.load_blue_noise_texture("x.png"),
-                 lambda: r.push_general_kernel("miss", lambda *a: None),
+    for call in (lambda: r.push_general_kernel("miss", lambda *a: None),
                  lambda: r.push_hit_kernels(lambda *a: None)):
         with pytest.raises(HalaRendererError, match="not yet ported"):
             call()
@@ -257,22 +255,41 @@ def test_cuda_error_marks_device_lost_and_restores(tmp_path):
 @pytest.mark.parametrize("option", ["intersector", "env", "blue_noise", "hooks",
                                     "scene_axis"])
 def test_unported_integrator_options_raise(option):
+    """What is still unported raises; the environment map and the
+    blue-noise texture, ported since, render instead."""
     dev = SceneUploader.upload(cornell_box(), device="cpu")
     kw = dict(width=8, height=8)
     args = dict(env=None, blue_noise=None, hooks=None)
     if option == "intersector":
-        kw["intersector"] = "wavefront"
+        kw["intersector"] = "bvh"
     elif option == "env":
+        from hala_tpu_torch.envmap import EnvMap
+
         kw["env_type"] = 1
-        args["env"] = object()
+        args["env"] = EnvMap.from_array(np.full((4, 8, 3), 0.5, np.float32),
+                                        device="cpu")
+    elif option == "blue_noise":
+        args["blue_noise"] = torch.rand(
+            (16, 16, 4), generator=torch.Generator().manual_seed(1))
     elif option == "scene_axis":
         kw["scene_axis"] = "x"
     else:
         args[option] = object()
+
+    def render():
+        film = Film.create(8, 8, "cpu")
+        render_frame(dev, args["env"], Uniforms.default("cpu"), film, 0,
+                     RenderSettings(**kw), blue_noise=args["blue_noise"],
+                     hooks=args["hooks"])
+        return film
+
+    if option in ("env", "blue_noise"):
+        film = render()
+        assert bool(torch.isfinite(film.accum).all())
+        assert float(film.accum[..., :3].mean()) > 0.0
+        return
     with pytest.raises(HalaRendererError, match="not yet ported"):
-        render_frame(dev, args["env"], Uniforms.default("cpu"),
-                     Film.create(8, 8, "cpu"), 0, RenderSettings(**kw),
-                     blue_noise=args["blue_noise"], hooks=args["hooks"])
+        render()
 
 
 def test_cuda_default_raises_without_cuda():
