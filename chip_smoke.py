@@ -10,16 +10,21 @@ Phases, in order; any failure raises and exits non-zero:
   3. each kernel against its plain PyTorch version on the card — the
      brute-force kernel (K1) on the Cornell box and on a multi-chunk
      triangle soup with a ragged ray count, the cluster-traversal kernel
-     (K2) on assets/atrium_big.glb against its plain version and against
-     K1, closest and any hit, the tile-segment raster kernel (K3) on
+     (K2) on assets/atrium_big.glb's mixed batches of 65,536 and 2^21
+     rays, unsorted and in matrix_query's coherence order, against its
+     plain version bit for bit (closest, and the any-hit mask) and
+     against K1 (closest, and the any-hit mask), its schedule (clusters
+     visited per 128-ray block) against the plain model
+     `matrix_walk_runs_plain`, timed on all four batches, the tile-segment raster kernel (K3) on
      atrium_big at 1920x1088 (tile 64, bench camera) against its plain
      version and at 256x256 against the full-scan `rasterize`, bit for
      bit; the large-scene engines on atrium_big: the cull (K4) at K 4
      and 16 and through a forced superchunk merge, the candidate walk
-     (K5) and the cluster stream (K6) at K 12 and 4, each bit for bit
-     against its plain version, `intersect_traversed` and K6 against
-     K2, the three kernels again at the main path's 2^21-ray queries
-     (timed there), and `intersect_traversed` over five translated
+     (K5, half a warp a ray, unsorted and sorted) and the
+     cluster stream (K6) at K 12 and 4, each bit for bit against its
+     plain version, `intersect_traversed` and K6 against K2, the three
+     kernels again at the main path's 2^21-ray queries (timed there, K5
+     on both orders), and `intersect_traversed` over five translated
      copies of atrium_big's clusters (9305 > 8191, two cull
      superchunks) against K1 over all slots; the grouped walk (K8) and
      the wavefront walk (K7) against their plain versions, bit for bit,
@@ -34,7 +39,8 @@ Phases, in order; any failure raises and exits non-zero:
   4. Cornell 512x512, depth 4, 16 frames through RayTracingRenderer
      (must go through K1 only);
   5. atrium_big at 1920x1088, depth 4, 1 spp, 4 frames (must use K2
-     and none of K4-K6), then the same through intersector="traverse"
+     and none of K4-K6) and a torch.profiler window over one more of
+     its frames, then the same through intersector="traverse"
      (must launch K4, K5 and K6 and not K2; its relative RMSE to the K2
      film is printed), a torch.profiler window over one traverse frame
      and one more frame for the engine's counts (unresolved share,
@@ -318,63 +324,223 @@ def check_k1(dev_scene, soup_scene, n_rays: int, ragged: int, reps: int):
     return rec
 
 
-def check_k2(dev_scene, n_cam_w: int, n_cam_h: int, n_rand: int, reps: int):
-    """K2 (csrc/matrix_traverse.cu) vs its plain version and vs K1."""
+def coherent_order(dev_scene, batch):
+    """The batch in matrix_query's coherence order (octant and origin
+    Morton cell, dead rays last), and the inverse permutation."""
+    from hala_tpu_torch.ops import traverse as k2
+    from hala_tpu_torch.ops.compaction import order_by
+
+    g = dev_scene.geometry
+    o, d, tm = batch
+    order, inverse = order_by(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+    return tuple(x[order].contiguous() for x in batch), inverse
+
+
+def span_work(g, o, d, r, c, t_end):
+    """Moller-Trumbore pairs of the (ray r, cluster c) pairs given: the
+    real triangles of the 16-slot spans whose padded row-9 sub-box the
+    ray enters at or before t_end (the pretest, as the kernels and
+    `matrix_walk_runs_plain` run it). Returns that count."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k2
+
+    spans = k2.PRETEST_PER_CHUNK
+    real = (g.tri_mat >= 0).view(-1, spans, k2.PRETEST_TRIS).sum(dim=2)
+    count = 0
+    for p0 in range(0, r.numel(), 1 << 20):
+        rr, cc = r[p0:p0 + (1 << 20)], c[p0:p0 + (1 << 20)]
+        boxes = g.tri_packed[cc, 9, :6 * spans].view(-1, spans, 6)
+        tn, enters = k2.slab_entry(o[rr, None, :], d[rr, None, :], boxes[..., :3],
+                                   boxes[..., 3:])
+        passed = enters & (tn <= t_end[rr, None])
+        count += int((passed.long() * real[cc]).sum())
+    return count
+
+
+def k2_work(g, o, d, tm, hit):
+    """The work K2's function needs on these rays, as its plain model
+    `matrix_walk_runs_plain` does it with each ray's closest hit known:
+    for every live ray (t_max > 1e-4) one slab test of each group of 16
+    consecutive cluster boxes (their union), the member tests of the
+    groups where it enters some member's box at or before its hit (fewer
+    than the groups whose union it enters), the eight sub-box tests of
+    each cluster it enters so, and Moller-Trumbore on the real
+    triangles of the 16-slot spans it enters so (`span_work`). Also the
+    clusters some ray of a block of 128 consecutive rays enters before
+    its hit, summed over blocks: the fewest visits a block walk can
+    make. Returns (bound ms, by, a dict of the counts)."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k2
+
+    n, c = o.shape[0], g.cluster_min.shape[0]
+    group = 16
+    sizes = torch.full((-(-c // group),), group, device=o.device)
+    sizes[-1] = c - group * (sizes.numel() - 1)
+    t_end = torch.where(hit.tri >= 0, hit.t, tm)
+    live = tm > 1e-4
+    w = dict(live_rays=int(live.sum()), groups=sizes.numel(), member_tests=0,
+             pairs=0, mt_pairs=0, least=0)
+    rows, cols = 1 << 17, 256  # cols: whole groups
+    for r0 in range(0, n, rows):
+        sl = slice(r0, r0 + rows)
+        for c0 in range(0, c, cols):
+            tn, enters = k2.slab_entry(o[sl, None, :], d[sl, None, :],
+                                       g.cluster_min[None, c0:c0 + cols],
+                                       g.cluster_max[None, c0:c0 + cols])
+            m = enters & (tn <= t_end[sl, None]) & live[sl, None]
+            m_g = torch.nn.functional.pad(m, (0, -m.shape[1] % group))
+            m_g = m_g.view(m.shape[0], -1, group).any(dim=2)
+            g0 = c0 // group
+            w["member_tests"] += int((m_g.long() * sizes[None, g0:g0 + m_g.shape[1]]).sum())
+            w["least"] += int(m.view(-1, k2.MATRIX_BLOCK_RAYS, m.shape[1]).any(dim=1).sum())
+            rr, cc = torch.nonzero(m, as_tuple=True)
+            w["pairs"] += rr.numel()
+            w["mt_pairs"] += span_work(g, o, d, rr + r0, cc + c0, t_end)
+    ops = ((w["live_rays"] * w["groups"] + w["member_tests"]
+            + w["pairs"] * k2.PRETEST_PER_CHUNK) * OPS_SLAB + w["mt_pairs"] * OPS_MT)
+    b_ms, b_by = bound(ops, n * 44 + c * 24 + g.tri_packed.numel() * 4)
+    return b_ms, b_by, w
+
+
+def k5_work(g, o, d, tm, ids, k, hit, runs):
+    """The work K5's function needs on these rays, the walk of each
+    ray's list as the kernel runs it (`runs` clusters): per visit the
+    eight sub-box tests, and Moller-Trumbore on the real triangles of
+    the spans the ray enters at or before its hit (`span_work`). Bytes:
+    rays, lists and hits once, the slot blocks once. Returns (bound ms,
+    by, visits, Moller-Trumbore pairs)."""
+    import torch
+
+    n = o.shape[0]
+    walked = torch.arange(k, device=o.device)[None, :] < runs[:, None]
+    r, j = torch.nonzero(walked, as_tuple=True)
+    t_end = torch.where(hit.tri >= 0, hit.t, tm)
+    visits = r.numel()
+    mt_pairs = span_work(g, o, d, r, ids[r, j].long(), t_end)
+    b_ms, b_by = bound(visits * 8 * OPS_SLAB + mt_pairs * OPS_MT,
+                       n * 28 + n * k * 8 + n + g.tri_packed.numel() * 4 + n * 24)
+    return b_ms, b_by, visits, mt_pairs
+
+
+def check_k2(dev_scene, small, big, reps: int):
+    """K2 (csrc/matrix_traverse.cu) vs its plain version, bit for bit,
+    closest (t, tri, u, v) and any hit (the hit mask), on `small`
+    unsorted and in matrix_query's coherence order, and vs K1 (closest
+    and the any-hit mask); its schedule (hits and clusters visited per
+    block) vs the plain model `matrix_walk_runs_plain` on the sorted
+    `small`; then on `big` in coherence order against its plain version
+    (in slices of 65,536 rays) and unsorted against that, timed on all
+    four batches."""
     import torch
 
     from hala_tpu_torch.ops import traverse as k2
     from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 
     g = dev_scene.geometry
-    o, d, tm = mixed_batch(dev_scene, n_cam_w, n_cam_h, n_rand, 21)
-    n = o.shape[0]
-    hk = k2.intersect_matrix(o, d, g, t_max=tm)
-    hp = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+    hit_labels = ("t", "tri", "u", "v")
+    args = (g.cluster_min, g.cluster_max, g.tri_packed)
+    small_s, _ = coherent_order(dev_scene, small)
+    kernel_hits, plain_hits, masks = [], [], []
+    for label, (o, d, tm) in (("small", small), ("small sorted", small_s)):
+        n = o.shape[0]
+        hk = k2.intersect_matrix(o, d, g, t_max=tm)
+        hp = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+        kernel_hits.append(hk)
+        plain_hits.append(hp)
+        ok = k2.occluded_matrix(o, d, tm, g)
+        masks.append(ok)
+        torch.cuda.synchronize()
+        equal_tensors(f"K2 vs plain, {label} (N={n})", hk, hp, hit_labels)
+        if not torch.equal(ok, hp.tri >= 0):
+            raise AssertionError(f"K2 any-hit disagrees with plain, {label} "
+                                 f"({int((ok != (hp.tri >= 0)).sum())} rays)")
+        log(f"  K2 {label} N={n}: closest equal to plain bit for bit, any-hit "
+            f"mask equal ({int(ok.sum())} blocked)")
+    o, d, tm = small
     hb = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm)
     torch.cuda.synchronize()
-    err = compare_hits(f"K2 vs plain closest (N={n})", hk, hp, o, d, g)
-    err = max(err, compare_hits(f"K2 vs K1 closest (N={n})", hk, hb, o, d, g))
+    err = compare_hits(f"K2 vs K1 closest (N={o.shape[0]})", kernel_hits[0], hb,
+                       o, d, g)
+    if not torch.equal(masks[0], hb.tri >= 0):
+        raise AssertionError(f"K2 any-hit disagrees with K1's hit mask "
+                             f"({int((masks[0] != (hb.tri >= 0)).sum())} rays)")
+    log(f"  K2 vs K1 any-hit (N={o.shape[0]}): the mask equals K1's hit mask")
+    b_small, by_small, w_small = k2_work(g, *small_s, plain_hits[1])
+    rec = dict(small_work=w_small)
+    o, d, tm = small_s
+    for any_hit in (False, True):
+        hit, runs = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=any_hit)
+        ref, ref_runs = k2.matrix_walk_runs_plain(o, d, tm, *args, any_hit)
+        torch.cuda.synchronize()
+        equal_tensors(f"K2 schedule any_hit={any_hit}", (*hit, runs),
+                      (*ref, ref_runs), hit_labels + ("runs",))
+        if not any_hit:
+            rec["runs"] = dict(mean=float(runs.float().mean()), max=int(runs.max()),
+                               least=w_small["least"] / runs.numel())
+    log(f"  K2 schedule sorted N={o.shape[0]}: hits and runs equal the plain "
+        f"model, closest and any hit; {rec['runs']['mean']:.1f} clusters visited "
+        f"per {k2.MATRIX_BLOCK_RAYS}-ray block (max {rec['runs']['max']} of "
+        f"{g.cluster_min.shape[0]}) against at least {rec['runs']['least']:.1f} "
+        "entered before some lane's hit")
+
+    big_s, inverse = coherent_order(dev_scene, big)
+    o, d, tm = big_s
+    n = o.shape[0]
+    hk = k2.intersect_matrix(o, d, g, t_max=tm)
     ok = k2.occluded_matrix(o, d, tm, g)
-    op = hp.tri >= 0
-    ob = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm).tri >= 0
-    for other, label in ((op, "plain"), (ob, "K1")):
-        if not torch.equal(ok, other):
-            raise AssertionError(f"K2 any-hit disagrees with {label} "
-                                 f"({int((ok != other).sum())} rays)")
-    log(f"  K2 any-hit: equal to plain and K1 ({int(ok.sum())} blocked)")
-    # The work these inputs need: every ray's slab test against every
-    # cluster box, and Moller-Trumbore on the real triangles (padding
-    # slots left out) of each cluster the ray enters before its closest
-    # hit (any exact cluster walk must test those).
-    t_end = torch.where(hk.tri >= 0, hk.t, tm)
-    c = g.cluster_min.shape[0]
-    real = (g.tri_mat >= 0).view(c, k2.TRI_CHUNK).sum(dim=1)
-    live = live_tris = 0
-    for c0 in range(0, c, 64):
-        hit = k2.slab_live(o, d, g.cluster_min[c0:c0 + 64],
-                           g.cluster_max[c0:c0 + 64], t_end)
-        live += int(hit.sum())
-        live_tris += int((hit.long() * real[None, c0:c0 + 64]).sum())
-    b_ms, b_by = bound(
-        n * c * OPS_SLAB + live_tris * OPS_MT,
-        n * 44 + c * 24 + g.tri_packed.numel() * 4,
-    )
-    rec = dict(
-        bound_ms=b_ms, bound_by=b_by, live_pairs=live, live_tris=live_tris,
-        max_abs_err=err,
-        ms=cuda_ms(lambda: k2.intersect_matrix(o, d, g, t_max=tm), reps),
-        plain_ms=cuda_ms(lambda: k2.intersect_matrix_plain(o, d, g, t_max=tm), 1),
-        anyhit_ms=cuda_ms(lambda: k2.occluded_matrix(o, d, tm, g), reps),
+    parts = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for r0 in range(0, n, 1 << 16):
+        sl = slice(r0, r0 + (1 << 16))
+        parts.append(k2.intersect_matrix_plain(o[sl], d[sl], g, t_max=tm[sl]))
+    end.record()
+    torch.cuda.synchronize()
+    hp = type(hk)(*(torch.cat(x) for x in zip(*parts)))
+    equal_tensors(f"K2 vs plain, big sorted (N={n})", hk, hp, hit_labels)
+    if not torch.equal(ok, hp.tri >= 0):
+        raise AssertionError("K2 any-hit disagrees with plain, big sorted")
+    hu = k2.intersect_matrix(big[0], big[1], g, t_max=big[2])
+    torch.cuda.synchronize()
+    equal_tensors(f"K2 big unsorted vs sorted (N={n})", hu,
+                  tuple(x[inverse] for x in hk), hit_labels)
+    b_ms, b_by, w_big = k2_work(g, o, d, tm, hp)
+    times = {}
+    for label, (o_, d_, tm_) in (("small", small), ("small_sorted", small_s),
+                                 ("big", big), ("big_sorted", big_s)):
+        r = reps if label.startswith("small") else max(1, reps // 2)
+        for any_hit in (False, True):
+            times[f"{label}{'_anyhit' if any_hit else ''}"] = cuda_ms(
+                lambda: k2._launch_matrix(o_, d_, tm_, *args, any_hit), r)
+    # The walk's floor: every ray live, but its range (1e-4, 2e-4)
+    # enters almost no box, so only the union tests of the keys pass,
+    # the compaction and the sort are left.
+    short = torch.full_like(tm, 2.0e-4)
+    times["big_sorted_nothing_entered"] = cuda_ms(
+        lambda: k2._launch_matrix(o, d, short, *args, False), max(1, reps // 2))
+    w_big["least"] /= n // k2.MATRIX_BLOCK_RAYS
+    rec.update(
+        bound_ms=b_ms, bound_by=b_by, small_bound_ms=b_small, big_work=w_big,
+        max_abs_err=max(err, max_abs_diff((hk.t, hk.u, hk.v), (hp.t, hp.u, hp.v))),
+        ms=times["big_sorted"], ms_unsorted=times["big"],
+        anyhit_ms=times["big_sorted_anyhit"],
+        plain_ms=start.elapsed_time(end), times=times, rays=n,
         k1_ms=cuda_ms(lambda: k1.intersect_pallas(
-            o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm), reps),
-        rays=n,
+            small[0], small[1], g.tri_v0, g.tri_e1, g.tri_e2, t_max=small[2]), reps),
     )
-    log(f"  K2 atrium_big N={n}: kernel {rec['ms']:.3f} ms (any-hit "
-        f"{rec['anyhit_ms']:.3f} ms), plain {rec['plain_ms']:.3f} ms, "
-        f"K1 on all {g.tri_v0.shape[0]} slots {rec['k1_ms']:.3f} ms; "
-        f"{live} (ray, cluster) pairs entered before the hit, holding "
-        f"{live_tris} real triangles; bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']})")
+    log(f"  K2 big sorted N={n}: closest equal to plain bit for bit (plain "
+        f"{rec['plain_ms']:.0f} ms in slices), any-hit mask equal; unsorted "
+        f"equal to sorted; work before the closest hit {w_big}; bound "
+        f"{b_ms:.4f} ms ({b_by}), small {b_small:.4f} ms ({by_small})")
+    log("  K2 ms [closest / any-hit] by batch: " + "; ".join(
+        f"{label} {times[label]:.3f} / {times[label + '_anyhit']:.3f}"
+        for label in ("small", "small_sorted", "big", "big_sorted"))
+        + f"; big sorted with t_max 2e-4 (nothing entered) "
+        f"{times['big_sorted_nothing_entered']:.3f}"
+        + f"; K1 on all {g.tri_v0.shape[0]} slots (small) {rec['k1_ms']:.3f}")
     return rec
 
 
@@ -506,10 +672,13 @@ def check_k4(dev_scene, small, big, reps: int):
 
 def check_k5_k6(dev_scene, small, big, reps: int):
     """K5 (csrc/traverse_candidates.cu) and K6 (csrc/cluster_stream.cu)
-    vs their plain versions, bit for bit, at K 12 and 4 on `small`;
-    the traverse engine and K6 against K2 there; then both kernels at
-    the main path's K on `big` as `intersect_traversed` feeds them
-    (K6 with t_max = -inf for the rays K5 resolved), timed."""
+    vs their plain versions, bit for bit: K5 at K 12 and 4 on `small`
+    and at the main path's K on `big`, each unsorted and in
+    matrix_query's coherence order;
+    K6 on the fallback's inputs; the traverse engine and K6 against K2
+    on `small`; then both kernels at the main path's K on `big` as
+    `intersect_traversed` feeds them (K6 with t_max = -inf for the rays
+    K5 resolved), timed, K5 on both orders."""
     import torch
 
     from hala_tpu_torch.ops import cluster as k6
@@ -520,29 +689,33 @@ def check_k5_k6(dev_scene, small, big, reps: int):
     c = cmin.shape[0]
     real = (g.tri_mat >= 0).view(c, k5.TRI_CHUNK).sum(dim=1)
     hit_labels = ("t", "tri", "u", "v")
+    k5_labels = hit_labels + ("unres", "runs")
 
-    def run(o, d, tm, k, label):
+    def run(o, d, tm, k, label, fallback=True):
         ids, tns, ovf = k5.cull_candidates(o, d, tm, cmin, cmax, k)
         got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
         ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, g.tri_packed)
         torch.cuda.synchronize()
         equal_tensors(f"K5 K={k} {label}", (*got[0], got[1], got[2]),
-                      (*ref[0], ref[1], ref[2]), hit_labels + ("unres", "runs"))
+                      (*ref[0], ref[1], ref[2]), k5_labels)
+        live = max(int((tm > 0).sum()), 1)
+        log(f"  K5 K={k} {label}: equal bit for bit; unresolved {int(got[1].sum()) / live:.4f} of live rays, "
+            f"{float(got[2].sum()) / live:.2f} clusters visited per live ray")
+        if not fallback:
+            return ids, tns, ovf, got, ref
         fb_tm = k5.fallback_t_max(got[0], got[1])
         fk = k6.intersect_clustered(o, d, g, t_max=fb_tm)
         fp = k6.intersect_clustered_plain(o, d, g, t_max=fb_tm)
         torch.cuda.synchronize()
         equal_tensors(f"K6 fallback K={k} {label}", fk, fp, hit_labels)
-        live = max(int((tm > 0).sum()), 1)
-        log(f"  K5, K6 fallback K={k} {label}: equal bit for bit; unresolved "
-            f"{int(got[1].sum()) / live:.4f} of live rays, "
-            f"{float(got[2].sum()) / live:.2f} clusters visited per live ray")
         return ids, tns, ovf, got, ref, fb_tm, fk, fp
 
+    small_s, _ = coherent_order(dev_scene, small)
     o, d, tm = small
     hm = k5.intersect_matrix(o, d, g, t_max=tm)
     for k in (TRAVERSE_K, 4):
         run(o, d, tm, k, f"N={o.shape[0]}")
+        run(*small_s, k, f"N={o.shape[0]} sorted", fallback=False)
         ht = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=k)
         torch.cuda.synchronize()
         _, graze = compare_with_exact(f"intersect_traversed K={k} vs K2",
@@ -557,24 +730,32 @@ def check_k5_k6(dev_scene, small, big, reps: int):
     o, d, tm = big
     n, k = o.shape[0], TRAVERSE_K
     ids, tns, ovf, got, ref, fb_tm, fk, fp = run(o, d, tm, k, f"N={n}")
-    runs = got[2]
-    walked = torch.arange(k, device=o.device)[None, :] < runs[:, None]
-    safe = torch.clamp(ids, max=c - 1).long()
-    k5_tris = int((real[safe] * walked).sum())
-    k5_ms, k5_by = bound(k5_tris * OPS_MT,
-                         n * 28 + n * k * 8 + n + g.tri_packed.numel() * 4 + n * 24)
+    big_s, _ = coherent_order(dev_scene, big)
+    lists_s = k5.cull_candidates(*big_s, cmin, cmax, k)
+    sorted_run = run(*big_s, k, f"N={n} sorted", fallback=False)
+    # each ray's walk does not depend on the order: one bound for both
+    k5_ms, k5_by, visits, k5_pairs = k5_work(g, o, d, tm, ids, k, got[0], got[2])
+    times = {}
+    for label, (o_, d_, tm_), lists in (("small", small, None),
+                                        ("small_sorted", small_s, None),
+                                        ("big", big, (ids, tns, ovf)),
+                                        ("big_sorted", big_s, lists_s)):
+        lists = lists or k5.cull_candidates(o_, d_, tm_, cmin, cmax, k)
+        times[label] = cuda_ms(lambda: k5.traverse_candidates(
+            o_, d_, tm_, *lists, g.tri_packed), reps)
     k5_rec = dict(
-        # over t, u, v of the pair compared above; tri mismatches beside it
-        max_abs_err=max_abs_diff((got[0].t, got[0].u, got[0].v),
-                                 (ref[0].t, ref[0].u, ref[0].v)),
+        # over t, u, v of the pairs compared above; tri mismatches beside it
+        max_abs_err=max(max_abs_diff((got[0].t, got[0].u, got[0].v),
+                                     (ref[0].t, ref[0].u, ref[0].v)),
+                        max_abs_diff(*((h.t, h.u, h.v) for h in (sorted_run[3][0],
+                                                                   sorted_run[4][0])))),
         tri_mismatches=int((got[0].tri != ref[0].tri).sum()),
         bound_ms=k5_ms, bound_by=k5_by, library_ms=None,
-        rays=n, visited=int(runs.sum()), real_tris=k5_tris,
-        unresolved=int(got[1].sum()),
-        ms=cuda_ms(lambda: k5.traverse_candidates(
-            o, d, tm, ids, tns, ovf, g.tri_packed), reps),
+        rays=n, visited=visits, mt_pairs=k5_pairs,
+        unresolved=int(got[1].sum()), times=times,
+        ms=times["big_sorted"], ms_unsorted=times["big"],
         plain_ms=cuda_ms(lambda: k5.traverse_candidates_plain(
-            o, d, tm, ids, tns, ovf, g.tri_packed), 1),
+            *big_s, *lists_s, g.tri_packed), 1),
     )
     # K6 on the fallback's inputs: the unresolved rays walk every box
     # and run Moller-Trumbore on the real triangles of the clusters
@@ -595,9 +776,12 @@ def check_k5_k6(dev_scene, small, big, reps: int):
         plain_ms=cuda_ms(lambda: k6.intersect_clustered_plain(o, d, g, t_max=fb_tm), 1),
         full_ms=cuda_ms(lambda: k6.intersect_clustered(o, d, g, t_max=tm), 1),
     )
-    log(f"  K5 K={k} N={n}: kernel {k5_rec['ms']:.3f} ms, plain "
-        f"{k5_rec['plain_ms']:.1f} ms, bound {k5_ms:.4f} ms ({k5_by}; "
-        f"{k5_rec['visited']} cluster visits, {k5_tris} real triangles)")
+    log(f"  K5 K={k} N={n}: kernel {k5_rec['ms']:.3f} ms sorted, "
+        f"{k5_rec['ms_unsorted']:.3f} unsorted, plain {k5_rec['plain_ms']:.1f} ms, "
+        f"bound {k5_ms:.4f} ms ({k5_by}; {visits} cluster visits, "
+        f"{k5_pairs} (ray, real triangle) pairs in the spans entered before the "
+        f"hit); ms by batch: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in times.items()))
     log(f"  K6 fallback N={n} ({act.numel()} unresolved): kernel "
         f"{k6_rec['ms']:.3f} ms, plain {k6_rec['plain_ms']:.1f} ms, bound "
         f"{k6_ms:.4f} ms ({k6_by}); K6 on the full range of all {n} rays "
@@ -1481,10 +1665,10 @@ def main() -> int:
     big_host = Scene.load(os.path.join(HERE, "assets", "atrium_big.glb"))
     big_dev = SceneUploader.upload(big_host, device=dev)
     k1_rec = check_k1(cornell_dev, soup_dev, 2 * 512 * 512, 77, reps=20)
-    k2_rec = check_k2(big_dev, 256, 128, 32768, reps=3)
-    k3_rec = check_k3(big_dev, reps=10)
     small = mixed_batch(big_dev, 256, 128, 32768, 31)
     big = mixed_batch(big_dev, 1024, 1024, 1 << 20, 33)
+    k2_rec = check_k2(big_dev, small, big, reps=6)
+    k3_rec = check_k3(big_dev, reps=10)
     k4_rec = check_k4(big_dev, small, big, reps=5)
     k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
     k7_rec, k8_rec = check_k7_k8(big_dev, small, big, reps=5)
@@ -1547,6 +1731,9 @@ def main() -> int:
     # clusters at all).
     t_out["rel_rmse_vs_k2"] = rel_rmse(trav.film.accum[..., :3],
                                        sponza.film.accum[..., :3])
+    # one more K2 frame, profiled (after the comparison of the two films)
+    s_prof = profile_frames("atrium_big K2 sorted", lambda: sponza.render_loop(1), 1,
+                            s_out["ms_per_frame"], card)
     t_out["peak_bytes"] = t_peak
     t_prof = profile_frames("atrium_big traverse", lambda: trav.render_loop(1), 1,
                             t_out["ms_per_frame"], card)
@@ -1703,11 +1890,14 @@ def main() -> int:
     log("  PFMs finite")
 
     def entry(name, source, replaces, launches, rec):
-        return dict(name=name, route="cuda", source=source, replaces=replaces,
-                    launches=launches, max_abs_err=rec["max_abs_err"],
-                    ms=rec["ms"], plain_ms=rec["plain_ms"],
-                    bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
-                    library_ms=rec.get("library_ms"))
+        out = dict(name=name, route="cuda", source=source, replaces=replaces,
+                   launches=launches, max_abs_err=rec["max_abs_err"],
+                   ms=rec["ms"], plain_ms=rec["plain_ms"],
+                   bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                   library_ms=rec.get("library_ms"))
+        if "ms_unsorted" in rec:  # K2, K5: ms on the coherence-sorted batch
+            out["ms_unsorted"] = rec["ms_unsorted"]
+        return out
 
     kernels = [
         entry("intersect_bruteforce (K1)",
@@ -1734,19 +1924,23 @@ def main() -> int:
               "hala_tpu/ops/traverse.py:2013", after_grouped["grouped_walk"], k8_rec),
     ]
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
-                   atrium_big_peak_bytes=peak, raster_atrium=ra_out,
+                   atrium_big_peak_bytes=peak, atrium_big_profile=s_prof,
+                   raster_atrium=ra_out,
                    raster=rc_out, raster_atrium_profile=ra_prof,
                    raster_atrium_stages=ra_stages,
                    atrium_big_traverse_profile=t_prof,
                    k1_rays=k1_rec["rays"], k2_rays=k2_rec["rays"],
                    k2_anyhit_ms=k2_rec["anyhit_ms"],
-                   k2_live_pairs=k2_rec["live_pairs"],
+                   k2_runs=k2_rec["runs"], k2_small_work=k2_rec["small_work"],
+                   k2_times=k2_rec["times"], k2_small_bound_ms=k2_rec["small_bound_ms"],
+                   k2_big_work=k2_rec["big_work"],
                    k1_all_slots_on_atrium_big_ms=k2_rec["k1_ms"],
+                   k5_times=k5_rec["times"],
                    k3_glue_ms=k3_rec["glue_ms"], k3_n_real=k3_rec["n_real"],
                    k3_longest_segment=k3_rec["longest"],
                    atrium_big_traverse=t_out, atrium_big_cluster=cl_out,
                    k4_rays=k4_rec["rays"], k4_truncated=k4_rec["truncated"],
-                   k5_visits=k5_rec["visited"], k5_real_tris=k5_rec["real_tris"],
+                   k5_visits=k5_rec["visited"], k5_mt_pairs=k5_rec["mt_pairs"],
                    k5_unresolved=k5_rec["unresolved"],
                    k6_fallback_active=k6_rec["active"],
                    k6_full_range_ms=k6_rec["full_ms"],

@@ -1,8 +1,10 @@
 // Device code shared by the cluster kernels (matrix_traverse.cu,
 // cluster_stream.cu, traverse_candidates.cu): the conservative slab test
 // of a ray against a cluster AABB, Moller-Trumbore over one 128-slot
-// cluster block of `tri_packed`, and the ascending walk over every
-// cluster that K2 and K6 both run.
+// cluster block of `tri_packed`, the ascending walk over every cluster
+// that K6 runs, and the pieces of K2's and K5's out-of-order walks (the
+// slab test of any box, the row-9 pretest, one slot's Moller-Trumbore,
+// the lexicographic merge).
 //
 // The arithmetic is written in the order of the plain PyTorch versions
 // (ops/cluster.py `slab_live`, ops/intersect.py `mt_components`); the
@@ -175,6 +177,113 @@ __device__ __forceinline__ void walk_all_clusters(
     if (!slab_live(cmin, cmax, c, r, b.t)) continue;
     if (mt_cluster<false>(tri_packed, c, r, b, any_hit)) return;
   }
+}
+
+// --- the out-of-order walks of K2 and K5 -------------------------------------
+//
+// K2 visits clusters front to back and K5 splits a cluster over a warp,
+// so neither meets the slots in ascending order. Both keep the
+// lexicographic (t, slot) minimum instead (as mt_cluster<true>), and
+// test a box with `tn <= t_best`, not `<`: a box entered exactly at the
+// best t may still hold a lower slot at that t.
+
+constexpr int kPretestTris = 16;  // slots per row-9 sub-box
+constexpr int kPretestBoxes = kSlots / kPretestTris;
+
+// slab_axis in two halves: the padded corners of a box, which depend on
+// the box alone, and the test of one ray against them.
+__device__ __forceinline__ void pad_axis(float lo, float hi, float* lo_p,
+                                         float* hi_p) {
+  const float pad = kPadRel * (fabsf(lo) + fabsf(hi)) + kPadAbs;
+  *lo_p = lo - pad;
+  *hi_p = hi + pad;
+}
+
+__device__ __forceinline__ bool padded_axis(float lo_p, float hi_p, float o,
+                                            float d, float inv, float* tn,
+                                            float* tf) {
+  if (fabsf(d) < kTinyDir) {
+    *tn = -CUDART_INF_F;
+    *tf = CUDART_INF_F;
+    return lo_p <= o && o <= hi_p;
+  }
+  const float t0 = (lo_p - o) * inv;
+  const float t1 = (hi_p - o) * inv;
+  *tn = fminf(t0, t1);
+  *tf = fmaxf(t0, t1);
+  return true;
+}
+
+// The conservative slab test of a ray against an already padded box
+// p = [lo_p.xyz | hi_p.xyz]: the widened-down entry distance in *tn, and
+// true where the ray enters the box at all.
+__device__ __forceinline__ bool padded_entry(const float* p, const Ray& r,
+                                             float* tn) {
+  float tnx, tfx, tny, tfy, tnz, tfz;
+  const bool in_x = padded_axis(p[0], p[3], r.ox, r.dx, r.invx, &tnx, &tfx);
+  const bool in_y = padded_axis(p[1], p[4], r.oy, r.dy, r.invy, &tny, &tfy);
+  const bool in_z = padded_axis(p[2], p[5], r.oz, r.dz, r.invz, &tnz, &tfz);
+  *tn = widen_down(fmaxf(fmaxf(tnx, tny), tnz));
+  const float tf = widen_up(fminf(fminf(tfx, tfy), tfz));
+  return in_x && in_y && in_z && *tn <= tf && tf > 0.f;
+}
+
+// The same test of a box given by its corners: the operations of
+// slab_live, which is this test with `tn < t_cur` added.
+__device__ __forceinline__ bool slab_entry(float lox, float loy, float loz,
+                                           float hix, float hiy, float hiz,
+                                           const Ray& r, float* tn) {
+  float p[6];
+  pad_axis(lox, hix, p + 0, p + 3);
+  pad_axis(loy, hiy, p + 1, p + 4);
+  pad_axis(loz, hiz, p + 2, p + 5);
+  return padded_entry(p, r, tn);
+}
+
+// slab_entry of cluster c's AABB.
+__device__ __forceinline__ bool cluster_entry(const float* __restrict__ cmin,
+                                              const float* __restrict__ cmax,
+                                              int c, const Ray& r, float* tn) {
+  return slab_entry(__ldg(cmin + 3 * c), __ldg(cmin + 3 * c + 1),
+                    __ldg(cmin + 3 * c + 2), __ldg(cmax + 3 * c),
+                    __ldg(cmax + 3 * c + 1), __ldg(cmax + 3 * c + 2), r, tn);
+}
+
+// slab_entry of sub-box s of a cluster block's row 9 ([min.xyz | max.xyz]
+// x 8, lanes 0-47): the span of slots 16 s .. 16 s + 15.
+__device__ __forceinline__ bool pretest_entry(const float* row9, int s,
+                                              const Ray& r, float* tn) {
+  const float* bx = row9 + 6 * s;
+  return slab_entry(bx[0], bx[1], bx[2], bx[3], bx[4], bx[5], r, tn);
+}
+
+// Moller-Trumbore of one slot, in mt_cluster's operations and order:
+// true where the slot is hit in (1e-4, inf), with t, u, v.
+__device__ __forceinline__ bool mt_slot(const Ray& r, float v0x, float v0y,
+                                        float v0z, float e1x, float e1y,
+                                        float e1z, float e2x, float e2y,
+                                        float e2z, float* t, float* u,
+                                        float* v) {
+  const float px = r.dy * e2z - r.dz * e2y;
+  const float py = r.dz * e2x - r.dx * e2z;
+  const float pz = r.dx * e2y - r.dy * e2x;
+  const float det = px * e1x + py * e1y + pz * e1z;
+  const bool ok_det = fabsf(det) > kEps;
+  const float inv_det = ok_det ? 1.0f / det : 0.0f;
+  const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
+  *u = (tx * px + ty * py + tz * pz) * inv_det;
+  const float qx = ty * e1z - tz * e1y;
+  const float qy = tz * e1x - tx * e1z;
+  const float qz = tx * e1y - ty * e1x;
+  *v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  *t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return ok_det && *u >= 0.f && *v >= 0.f && *u + *v <= 1.f && *t > kTMin;
+}
+
+// mt_cluster<true>'s rule: a hit at global slot `slot` replaces the best
+// when nearer, or at an equal t when the best is a hit of a higher slot.
+__device__ __forceinline__ bool lex_better(float t, int slot, const Best& b) {
+  return t < b.t || (t == b.t && b.tri >= 0 && slot < b.tri);
 }
 
 }  // namespace hala

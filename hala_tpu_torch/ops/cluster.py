@@ -13,8 +13,9 @@ slab test `slab_live` (csrc/cluster_walk.cuh explains each case): the
 TPU kernel's safety net, testing a 1024-ray block's union of slab hits,
 does not exist for one ray alone. Ascending clusters and a strict `<`
 give brute force's tie order, so results equal the brute force over all
-slots. K2 (ops/traverse.py) runs the same walk, capped at
-MATRIX_MAX_CLUSTERS, so `stream_plain` is the plain version of both.
+slots. K2 (ops/traverse.py, capped at MATRIX_MAX_CLUSTERS) walks the
+clusters front to back instead and returns the same hits, so
+`stream_plain` is the plain version of both.
 
 The JAX module's `subchunk_aabb_row`, `cull_clusters`,
 `build_cluster_tables_device` and `refit_clusters` are not ported: no
@@ -33,6 +34,10 @@ from . import cuda_lib
 from .intersect import T_MAX, Hit, full_t_max, ray_triangle
 
 TRI_CHUNK = 128  # == scene/gpu TRI_PAD
+# tri_packed row 9 holds the [min.xyz | max.xyz] boxes of 8 spans of 16
+# slots (lanes 0-47), the pretest of K2 and K5 (scene/loader/uploader.py)
+PRETEST_TRIS = 16
+PRETEST_PER_CHUNK = TRI_CHUNK // PRETEST_TRIS
 # clusters per step of the plain walk: (N, 16 * 128) temporaries
 _PLAIN_GROUP = 16
 
@@ -44,20 +49,22 @@ _WIDEN_UP = float(np.float32(1.0) + np.float32(1e-6))
 _WIDEN_DOWN = float(np.float32(1.0) - np.float32(1e-6))
 
 
-def slab_live(o, d, cmin, cmax, t_cur):
-    """Conservative slab test of rays (N, 3) against boxes (G, 3):
-    (N, G) bool, True where a hit in the box could still beat t_cur.
-    Same operations, in the same order, as csrc/cluster_walk.cuh."""
+def slab_entry(o, d, lo3, hi3):
+    """Conservative slab test of rays against boxes, broadcast over the
+    leading dims of o, d (..., 3) and the box corners lo3, hi3 (..., 3):
+    (tn, enters), the widened-down entry distance and True where the
+    ray enters the padded box at all. Same operations, in the same
+    order, as csrc/cluster_walk.cuh `slab_entry`."""
     tn = tf = None
     inside = None
     for ax in range(3):
-        lo = cmin[None, :, ax]
-        hi = cmax[None, :, ax]
+        lo = lo3[..., ax]
+        hi = hi3[..., ax]
         pad = _PAD_REL * (torch.abs(lo) + torch.abs(hi)) + _PAD_ABS
         lo_p = lo - pad
         hi_p = hi + pad
-        oa = o[:, ax:ax + 1]
-        da = d[:, ax:ax + 1]
+        oa = o[..., ax]
+        da = d[..., ax]
         inv = 1.0 / da
         t0 = (lo_p - oa) * inv
         t1 = (hi_p - oa) * inv
@@ -70,7 +77,34 @@ def slab_live(o, d, cmin, cmax, t_cur):
         inside = in_a if inside is None else inside & in_a
     tn = torch.where(tn < 0.0, tn * _WIDEN_UP, tn * _WIDEN_DOWN)
     tf = torch.where(tf > 0.0, tf * _WIDEN_UP, tf * _WIDEN_DOWN)
-    return inside & (tn <= tf) & (tf > 0.0) & (tn < t_cur[:, None])
+    return tn, inside & (tn <= tf) & (tf > 0.0)
+
+
+def slab_live(o, d, cmin, cmax, t_cur):
+    """Conservative slab test of rays (N, 3) against boxes (G, 3):
+    (N, G) bool, True where a hit in the box could still beat t_cur
+    (csrc/cluster_walk.cuh `slab_live`)."""
+    tn, enters = slab_entry(o[:, None, :], d[:, None, :], cmin[None], cmax[None])
+    return enters & (tn < t_cur[:, None])
+
+
+def with_pretest_row(tri_packed):
+    """A copy of hand-built slot blocks (C, 16, 128) with row 9 filled as
+    the uploader fills it: per 16-slot span the [min.xyz | max.xyz] box
+    of its triangles (slots whose edges are both zero are padding), a
+    far point box at 3e37 where a span holds none."""
+    c = tri_packed.shape[0]
+    v0, e1, e2 = tri_packed[:, 0:3], tri_packed[:, 3:6], tri_packed[:, 6:9]
+    real = ((e1 != 0) | (e2 != 0)).any(dim=1)[:, None, :]
+    lo = torch.where(real, torch.minimum(torch.minimum(v0, v0 + e1), v0 + e2), torch.inf)
+    hi = torch.where(real, torch.maximum(torch.maximum(v0, v0 + e1), v0 + e2), -torch.inf)
+    lo = lo.view(c, 3, PRETEST_PER_CHUNK, PRETEST_TRIS).amin(dim=-1)
+    hi = hi.view(c, 3, PRETEST_PER_CHUNK, PRETEST_TRIS).amax(dim=-1)
+    empty = ~torch.isfinite(lo[:, :1])
+    boxes = torch.cat([torch.where(empty, 3.0e37, lo), torch.where(empty, 3.0e37, hi)], dim=1)
+    out = tri_packed.clone()
+    out[:, 9, :6 * PRETEST_PER_CHUNK] = boxes.permute(0, 2, 1).reshape(c, -1)
+    return out
 
 
 def _slot_table(tri_packed):
@@ -80,12 +114,13 @@ def _slot_table(tri_packed):
 
 
 def stream_plain(o, d, tm, cmin, cmax, tri_packed) -> Hit:
-    """The plain ascending cluster walk of K2 and K6: clusters in
-    ascending groups; each (ray, cluster) pair runs Moller-Trumbore only
-    where the slab test passes against the ray's best t at the start of
-    the group (first argmin inside a group, strict `<` across groups:
-    brute force's tie order). The kernels test each cluster against the
-    current best t, which only prunes clusters that cannot win."""
+    """The plain ascending cluster walk of K6, and K2's plain version
+    (the same hits): clusters in ascending groups; each (ray, cluster)
+    pair runs Moller-Trumbore only where the slab test passes against
+    the ray's best t at the start of the group (first argmin inside a
+    group, strict `<` across groups: brute force's tie order). The
+    kernels test each cluster against the current best t, which only
+    prunes clusters that cannot win."""
     n = o.shape[0]
     c = cmin.shape[0]
     v0, e1, e2 = _slot_table(tri_packed)

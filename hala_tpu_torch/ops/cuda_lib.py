@@ -180,7 +180,7 @@ INTERSECT_BRUTEFORCE = Kernel(
 # csrc/matrix_traverse.cu
 MATRIX_TRAVERSE = Kernel(
     "hala_matrix_traverse",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    [_P] * 6 + [_I] * 3 + [_P] * 6,
 )
 
 # csrc/raster_tiled.cu
@@ -196,7 +196,7 @@ CULL_TOPK = Kernel(
 # csrc/traverse_candidates.cu
 TRAVERSE_CANDIDATES = Kernel(
     "hala_traverse_candidates",
-    [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P],
+    [_P] * 7 + [_I] * 2 + [_P] * 7,
 )
 # csrc/cluster_stream.cu
 CLUSTER_STREAM = Kernel(

@@ -8,9 +8,13 @@ clusters of 128 triangle slots with per-cluster AABBs
 `tri_packed` (C, 16, 128) whose rows 0-8 hold v0/e1/e2.
 
 - `intersect_matrix` / `occluded_matrix` (K2): the exact closest (or
-  any) hit, an ascending walk over every cluster with the conservative
-  slab test of ops/cluster.py. Up to MATRIX_MAX_CLUSTERS clusters, as
-  in the JAX package.
+  any) hit. Each block of MATRIX_BLOCK_RAYS consecutive rays walks the
+  clusters its rays enter front to back (the conservative slab test of
+  ops/cluster.py, then the row-9 pretest) and stops once no ray could
+  still improve. Up to MATRIX_MAX_CLUSTERS clusters, as in the JAX
+  package. `stream_plain` is its plain version (the same hits);
+  `matrix_walk_runs_plain` models its schedule, clusters visited per
+  block included (`matrix_walk_runs`).
 - `matrix_query`: the integrator's entry to the matrix family. It sorts
   the rays by a coherence key (octant and origin Morton cell, or the
   candidate signature), runs K2, the grouped engine or the wavefront
@@ -45,9 +49,12 @@ import torch
 
 from . import cuda_lib
 from .cluster import (  # noqa: F401  (slab_live, TRI_CHUNK: K2's API)
+    PRETEST_PER_CHUNK,
+    PRETEST_TRIS,
     TRI_CHUNK,
     check_stream_inputs,
     intersect_clustered,
+    slab_entry,
     slab_live,
     stream_plain,
 )
@@ -56,6 +63,7 @@ from .intersect import EPS, T_MIN, Hit, canonical_hit, full_t_max, mt_components
 from .compaction import coherence_key, order_by
 
 MATRIX_MAX_CLUSTERS = (1 << 13) - 1
+MATRIX_BLOCK_RAYS = 128  # rays sharing one K2 walk (csrc/matrix_traverse.cu)
 BIG_CLUSTER = 0x3FFFFFFF  # "no candidate" id
 _INF = 3.0e38             # "no candidate" entry distance
 # rays per step of the plain K5 walk: (R, 9, 128) gathered slot blocks
@@ -67,27 +75,40 @@ GROUP = 128  # rays per group of the grouped and wavefront walks
 _PLAIN_GROUPS = 256
 
 
-# --- K2: the ascending walk over every cluster --------------------------------
+# --- K2: the front-to-back walk per block of rays ---------------------------
 
 
-def _launch_matrix(o, d, tm, cmin, cmax, tri_packed, any_hit: bool) -> Hit:
+def check_aligned(name, tri_packed) -> None:
+    """Raise unless the slot blocks start on 16 bytes: K2 copies them
+    with 16-byte cp.async and K5 reads them as float4."""
+    if tri_packed.data_ptr() % 16:
+        raise ValueError(f"{name}: tri_packed is not 16-byte aligned")
+
+
+def _launch_matrix(o, d, tm, cmin, cmax, tri_packed, any_hit: bool,
+                   with_runs: bool = False):
     dev = o.device
     n = o.shape[0]
     c = cmin.shape[0]
     check_stream_inputs("intersect_matrix", o, d, tm, cmin, cmax, tri_packed)
+    check_aligned("intersect_matrix", tri_packed)
     if c > MATRIX_MAX_CLUSTERS:
         raise ValueError(f"intersect_matrix: {c} clusters > {MATRIX_MAX_CLUSTERS}")
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     tri_out = torch.empty(n, dtype=torch.int32, device=dev)
     u_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
+    runs = (torch.empty(-(-n // MATRIX_BLOCK_RAYS), dtype=torch.int32, device=dev)
+            if with_runs else None)
     P = cuda_lib.ptr
     cuda_lib.MATRIX_TRAVERSE(
         P(o), P(d), P(tm), P(cmin), P(cmax), P(tri_packed),
         n, c, int(any_hit),
-        P(t_out), P(tri_out), P(u_out), P(v_out), cuda_lib.stream_ptr(dev),
+        P(t_out), P(tri_out), P(u_out), P(v_out),
+        P(runs) if with_runs else None, cuda_lib.stream_ptr(dev),
     )
-    return Hit(t=t_out, tri=tri_out, u=u_out, v=v_out)
+    hit = Hit(t=t_out, tri=tri_out, u=u_out, v=v_out)
+    return (hit, runs) if with_runs else hit
 
 
 def intersect_matrix_plain(o, d, geometry, t_max=None) -> Hit:
@@ -119,6 +140,122 @@ def intersect_matrix(
 def occluded_matrix(o, d, t_far, geometry) -> torch.Tensor:
     """Any-hit shadow query: True where something lies in (1e-4, t_far)."""
     return intersect_matrix(o, d, geometry, t_max=t_far, any_hit=True).tri >= 0
+
+
+def matrix_walk_runs(o, d, geometry, t_max=None, any_hit: bool = False):
+    """K2 with its schedule: (Hit, runs), runs (ceil(N / 128),) int32
+    the clusters each block of MATRIX_BLOCK_RAYS rays visited. CPU
+    tensors take `matrix_walk_runs_plain`."""
+    g = geometry
+    tm = full_t_max(t_max, o.shape[0], o.device)
+    if o.device.type == "cpu":
+        return matrix_walk_runs_plain(o, d, tm, g.cluster_min, g.cluster_max,
+                                      g.tri_packed, any_hit)
+    return _launch_matrix(o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed,
+                          any_hit, with_runs=True)
+
+
+def _block_keys(o, d, tm, cmin, cmax, block: int):
+    """Per block of `block` rays and cluster, the least packed key
+    (max(tn, 0) bits & ~0x1FFF) | id over the block's live rays (t_max >
+    1e-4) that enter the padded box before t_max, INF_KEY where none
+    does: (G, C) int32, made in steps of whole blocks."""
+    n, c = o.shape[0], cmin.shape[0]
+    ids = torch.arange(c, dtype=torch.int32, device=o.device)
+    keys = torch.empty((n // block, c), dtype=torch.int32, device=o.device)
+    rows = max(block, _ORDERED_PAIRS // max(c, 1) // block * block)
+    for r0 in range(0, n, rows):
+        sl = slice(r0, r0 + rows)
+        tn, enters = slab_entry(o[sl, None, :], d[sl, None, :], cmin[None], cmax[None])
+        t = tm[sl, None]
+        enters = enters & (tn < t) & (t > T_MIN)
+        bits = torch.where(tn > 0.0, tn, 0.0).view(torch.int32) & ~_ID_MASK | ids
+        key = torch.where(enters, bits, INF_KEY)
+        keys[r0 // block:(r0 + rows) // block] = key.view(-1, block, c).amin(dim=1)
+    return keys
+
+
+def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
+                           any_hit: bool = False):
+    """The plain model of K2's schedule, vectorised over blocks of
+    MATRIX_BLOCK_RAYS consecutive rays: the
+    keys of `_block_keys` in ascending order; a block stops at the first
+    key whose entry distance (the key's bits above the id) exceeds the
+    best t of every ray still walking (live, and with any_hit not yet
+    hit); each walking ray runs its slab test of the cluster and the
+    eight row-9 sub-boxes against its best t (tn <= t), and
+    Moller-Trumbore on the spans that pass. Closest hit: the
+    lexicographic (t, slot) minimum; any hit: the lowest hit slot of the
+    first cluster with one. Returns (Hit, runs (G,) int32, the clusters
+    each block visited)."""
+    n = o.shape[0]
+    dev = o.device
+    block = MATRIX_BLOCK_RAYS
+    pad = -n % block
+    if pad:
+        o = torch.nn.functional.pad(o, (0, 0, 0, pad))
+        d = torch.nn.functional.pad(d, (0, 0, 0, pad), value=1.0)
+        tm = torch.nn.functional.pad(tm, (0, pad))
+    keys = torch.sort(_block_keys(o, d, tm, cluster_min, cluster_max, block),
+                      dim=1).values
+    g_total = keys.shape[0]
+    live = tm > T_MIN
+    t_best = tm.clone()
+    tri = torch.full_like(tm, -1, dtype=torch.int32)
+    u_best = torch.zeros_like(tm)
+    v_best = torch.zeros_like(tm)
+    done = torch.zeros_like(live)
+    runs = torch.zeros(g_total, dtype=torch.int32, device=dev)
+    walking = torch.ones(g_total, dtype=torch.bool, device=dev)
+    span = torch.arange(TRI_CHUNK, device=dev) // PRETEST_TRIS
+    slot_k = torch.arange(TRI_CHUNK, dtype=torch.int32, device=dev)
+    for j in range(keys.shape[1]):
+        key = keys[:, j]
+        key_tn = (key & ~_ID_MASK).view(torch.float32).repeat_interleave(block)
+        want = live & ~done & (key_tn <= t_best)
+        walking = walking & (key != INF_KEY) & want.view(g_total, block).any(dim=1)
+        if not bool(walking.any()):
+            break
+        runs += walking.to(torch.int32)
+        r = torch.nonzero(want & walking.repeat_interleave(block)).squeeze(1)
+        c = (key & _ID_MASK)[r // block].long()
+        tb = t_best[r]
+        tn, enters = slab_entry(o[r], d[r], cluster_min[c], cluster_max[c])
+        keep = enters & (tn <= tb)
+        r, c, tb = r[keep], c[keep], tb[keep]
+        boxes = tri_packed[c, 9, :6 * PRETEST_PER_CHUNK].view(-1, PRETEST_PER_CHUNK, 6)
+        tn, enters = slab_entry(o[r, None, :], d[r, None, :], boxes[..., :3],
+                                boxes[..., 3:])
+        tested = (enters & (tn <= tb[:, None]))[:, span]
+        blk = tri_packed[c, 0:9, :]
+        o_r, d_r = o[r], d[r]
+        t, u, v, valid = mt_components(
+            (o_r[:, 0:1], o_r[:, 1:2], o_r[:, 2:3]),
+            (d_r[:, 0:1], d_r[:, 1:2], d_r[:, 2:3]),
+            [blk[:, q, :] for q in range(9)],
+        )
+        valid = valid & tested
+        best = tri[r]
+        if any_hit:
+            valid = valid & (t < tb[:, None])
+            arg = torch.where(valid, slot_k, TRI_CHUNK).amin(dim=1)
+        else:
+            t_min = torch.where(valid, t, torch.inf).amin(dim=1)
+            arg = torch.where(valid & (t == t_min[:, None]), slot_k,
+                              TRI_CHUNK).amin(dim=1)
+        found = arg < TRI_CHUNK
+        at = torch.clamp(arg, max=TRI_CHUNK - 1).long()[:, None]
+        t_new = torch.gather(t, 1, at)[:, 0]
+        slot = c.to(torch.int32) * TRI_CHUNK + arg
+        better = found & ((t_new < tb) | ((t_new == tb) & (best >= 0) & (slot < best)))
+        t_best[r] = torch.where(better, t_new, tb)
+        tri[r] = torch.where(better, slot, best)
+        u_best[r] = torch.where(better, torch.gather(u, 1, at)[:, 0], u_best[r])
+        v_best[r] = torch.where(better, torch.gather(v, 1, at)[:, 0], v_best[r])
+        if any_hit:
+            done[r] = done[r] | better
+    hit = Hit(t=t_best[:n], tri=tri[:n], u=u_best[:n], v=v_best[:n])
+    return hit, runs
 
 
 # --- candidate lists --------------------------------------------------------
@@ -282,6 +419,7 @@ def _launch_traverse(o, d, tm, ids, tns, ovf, tri_packed):
         raise ValueError(
             f"traverse_candidates: tri_packed has shape {tuple(tri_packed.shape)}"
         )
+    check_aligned("traverse_candidates", tri_packed)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     tri_out = torch.empty(n, dtype=torch.int32, device=dev)
     u_out = torch.empty(n, dtype=torch.float32, device=dev)

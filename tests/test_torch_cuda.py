@@ -8,6 +8,7 @@ without JAX, where tests/conftest.py cannot load:
 """
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -185,6 +186,136 @@ def test_k5_k6_kernels_match_plain(atrium_batch, k):
     assert cuda_lib.CLUSTER_STREAM.launches == before[1] + 2
     if k == 4:
         assert int(got[1].sum()) > 0  # the fallback has rays to rerun
+
+
+def _equal_bits(got, ref):
+    for a, b in zip(got, ref):
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b)
+
+
+def _k2_against_plain(o, d, tm, g):
+    """K2 against its plain version (the same hits, any-hit mask) and its
+    schedule against the plain model (hits and runs, closest and any
+    hit), bit for bit. Returns the runs."""
+    args = (o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed)
+    before = cuda_lib.MATRIX_TRAVERSE.launches
+    hit, runs = k2.matrix_walk_runs(o, d, g, t_max=tm)
+    occ, occ_runs = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=True)
+    plain = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+    model, model_runs = k2.matrix_walk_runs_plain(*args, False)
+    occ_model, occ_model_runs = k2.matrix_walk_runs_plain(*args, True)
+    torch.cuda.synchronize()
+    assert cuda_lib.MATRIX_TRAVERSE.launches == before + 2
+    _equal_bits(hit, plain)
+    _equal_bits((*hit, runs), (*model, model_runs))
+    _equal_bits((*occ, occ_runs), (*occ_model, occ_model_runs))
+    assert torch.equal(occ.tri >= 0, plain.tri >= 0)
+    _equal_bits(k2.intersect_matrix(o, d, g, t_max=tm), plain)
+    return runs
+
+
+def test_k2_keeps_the_lowest_slot_at_equal_t(cuda_device):
+    """Two clusters hold the same triangle; front to back a ray meets it
+    first in cluster 1 (slot 131), and brute force keeps slot 7 of
+    cluster 0, entered later. Closest and any hit, bit for bit."""
+    from hala_tpu_torch.ops.cluster import with_pretest_row
+
+    blk = torch.zeros((2, 16, 128))
+    blk[:, 0:3, :] = 3.0e37  # padding slots: far v0, zero edges
+    for c, s, tri in ((0, 7, [[0, -1, -1], [0, 3, 0], [0, 0, 3]]),
+                      (1, 3, [[0, -1, -1], [0, 3, 0], [0, 0, 3]]),
+                      (1, 9, [[-3, 10, 0], [0, 1, 0], [0, 0, 1]])):
+        blk[c, 0:9, s] = torch.tensor(tri, dtype=torch.float32).reshape(9)
+    g = types.SimpleNamespace(
+        cluster_min=torch.tensor([[0.0, -1.0, -1.0], [-3.0, -1.0, -1.0]], device=cuda_device),
+        cluster_max=torch.tensor([[0.0, 2.0, 2.0], [0.0, 11.0, 2.0]], device=cuda_device),
+        tri_packed=with_pretest_row(blk).to(cuda_device),
+    )
+    rs = np.random.RandomState(8)
+    n = 200
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = -5.0
+    o[:, 1:] = rs.uniform(-0.5, 0.5, (n, 2))
+    d = np.tile(np.float32([1.0, 0.0, 0.0]), (n, 1))
+    d[150:] = rs.normal(size=(50, 3))  # and some that miss
+    d[150:] /= np.linalg.norm(d[150:], axis=1, keepdims=True)
+    o, d = (torch.from_numpy(x).to(cuda_device) for x in (o, d))
+    tm = torch.full((n,), 3.0e38, device=cuda_device)
+    tm[140:150] = 5.0  # the tie at exactly t_max: out of range
+    runs = _k2_against_plain(o, d, tm, g)
+    got = k2.intersect_matrix(o, d, g, t_max=tm)
+    assert (got.tri[:140] == 7).all() and (got.tri[140:150] == -1).all()
+    assert int(runs[0]) == 2
+
+
+def test_k2_edge_rays_match_plain(atrium_batch):
+    """atrium.glb: origins at cluster box centres (inside the boxes),
+    t_max exactly at the closest hit, t_max 0 and -inf; then the mixed
+    batch of the fixture in matrix_query's coherence order."""
+    g, o, d, tm = atrium_batch
+    dev = o.device
+    n = o.shape[0]
+    rs = np.random.RandomState(9)
+    pick = torch.from_numpy(rs.randint(0, g.cluster_min.shape[0] - 1, n)).to(dev)
+    o_in = ((g.cluster_min + g.cluster_max) / 2)[pick].contiguous()
+    first = k2.intersect_matrix_plain(o_in, d, g)
+    tm_e = torch.where(first.tri >= 0, first.t, 3.0e38)
+    tm_e[1::4] = 0.0
+    tm_e[2::4] = -torch.inf
+    _k2_against_plain(o_in, d, tm_e, g)
+    order = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+                          stable=True)
+    o_s, d_s, tm_s = (x[order].contiguous() for x in (o, d, tm))
+    runs = _k2_against_plain(o_s, d_s, tm_s, g)
+    assert 0 < int(runs.max()) <= g.cluster_min.shape[0]
+    assert int(runs[-1]) == 0 or bool((tm_s[-k2.MATRIX_BLOCK_RAYS:] > 1e-4).any())
+
+
+def test_k2_sorted_atrium_big_matches_plain(cuda_device):
+    """atrium_big (1861 clusters): 16,384 rays from inside its bounds in
+    matrix_query's coherence order."""
+    scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
+    g = SceneUploader.upload(scene, device=cuda_device).geometry
+    real = g.tri_v0[g.tri_mat >= 0]
+    lo, hi = (x.cpu().numpy() for x in (real.amin(0), real.amax(0)))
+    rs = np.random.RandomState(10)
+    n = 16384
+    o = torch.from_numpy(rs.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo),
+                                    (n, 3)).astype(np.float32)).to(cuda_device)
+    _, d = _rays(n, 11)
+    d = d.to(cuda_device)
+    tm = torch.full((n,), 3.0e38, device=cuda_device)
+    tm[1::4] = torch.from_numpy(rs.uniform(0.05, 8.0, n // 4).astype(np.float32)).to(
+        cuda_device)
+    tm[::97] = 0.0
+    order = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+                          stable=True)
+    o, d, tm = (x[order].contiguous() for x in (o, d, tm))
+    runs = _k2_against_plain(o, d, tm, g)
+    assert int(runs.max()) <= g.cluster_min.shape[0]
+
+
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+@pytest.mark.parametrize("k", [1, 4, 12, 16])
+def test_k5_sorted_and_unsorted_match_plain(atrium_batch, k, order):
+    """K5 (half a warp a ray) on K4's lists of the fixture's batch as
+    given and in matrix_query's coherence order: all six outputs bit
+    for bit."""
+    g, o, d, tm = atrium_batch
+    if order == "sorted":
+        perm = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+                             stable=True)
+        o, d, tm = (x[perm].contiguous() for x in (o, d, tm))
+    ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, k)
+    before = cuda_lib.TRAVERSE_CANDIDATES.launches
+    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
+    ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, g.tri_packed)
+    torch.cuda.synchronize()
+    assert cuda_lib.TRAVERSE_CANDIDATES.launches == before + 1
+    _equal_bits((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2]))
+    assert int((got[0].tri >= 0).sum()) > 100
 
 
 def test_traverse_engine_on_card_equals_cpu(atrium_batch):

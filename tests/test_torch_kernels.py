@@ -8,6 +8,12 @@ and tests/test_traverse.py run them) and against its brute force.
 Triangle ids are equal; t/u/v agree within rtol/atol 1e-5 (the
 tolerance tests/test_traverse.py holds the TPU kernels to).
 
+K2's schedule (the front-to-back walk per block of rays) has a plain
+model, `matrix_walk_runs_plain`, held here bit for bit to K2's plain
+version and to hala_tpu's kernel in interpret mode, on adversarial
+rays, ties across clusters and edge ranges; the clusters it visits per
+block fall as the batch gets more coherent.
+
 The kernels themselves are compared with their plain versions on the
 card by tests/test_torch_cuda.py.
 """
@@ -220,6 +226,146 @@ def test_k2_plain_reads_the_cluster_aabbs(sponza, rs):
     assert bool((wrong.tri[lost] != good.tri[lost]).all())
     keep = ~lost
     assert torch.equal(wrong.tri[keep], good.tri[keep])
+
+
+# --- K2's schedule: the plain model of the front-to-back block walk ----------
+
+
+def _assert_bits(ours, ref):
+    """Hits equal bit for bit: tri, and t/u/v as int32 bit patterns."""
+    assert torch.equal(ours.tri, ref.tri)
+    for a, b in ((ours.t, ref.t), (ours.u, ref.u), (ours.v, ref.v)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.fixture(scope="module")
+def sponza_k2_ref(sponza):
+    """`_k2_batch`'s adversarial rays on sponza_like (axis-aligned
+    directions, bounded and dead rays) and hala_tpu's intersect_matrix
+    and occluded_matrix on them in interpret mode."""
+    jg = sponza[0].geometry
+    o, d, tm = _k2_batch(np.random.RandomState(7), 256, (4.0, 1.5, 4.0), 1.0)
+    ref = j_intersect_matrix(jnp.asarray(o), jnp.asarray(d), jg,
+                             t_max=jnp.asarray(tm), interpret=True)
+    occ = j_occluded_matrix(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm),
+                            jg, interpret=True)
+    return o, d, tm, ref, np.asarray(occ)
+
+
+@pytest.mark.parametrize("query", ["closest", "any_hit"])
+def test_k2_walk_model_matches_matrix_interpret(sponza, sponza_k2_ref, query):
+    """The plain model of K2's walk equals stream_plain bit for bit and
+    hala_tpu's kernel in interpret mode: the closest hit, or the hit
+    mask of the any-hit query."""
+    g = sponza[1].geometry
+    o, d, tm, ref, occ_ref = sponza_k2_ref
+    plain = k2.intersect_matrix_plain(_t(o), _t(d), g, t_max=_t(tm))
+    hit, runs = k2.matrix_walk_runs(_t(o), _t(d), g, t_max=_t(tm),
+                                    any_hit=query == "any_hit")
+    if query == "closest":
+        _assert_bits(hit, plain)
+        assert int((hit.tri >= 0).sum()) > 100
+        _assert_hits(hit, ref, "vs interpret")
+    else:
+        np.testing.assert_array_equal((hit.tri >= 0).numpy(), occ_ref)
+        assert torch.equal(hit.tri >= 0, plain.tri >= 0)
+    c = g.cluster_min.shape[0]
+    assert runs.shape == (256 // k2.MATRIX_BLOCK_RAYS,) and 0 < int(runs.max()) <= c
+
+
+def test_k2_walk_model_runs_fall_with_coherence(atrium, rs):
+    """atrium.glb (369 clusters): the model equals stream_plain bit for
+    bit on random rays, unsorted and in matrix_query's coherence order,
+    and on pinhole rays; the clusters a block visits never exceed C and
+    fall as the batch gets more coherent."""
+    from hala_tpu_torch.ops.compaction import order_by
+
+    g = atrium[1].geometry
+    c = g.cluster_min.shape[0]
+    real = g.tri_v0[g.tri_mat >= 0]
+    center = ((real.amin(0) + real.amax(0)) / 2).numpy()
+    o, d, tm = (_t(x) for x in _k2_batch(rs, 512, center, 2.0))
+    order, _ = order_by(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+    pin_d = torch.from_numpy(rs.normal(size=(512, 3)).astype(np.float32) * 0.1
+                             + np.float32([1.0, 0.0, 0.0]))
+    pin_d = pin_d / torch.linalg.norm(pin_d, dim=1, keepdim=True)
+    batches = {
+        "unsorted": (o, d, tm),
+        "sorted": (o[order].contiguous(), d[order].contiguous(), tm[order].contiguous()),
+        "pinhole": (torch.from_numpy(np.tile(center, (512, 1))), pin_d,
+                    torch.full((512,), 3.0e38)),
+    }
+    mean = {}
+    for how, (o_, d_, tm_) in batches.items():
+        plain = k2.intersect_matrix_plain(o_, d_, g, t_max=tm_)
+        hit, runs = k2.matrix_walk_runs(o_, d_, g, t_max=tm_)
+        _assert_bits(hit, plain)
+        assert int(runs.max()) <= c
+        mean[how] = float(runs.float().mean())
+    assert mean["pinhole"] < mean["sorted"] < mean["unsorted"]
+
+
+def _tie_geometry():
+    """Two clusters holding the same triangle in the plane x = 0: slot 7
+    of cluster 0 (box [0, -1, -1]-[0, 2, 2]) and slot 3 of cluster 1,
+    whose slot 9 (a triangle off to the side at x = -3) stretches its box
+    toward rays coming from x = -5. Such a ray enters cluster 1 at 2 and
+    cluster 0 at 5, where both slots hit: front to back it meets slot 131
+    first, and brute force keeps slot 7."""
+    from hala_tpu_torch.ops.cluster import with_pretest_row
+
+    blk = torch.zeros((2, 16, 128))
+    blk[:, 0:3, :] = 3.0e37  # padding slots: far v0, zero edges
+    for c, s, tri in ((0, 7, [[0, -1, -1], [0, 3, 0], [0, 0, 3]]),
+                      (1, 3, [[0, -1, -1], [0, 3, 0], [0, 0, 3]]),
+                      (1, 9, [[-3, 10, 0], [0, 1, 0], [0, 0, 1]])):
+        blk[c, 0:9, s] = torch.tensor(tri, dtype=torch.float32).reshape(9)
+    return types.SimpleNamespace(
+        cluster_min=torch.tensor([[0.0, -1.0, -1.0], [-3.0, -1.0, -1.0]]),
+        cluster_max=torch.tensor([[0.0, 2.0, 2.0], [0.0, 11.0, 2.0]]),
+        tri_packed=with_pretest_row(blk),
+    )
+
+
+def test_k2_walk_model_keeps_the_lowest_slot_at_equal_t(rs):
+    g = _tie_geometry()
+    n = 40
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = -5.0
+    o[:, 1:] = rs.uniform(-0.5, 0.5, (n, 2))
+    d = np.tile(np.float32([1.0, 0.0, 0.0]), (n, 1))
+    plain = k2.intersect_matrix_plain(_t(o), _t(d), g)
+    assert (plain.tri == 7).all() and (plain.t == 5.0).all()
+    hit, runs = k2.matrix_walk_runs(_t(o), _t(d), g)
+    _assert_bits(hit, plain)
+    assert runs.tolist() == [2]  # cluster 1, then cluster 0
+    # any hit: the lowest hit slot of the first cluster with one
+    occ, _ = k2.matrix_walk_runs(_t(o), _t(d), g, any_hit=True)
+    assert (occ.tri == 131).all()
+
+
+def test_k2_walk_model_edge_rays(atrium, rs):
+    """Origins inside cluster boxes (their centres), t_max exactly at the
+    closest hit (that hit is then out of range), t_max 0 and -inf: bit
+    for bit stream_plain, and the same hit mask with any_hit."""
+    g = atrium[1].geometry
+    n = 256
+    ctr = (g.cluster_min + g.cluster_max) / 2
+    pick = torch.from_numpy(rs.randint(0, g.cluster_min.shape[0] - 1, n))
+    o = ctr[pick].contiguous()
+    d = torch.from_numpy(rs.normal(size=(n, 3)).astype(np.float32))
+    d = (d / torch.linalg.norm(d, dim=1, keepdim=True)).contiguous()
+    first = k2.intersect_matrix_plain(o, d, g)
+    tm = torch.where(first.tri >= 0, first.t, 3.0e38)
+    tm[1::4] = 0.0
+    tm[2::4] = -torch.inf
+    assert int((first.tri[::4] >= 0).sum()) > 32
+    plain = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+    hit, _ = k2.matrix_walk_runs(o, d, g, t_max=tm)
+    _assert_bits(hit, plain)
+    occ, _ = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=True)
+    assert torch.equal(occ.tri >= 0, plain.tri >= 0)
+    assert (plain.tri[1::4] == -1).all() and (plain.tri[2::4] == -1).all()
 
 
 def test_slab_test_edge_cases():
