@@ -18,15 +18,21 @@ Phases, in order; any failure raises and exits non-zero:
      `matrix_walk_runs_plain`, timed on all four batches, the tile-segment raster kernel (K3) on
      atrium_big at 1920x1088 (tile 64, bench camera) against its plain
      version and at 256x256 against the full-scan `rasterize`, bit for
-     bit; the large-scene engines on atrium_big: the cull (K4) at K 4
-     and 16 and through a forced superchunk merge, the candidate walk
-     (K5, half a warp a ray, unsorted and sorted) and the
-     cluster stream (K6) at K 12 and 4, each bit for bit against its
-     plain version, `intersect_traversed` and K6 against K2, the three
-     kernels again at the main path's 2^21-ray queries (timed there, K5
-     on both orders), and `intersect_traversed` over five translated
-     copies of atrium_big's clusters (9305 > 8191, two cull
-     superchunks) against K1 over all slots; the grouped walk (K8) and
+     bit; the large-scene engines on atrium_big: the cull (K4, a warp
+     skipping 16-box groups no lane enters) at K 4, 12 and 16 unsorted
+     and sorted and through a forced superchunk merge, the candidate
+     walk (K5, half a warp a ray, unsorted and sorted) and the cluster
+     stream (K6, a warp a queued ray) at K 12 and 4, on the full range
+     and with every ray resolved, each bit for bit against its plain
+     version, `intersect_traversed` and K6 against K2, the three
+     kernels again at the main path's 2^21-ray queries (timed there on
+     both orders, K4 and K6 with their recounted bounds, `k4_work` and
+     `k2_work`); then five instances of atrium_big side by side
+     (`instanced_scene`, uploaded through the SAH build: above 8191
+     clusters, so two cull superchunks) with `intersect_traversed`
+     against K1 over all slots, and K4 (both superchunks, both orders)
+     and K6 (the fallback) against their plain versions bit for bit at
+     2^21 rays, timed, with the cost of the superchunk merge; the grouped walk (K8) and
      the wavefront walk (K7) against their plain versions, bit for bit,
      closest and any-hit, on 65,536 coherence-sorted mixed rays at tight
      caps (k_cap 2; k_per_ray 3, m_group 8: lists truncate, the fallback
@@ -49,7 +55,13 @@ Phases, in order; any failure raises and exits non-zero:
      relative RMSE 2e-3; then the witness for the K2 distance: rows
      480-607 of frame 0 through K1 ("pallas", shadow rays batched as
      the traverse engine's) must match the traverse frame 0 there within
-     2e-3, and the K2 frame 0's distance to them is printed; each
+     2e-3, and the K2 frame 0's distance to them is printed; then the
+     five instances at 1920x1088 through intersector="auto" (must take
+     "traverse": two K4 launches a query, K5 and K6, no K2 and no K1;
+     rays above 1.2x camera rays; a torch.profiler window over one more
+     frame), whose frame 0 must match one "cluster" frame and rows
+     480-607 of frame 0 through "pallas" (K1) within relative RMSE
+     2e-3; each
      renderer first runs one untimed warm-up frame on a film it then
      discards (frame 0 is kept for the comparisons), except the cluster
      frame, whose kernels are already loaded; then the K2 render again
@@ -118,6 +130,8 @@ OPS_CULL = 26
 # (3 sign products, the reciprocal, t, us + vs, 6 compares)
 OPS_MM = 48
 TRAVERSE_K = 12  # RenderSettings.traverse_k, the main path's K
+# copies of atrium_big side by side: the scene "auto" sends to K4-K6
+INSTANCES = 5
 # traverse frame 0 vs the cluster frame and vs the brute-force band
 REL_RMSE_TOL = 2e-3
 # the witness band of frame 0: first row and row count of 1920x1088
@@ -394,13 +408,55 @@ def k2_work(g, o, d, tm, hit):
             m_g = m_g.view(m.shape[0], -1, group).any(dim=2)
             g0 = c0 // group
             w["member_tests"] += int((m_g.long() * sizes[None, g0:g0 + m_g.shape[1]]).sum())
-            w["least"] += int(m.view(-1, k2.MATRIX_BLOCK_RAYS, m.shape[1]).any(dim=1).sum())
+            m_b = torch.nn.functional.pad(m, (0, 0, 0, -m.shape[0] % k2.MATRIX_BLOCK_RAYS))
+            w["least"] += int(m_b.view(-1, k2.MATRIX_BLOCK_RAYS, m.shape[1]).any(dim=1).sum())
             rr, cc = torch.nonzero(m, as_tuple=True)
             w["pairs"] += rr.numel()
             w["mt_pairs"] += span_work(g, o, d, rr + r0, cc + c0, t_end)
     ops = ((w["live_rays"] * w["groups"] + w["member_tests"]
             + w["pairs"] * k2.PRETEST_PER_CHUNK) * OPS_SLAB + w["mt_pairs"] * OPS_MT)
     b_ms, b_by = bound(ops, n * 44 + c * 24 + g.tri_packed.numel() * 4)
+    return b_ms, b_by, w
+
+
+def k4_work(o, d, tm, cmin, cmax, k):
+    """The work K4's function needs on these rays, per launch of
+    `cull_candidates` (a superchunk of CULL_MAX_CLUSTERS clusters), per
+    live ray (t_max > 0): the reference's slab test of each 16-box
+    group's union box (`cull.group_unions`), of the members of every
+    group whose union the ray itself enters, and of the far members
+    (tested alone) of the groups it does not enter. Bytes per launch:
+    rays, boxes, unions and the lists once. Returns (bound ms, by, a
+    dict of the counts)."""
+    import torch
+
+    from hala_tpu_torch.ops import cull
+
+    n, c = o.shape[0], cmin.shape[0]
+    live = tm > 0.0
+    w = dict(live_rays=int(live.sum()), launches=0, groups=0, union_tests=0,
+             member_tests=0)
+    nbytes = 0
+    for lo in range(0, c, cull.CULL_MAX_CLUSTERS):
+        bmin = cmin[lo:lo + cull.CULL_MAX_CLUSTERS]
+        bmax = cmax[lo:lo + cull.CULL_MAX_CLUSTERS]
+        cs = bmin.shape[0]
+        u = cull.group_unions(bmin, bmax)
+        groups = u.shape[0]
+        sizes = torch.full((groups,), cull.CULL_GROUP, device=o.device)
+        sizes[-1] = cs - cull.CULL_GROUP * (groups - 1)
+        bits = u[:, 3].view(torch.int32)
+        far = sum(((bits >> q) & 1) for q in range(cull.CULL_GROUP))
+        for r0 in range(0, n, 1 << 16):
+            sl = slice(r0, r0 + (1 << 16))
+            enters = cull.slab_keys(o[sl], d[sl], tm[sl], u[:, 0:3], u[:, 4:7])[1]
+            w["member_tests"] += int((enters.long() * sizes).sum()) + int(
+                ((~enters & live[sl, None]).long() * far).sum())
+        w["launches"] += 1
+        w["groups"] += groups
+        w["union_tests"] += w["live_rays"] * groups
+        nbytes += n * 28 + cs * 24 + groups * 32 + n * k * 4 + n * 4
+    b_ms, b_by = bound((w["union_tests"] + w["member_tests"]) * OPS_CULL, nbytes)
     return b_ms, b_by, w
 
 
@@ -611,10 +667,13 @@ def compare_with_exact(name: str, a, b, o, d, tm, g):
 
 def check_k4(dev_scene, small, big, reps: int):
     """K4 (csrc/cull_topk.cu) vs its plain version, bit for bit, at
-    K 4 and 16 on the mixed batch `small`, the superchunk merge, and at
-    the main path's K on the 2^21-ray batch `big` (timed there, with
-    the selection alone over the materialised key matrix as the
-    library yardstick)."""
+    K 4, 12 and 16 on the mixed batch `small` unsorted and in
+    matrix_query's coherence order (the order the traverse engine's
+    queries come in), the superchunk merge, and at the main path's K on
+    the 2^21-ray batch `big`, both orders (timed on all four batches,
+    with the selection alone over the materialised key matrix as the
+    library yardstick). The bound is `k4_work`'s, the former one (every
+    ray x box) beside it."""
     import torch
 
     from hala_tpu_torch.ops import cull
@@ -622,15 +681,17 @@ def check_k4(dev_scene, small, big, reps: int):
 
     g = dev_scene.geometry
     cmin, cmax = g.cluster_min, g.cluster_max
+    small_s, _ = coherent_order(dev_scene, small)
+    for label, (o, d, tm) in (("unsorted", small), ("sorted", small_s)):
+        for k in (4, TRAVERSE_K, 16):
+            got = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
+            ref = cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k)
+            torch.cuda.synchronize()
+            equal_tensors(f"K4 K={k} {label}", got, ref, ("pk", "cnt"))
+            log(f"  K4 K={k} N={o.shape[0]} {label}: pk, cnt equal bit for bit; "
+                f"{float((got[1] > k).float().mean()):.3f} of rays truncated, "
+                f"mean count {float(got[1].float().mean()):.2f}")
     o, d, tm = small
-    for k in (4, 16):
-        got = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
-        ref = cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k)
-        torch.cuda.synchronize()
-        equal_tensors(f"K4 K={k}", got, ref, ("pk", "cnt"))
-        log(f"  K4 K={k} N={o.shape[0]}: pk, cnt equal bit for bit; "
-            f"{float((got[1] > k).float().mean()):.3f} of rays truncated, "
-            f"mean count {float(got[1].float().mean()):.2f}")
     one = k5.cull_candidates(o, d, tm, cmin, cmax, TRAVERSE_K)
     merged = k5.cull_candidates(o, d, tm, cmin, cmax, TRAVERSE_K, superchunk=256)
     torch.cuda.synchronize()
@@ -639,16 +700,29 @@ def check_k4(dev_scene, small, big, reps: int):
     log(f"  cull_candidates: {-(-cmin.shape[0] // 256)} superchunks of 256 "
         "merge to the single call's lists bit for bit")
 
+    big_s, _ = coherent_order(dev_scene, big)
+    n, c, k = big[0].shape[0], cmin.shape[0], TRAVERSE_K
+    err = 0.0
+    for label, (o, d, tm) in (("unsorted", big), ("sorted", big_s)):
+        got = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
+        ref = cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k)
+        torch.cuda.synchronize()
+        equal_tensors(f"K4 K={k} N={n} {label}", got, ref, ("pk", "cnt"))
+        err = max(err, max_abs_diff(got, ref))
+    # each ray's work does not depend on the order: one bound for both
+    b_ms, b_by, work = k4_work(*big, cmin, cmax, k)
+    old_ms, _ = bound(n * c * OPS_CULL, n * 28 + c * 24 + n * k * 4 + n * 4)
+    unions = cull.group_unions(cmin, cmax)
+    times = {}
+    for label, (o_, d_, tm_) in (("small", small), ("small_sorted", small_s),
+                                 ("big", big), ("big_sorted", big_s)):
+        times[label] = cuda_ms(lambda: cull.cull_topk(
+            o_, d_, tm_, cmin, cmax, k=k, unions=unions), reps)
     o, d, tm = big
-    n, c, k = o.shape[0], cmin.shape[0], TRAVERSE_K
-    got = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
-    ref = cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k)
-    torch.cuda.synchronize()
-    equal_tensors(f"K4 K={k} N={n}", got, ref, ("pk", "cnt"))
-    b_ms, b_by = bound(n * c * OPS_CULL, n * 28 + c * 24 + n * k * 4 + n * 4)
     rec = dict(
-        max_abs_err=max_abs_diff(got, ref), bound_ms=b_ms, bound_by=b_by, rays=n,
-        ms=cuda_ms(lambda: cull.cull_topk(o, d, tm, cmin, cmax, k=k), reps),
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, old_bound_ms=old_ms,
+        work=work, rays=n, times=times, ms=times["big_sorted"],
+        ms_unsorted=times["big"],
         plain_ms=cuda_ms(lambda: cull.cull_topk_plain(o, d, tm, cmin, cmax, k=k), 1),
         truncated=float((got[1] > k).float().mean()),
     )
@@ -658,15 +732,18 @@ def check_k4(dev_scene, small, big, reps: int):
         keys[sl] = cull.slab_keys(o[sl], d[sl], tm[sl], cmin, cmax)[0]
     sel = torch.topk(keys, k, dim=1, largest=False, sorted=True).values
     torch.cuda.synchronize()
-    if not torch.equal(sel, got[0]):
+    if not torch.equal(sel, cull.cull_topk(o, d, tm, cmin, cmax, k=k)[0]):
         raise AssertionError("K4: torch.topk over the key matrix disagrees")
     rec["library_ms"] = cuda_ms(
         lambda: torch.topk(keys, k, dim=1, largest=False, sorted=True), reps)
     del keys, sel
-    log(f"  K4 K={k} N={n} x {c} clusters: pk, cnt equal bit for bit; kernel "
-        f"{rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, torch.topk over "
-        f"the materialised keys (selection only) {rec['library_ms']:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}); {rec['truncated']:.3f} truncated")
+    log(f"  K4 K={k} N={n} x {c} clusters: pk, cnt equal bit for bit, both "
+        f"orders; kernel {rec['ms']:.3f} ms sorted, {rec['ms_unsorted']:.3f} "
+        f"unsorted, plain {rec['plain_ms']:.1f} ms, torch.topk over the "
+        f"materialised keys (selection only) {rec['library_ms']:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; {work}; every ray x box: {old_ms:.4f}); "
+        f"{rec['truncated']:.3f} truncated; ms by batch: "
+        + ", ".join(f"{key} {v:.3f}" for key, v in times.items()))
     return rec
 
 
@@ -674,11 +751,11 @@ def check_k5_k6(dev_scene, small, big, reps: int):
     """K5 (csrc/traverse_candidates.cu) and K6 (csrc/cluster_stream.cu)
     vs their plain versions, bit for bit: K5 at K 12 and 4 on `small`
     and at the main path's K on `big`, each unsorted and in
-    matrix_query's coherence order;
-    K6 on the fallback's inputs; the traverse engine and K6 against K2
-    on `small`; then both kernels at the main path's K on `big` as
-    `intersect_traversed` feeds them (K6 with t_max = -inf for the rays
-    K5 resolved), timed, K5 on both orders."""
+    matrix_query's coherence order; K6 on the fallback's inputs, on the
+    full range and with every ray resolved; the traverse engine and K6
+    against K2 on `small`; then both kernels at the main path's K on
+    `big` as `intersect_traversed` feeds them (K6 with t_max = -inf for
+    the rays K5 resolved), timed on both orders."""
     import torch
 
     from hala_tpu_torch.ops import cluster as k6
@@ -686,8 +763,6 @@ def check_k5_k6(dev_scene, small, big, reps: int):
 
     g = dev_scene.geometry
     cmin, cmax = g.cluster_min, g.cluster_max
-    c = cmin.shape[0]
-    real = (g.tri_mat >= 0).view(c, k5.TRI_CHUNK).sum(dim=1)
     hit_labels = ("t", "tri", "u", "v")
     k5_labels = hit_labels + ("unres", "runs")
 
@@ -725,14 +800,19 @@ def check_k5_k6(dev_scene, small, big, reps: int):
     torch.cuda.synchronize()
     equal_tensors("K6 full range", hk, hp, hit_labels)
     compare_hits(f"K6 vs K2 (N={o.shape[0]})", hk, hm, o, d, g)
-    log(f"  K6 full range N={o.shape[0]}: equal to its plain version bit for bit")
+    resolved = torch.full_like(tm, -torch.inf)  # an empty queue
+    equal_tensors("K6 all rays resolved",
+                  k6.intersect_clustered(o, d, g, t_max=resolved),
+                  k6.intersect_clustered_plain(o, d, g, t_max=resolved), hit_labels)
+    log(f"  K6 full range N={o.shape[0]}: equal to its plain version bit for "
+        "bit; with every ray resolved (t_max -inf, an empty queue) too")
 
     o, d, tm = big
     n, k = o.shape[0], TRAVERSE_K
     ids, tns, ovf, got, ref, fb_tm, fk, fp = run(o, d, tm, k, f"N={n}")
     big_s, _ = coherent_order(dev_scene, big)
     lists_s = k5.cull_candidates(*big_s, cmin, cmax, k)
-    sorted_run = run(*big_s, k, f"N={n} sorted", fallback=False)
+    sorted_run = run(*big_s, k, f"N={n} sorted")
     # each ray's walk does not depend on the order: one bound for both
     k5_ms, k5_by, visits, k5_pairs = k5_work(g, o, d, tm, ids, k, got[0], got[2])
     times = {}
@@ -757,36 +837,63 @@ def check_k5_k6(dev_scene, small, big, reps: int):
         plain_ms=cuda_ms(lambda: k5.traverse_candidates_plain(
             *big_s, *lists_s, g.tri_packed), 1),
     )
-    # K6 on the fallback's inputs: the unresolved rays walk every box
-    # and run Moller-Trumbore on the real triangles of the clusters
-    # they enter before their closest hit.
-    act = torch.nonzero(fb_tm > 1e-4).squeeze(1)
-    t_end = torch.where(fk.tri >= 0, fk.t, fb_tm)[act]
-    live_tris = 0
-    for c0 in range(0, c, 64):
-        hit = k5.slab_live(o[act], d[act], cmin[c0:c0 + 64], cmax[c0:c0 + 64], t_end)
-        live_tris += int((hit.long() * real[None, c0:c0 + 64]).sum())
-    k6_ms, k6_by = bound(act.numel() * c * OPS_SLAB + live_tris * OPS_MT,
-                         n * 28 + c * 24 + g.tri_packed.numel() * 4 + n * 16)
-    k6_rec = dict(
-        max_abs_err=max_abs_diff((fk.t, fk.u, fk.v), (fp.t, fp.u, fp.v)),
-        tri_mismatches=int((fk.tri != fp.tri).sum()), bound_ms=k6_ms, bound_by=k6_by, library_ms=None,
-        rays=n, active=act.numel(), real_tris=live_tris,
-        ms=cuda_ms(lambda: k6.intersect_clustered(o, d, g, t_max=fb_tm), reps),
-        plain_ms=cuda_ms(lambda: k6.intersect_clustered_plain(o, d, g, t_max=fb_tm), 1),
-        full_ms=cuda_ms(lambda: k6.intersect_clustered(o, d, g, t_max=tm), 1),
-    )
+    # K6 on the fallback's inputs, in the main path's (sorted) order
+    k6_rec = k6_record(g, big_s[0], big_s[1], *sorted_run[5:8], reps)
+    k6_rec["ms_unsorted"] = cuda_ms(
+        lambda: k6.intersect_clustered(o, d, g, t_max=fb_tm), reps)
+    k6_rec["max_abs_err"] = max(k6_rec["max_abs_err"], max_abs_diff(
+        (fk.t, fk.u, fk.v), (fp.t, fp.u, fp.v)))
+    k6_rec["full_ms"] = cuda_ms(lambda: k6.intersect_clustered(o, d, g, t_max=tm), 2)
     log(f"  K5 K={k} N={n}: kernel {k5_rec['ms']:.3f} ms sorted, "
         f"{k5_rec['ms_unsorted']:.3f} unsorted, plain {k5_rec['plain_ms']:.1f} ms, "
         f"bound {k5_ms:.4f} ms ({k5_by}; {visits} cluster visits, "
         f"{k5_pairs} (ray, real triangle) pairs in the spans entered before the "
         f"hit); ms by batch: "
         + ", ".join(f"{key} {v:.3f}" for key, v in times.items()))
-    log(f"  K6 fallback N={n} ({act.numel()} unresolved): kernel "
-        f"{k6_rec['ms']:.3f} ms, plain {k6_rec['plain_ms']:.1f} ms, bound "
-        f"{k6_ms:.4f} ms ({k6_by}); K6 on the full range of all {n} rays "
-        f"(the cluster engine) {k6_rec['full_ms']:.1f} ms")
+    log(f"  K6 on all {n} rays unsorted, on the fallback's inputs "
+        f"{k6_rec['ms_unsorted']:.3f} ms; on the full range (the cluster engine) "
+        f"{k6_rec['full_ms']:.3f} ms")
     return k5_rec, k6_rec, graze
+
+
+def k6_record(g, o, d, fb_tm, fk, fp, reps: int):
+    """K6 on the fallback's inputs (t_max `fb_tm`, K6's hits `fk`, its
+    plain version's `fp`, held equal before): timed, with the bound of
+    the function K2 and K6 share (`k2_work` over the live rays, t_max
+    fb_tm, and the former bound, every box for every live ray, beside
+    it)."""
+    import torch
+
+    from hala_tpu_torch.ops import cluster as k6
+
+    c = g.cluster_min.shape[0]
+    act = torch.nonzero(fb_tm > 1e-4).squeeze(1)
+    b_ms, b_by, work = k2_work(g, o[act], d[act], fb_tm[act],
+                               type(fk)(*(x[act] for x in fk)))
+    # the former count: every box, and the real triangles of every
+    # cluster entered before the hit, for each live ray
+    real = (g.tri_mat >= 0).view(c, -1).sum(dim=1)
+    t_end = torch.where(fk.tri >= 0, fk.t, fb_tm)[act]
+    live_tris = 0
+    for c0 in range(0, c, 64):
+        hit = k6.slab_live(o[act], d[act], g.cluster_min[c0:c0 + 64],
+                           g.cluster_max[c0:c0 + 64], t_end)
+        live_tris += int((hit.long() * real[None, c0:c0 + 64]).sum())
+    old_ms, _ = bound(act.numel() * c * OPS_SLAB + live_tris * OPS_MT, 0)
+    n = o.shape[0]
+    rec = dict(
+        max_abs_err=max_abs_diff((fk.t, fk.u, fk.v), (fp.t, fp.u, fp.v)),
+        tri_mismatches=int((fk.tri != fp.tri).sum()), bound_ms=b_ms,
+        bound_by=b_by, old_bound_ms=old_ms, work=work, library_ms=None, rays=n,
+        active=act.numel(),
+        ms=cuda_ms(lambda: k6.intersect_clustered(o, d, g, t_max=fb_tm), reps),
+        plain_ms=cuda_ms(lambda: k6.intersect_clustered_plain(o, d, g, t_max=fb_tm), 1),
+    )
+    log(f"  K6 fallback N={n} x {c} clusters ({act.numel()} unresolved), sorted: "
+        f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.1f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}; k2_work over the unresolved rays {work}; every "
+        f"box for every unresolved ray: {old_ms:.4f})")
+    return rec
 
 
 def grazes(hit):
@@ -1051,40 +1158,49 @@ def check_k7_k8(dev_scene, small, big, reps: int):
     return k7_rec, k8_rec
 
 
-def tiled_geometry(dev_scene, copies: int):
-    """`copies` translated copies of the scene's cluster tables, side by
-    side along x, built on the card (tri_packed rows 0-2 and the row-9
-    sub-box x lanes, and the real cluster boxes, offset; the 3e37 empty
-    sentinels stay far away), with the slot arrays K1 reads."""
-    import types
+def instanced_scene(host, copies: int = INSTANCES):
+    """The host scene with `copies` - 1 more nodes per mesh node, the
+    j-th translated along x by j * (the x extent of the scene's meshes
+    + 2.0): copies of atrium_big side by side, with its camera and
+    lights. The host scene itself is not changed. Returns (scene,
+    spacing)."""
+    import dataclasses as dc
 
-    import torch
+    from hala_tpu_torch.scene.cpu.node import Node
 
-    g = dev_scene.geometry
-    real = g.tri_mat >= 0
-    v0 = g.tri_v0[real]
-    ext = float(v0[:, 0].amax() - v0[:, 0].amin())
-    mins, maxs, blocks = [], [], []
-    finite = g.cluster_min[:, :1] < 1e30
-    for j in range(copies):
-        dx = j * (ext + 2.0)
-        shift = torch.tensor([dx, 0.0, 0.0], device=v0.device)
-        mins.append(torch.where(finite, g.cluster_min + shift, g.cluster_min))
-        maxs.append(torch.where(finite, g.cluster_max + shift, g.cluster_max))
-        blk = g.tri_packed.clone()
-        blk[:, 0, :] += dx
-        for s in range(8):
-            blk[:, 9, 6 * s] += dx
-            blk[:, 9, 6 * s + 3] += dx
-        blocks.append(blk)
-    tri_packed = torch.cat(blocks).contiguous()
-    slots = tri_packed[:, 0:9, :].permute(0, 2, 1).reshape(-1, 9)
-    return types.SimpleNamespace(
-        cluster_min=torch.cat(mins).contiguous(),
-        cluster_max=torch.cat(maxs).contiguous(), tri_packed=tri_packed,
-        tri_v0=slots[:, 0:3].contiguous(), tri_e1=slots[:, 3:6].contiguous(),
-        tri_e2=slots[:, 6:9].contiguous(),
-    ), ext
+    meshed = [n for n in host.nodes if n.mesh_index is not None]
+    xs = [(p.positions @ n.world_transform[:3, :3].T + n.world_transform[:3, 3])[:, 0]
+          for n in meshed for p in host.meshes[n.mesh_index].primitives]
+    spacing = float(max(x.max() for x in xs) - min(x.min() for x in xs)) + 2.0
+    extra = []
+    for j in range(1, copies):
+        for n in meshed:
+            m = n.world_transform.copy()
+            m[0, 3] += j * spacing
+            extra.append(Node(name=f"{n.name}_{j}", local_transform=m,
+                              world_transform=m.copy(), mesh_index=n.mesh_index))
+    return dc.replace(host, nodes=list(host.nodes) + extra), spacing
+
+
+def upload_instances(host, dev):
+    """`instanced_scene` of `host` through SceneUploader.upload (the SAH
+    build makes the clusters), timed on the host clock. Returns (host
+    scene, device scene, seconds, spacing)."""
+    from hala_tpu_torch.ops import traverse as k5
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+
+    scene, spacing = instanced_scene(host)
+    t0 = time.perf_counter()
+    dev_scene = SceneUploader.upload(scene, device=dev)
+    seconds = time.perf_counter() - t0
+    c = dev_scene.geometry.cluster_min.shape[0]
+    tris = int((dev_scene.geometry.tri_mat >= 0).sum())
+    log(f"  {INSTANCES} instances of atrium_big, {spacing:.1f} apart along x: "
+        f"{tris} triangles, {c} clusters (\"auto\" takes \"traverse\" above "
+        f"{k5.MATRIX_MAX_CLUSTERS}); upload {seconds:.2f} s")
+    if not c > k5.MATRIX_MAX_CLUSTERS:
+        raise AssertionError(f"{c} clusters: \"auto\" would not traverse")
+    return scene, dev_scene, seconds, spacing
 
 
 def check_past_key_width(dev_scene, n_rand: int):
@@ -1096,21 +1212,12 @@ def check_past_key_width(dev_scene, n_rand: int):
     from hala_tpu_torch.ops import traverse as k5
     from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 
-    g, ext = tiled_geometry(dev_scene, 5)
+    g = dev_scene.geometry
     c = g.cluster_min.shape[0]
     if not c > cull.CULL_MAX_CLUSTERS:
         raise AssertionError(f"{c} clusters: no second superchunk")
-    finite = g.cluster_min[:, 0] < 1e30
-    lo = g.cluster_min[finite].amin(0).cpu().numpy()
-    hi = g.cluster_max[finite].amax(0).cpu().numpy()
-    rs = np.random.RandomState(41)
-    o = rs.uniform(lo + 0.05 * (hi - lo), hi - 0.05 * (hi - lo), (n_rand, 3))
-    dd = rs.normal(size=(n_rand, 3))
-    dd /= np.linalg.norm(dd, axis=1, keepdims=True)
-    dev = g.tri_packed.device
-    o = torch.from_numpy(o.astype(np.float32)).to(dev)
-    d = torch.from_numpy(dd.astype(np.float32)).to(dev)
-    tm = torch.full((n_rand,), 3.0e38, device=dev)
+    o, d = random_rays(dev_scene, n_rand, 41)
+    tm = torch.full((n_rand,), 3.0e38, device=o.device)
     tm[1::4] = 4.0
     cuda_lib_before = _launches()
     ht = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K)
@@ -1125,12 +1232,82 @@ def check_past_key_width(dev_scene, n_rand: int):
     hits = int((hb.tri >= 0).sum())
     far = int((hb.tri >= k5.TRI_CHUNK * cull.CULL_MAX_CLUSTERS).sum())
     log(f"  {c} clusters in 2 superchunks, {n_rand} rays: {hits} hits, {far} of "
-        f"them in clusters past id {cull.CULL_MAX_CLUSTERS - 1}; copies "
-        f"{ext + 2.0:.1f} apart")
+        f"them in clusters past id {cull.CULL_MAX_CLUSTERS - 1}")
     if far == 0:
         raise AssertionError("no hit past the key width: the check proves nothing")
     return dict(clusters=c, rays=n_rand, hits=hits, hits_past_key_width=far,
                 cull_misses=graze)
+
+
+def check_instances(dev_scene, reps: int, cam=(1024, 1024), n_rand: int = 1 << 20):
+    """K4 and K6 on the five instances of atrium_big (two cull
+    superchunks), at the main path's K on a 2^21-ray mixed batch:
+    each K4 launch against its plain version bit for bit, unsorted and
+    in the coherence order the traverse engine's queries come in; K6 on
+    the fallback's inputs (after K5 on the sorted lists) against its
+    plain version bit for bit; both timed with their bounds; and what
+    the superchunk merge of `cull_candidates` costs at 2^20 rays."""
+    import torch
+
+    from hala_tpu_torch.ops import cluster as k6
+    from hala_tpu_torch.ops import cull
+    from hala_tpu_torch.ops import traverse as k5
+
+    g = dev_scene.geometry
+    cmin, cmax = g.cluster_min, g.cluster_max
+    c, k, sc = cmin.shape[0], TRAVERSE_K, cull.CULL_MAX_CLUSTERS
+    big = mixed_batch(dev_scene, *cam, n_rand, 35)
+    big_s, _ = coherent_order(dev_scene, big)
+    n = big[0].shape[0]
+    unions = cull.geometry_unions(g)
+    slices = [(lo, slice(lo, lo + sc)) for lo in range(0, c, sc)]
+
+    def query(o, d, tm):
+        return [cull.cull_topk(o, d, tm, cmin[sl], cmax[sl], k=k, unions=unions[j])
+                for j, (_, sl) in enumerate(slices)]
+
+    err = 0.0
+    for label, (o, d, tm) in (("unsorted", big), ("sorted", big_s)):
+        for (lo, sl), got in zip(slices, query(o, d, tm)):
+            ref = cull.cull_topk_plain(o, d, tm, cmin[sl], cmax[sl], k=k)
+            torch.cuda.synchronize()
+            equal_tensors(f"K4 K={k} N={n} clusters {lo}.. {label}", got, ref,
+                          ("pk", "cnt"))
+            err = max(err, max_abs_diff(got, ref))
+    b_ms, b_by, work = k4_work(*big, cmin, cmax, k)
+    old_ms = sum(bound(n * cs * OPS_CULL, n * 28 + cs * 24 + n * k * 4 + n * 4)[0]
+                 for cs in (min(sc, c - lo) for lo, _ in slices))
+    k4 = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, old_bound_ms=old_ms,
+        work=work, rays=n, clusters=c, launches_per_query=len(slices),
+        query_ms=cuda_ms(lambda: query(*big_s), reps),
+        query_ms_unsorted=cuda_ms(lambda: query(*big), reps),
+        plain_query_ms=cuda_ms(lambda: [cull.cull_topk_plain(
+            *big_s, cmin[sl], cmax[sl], k=k) for _, sl in slices], 1),
+    )
+    half = tuple(x[:n // 2].contiguous() for x in big_s)
+    k4["merge_ms_half"] = cuda_ms(lambda: k5.cull_candidates(
+        *half, cmin, cmax, k, unions=unions), reps) - cuda_ms(lambda: query(*half), reps)
+    log(f"  K4 K={k} N={n} x {c} clusters ({len(slices)} launches a query): pk, "
+        f"cnt equal bit for bit, both orders; a query {k4['query_ms']:.3f} ms "
+        f"sorted, {k4['query_ms_unsorted']:.3f} unsorted, plain "
+        f"{k4['plain_query_ms']:.1f} ms, bound {b_ms:.4f} ms ({b_by}; {work}; "
+        f"every ray x box: {old_ms:.4f}); the merge of the two lists at {n // 2} "
+        f"rays {k4['merge_ms_half']:.3f} ms")
+
+    ids, tns, ovf = k5.cull_candidates(*big_s, cmin, cmax, k, unions=unions)
+    hit, unres, _ = k5.traverse_candidates(*big_s, ids, tns, ovf, g.tri_packed)
+    fb_tm = k5.fallback_t_max(hit, unres)
+    fk = k6.intersect_clustered(big_s[0], big_s[1], g, t_max=fb_tm)
+    fp = k6.intersect_clustered_plain(big_s[0], big_s[1], g, t_max=fb_tm)
+    torch.cuda.synchronize()
+    equal_tensors(f"K6 fallback N={n} x {c} clusters", fk, fp, ("t", "tri", "u", "v"))
+    k6_rec = k6_record(g, big_s[0], big_s[1], fb_tm, fk, fp, reps)
+    k6_rec["full_ms"] = cuda_ms(
+        lambda: k6.intersect_clustered(big_s[0], big_s[1], g, t_max=big_s[2]), 1)
+    log(f"  K6 on the full range of the {n} sorted rays x {c} clusters (the "
+        f"cluster engine): {k6_rec['full_ms']:.3f} ms")
+    return k4, k6_rec
 
 
 def _launches():
@@ -1457,7 +1634,7 @@ def run_render(r, frames: int, k: int, name: str, card: str,
     mean = float(accum[..., :3].mean())
     primaries = r.info.width * r.info.height * frames
     check_invariants(cell, mean, r.total_rays, primaries)
-    ref = JAX_TPU_REFERENCE[cell]
+    ref = JAX_TPU_REFERENCE.get(cell, ("not measured", "not measured"))
     out = dict(
         mean=mean, rays_per_primary=r.total_rays / primaries,
         mrays_per_s=r.total_rays / dt / 1e6, ms_per_frame=dt / frames * 1e3,
@@ -1515,6 +1692,82 @@ def family_render(name: str, host_scene, frames: int, k2_film, card: str,
         f"of live rays to the fallback; peak memory "
         f"{out['peak_bytes'] / 2**30:.2f} GiB [{card}]")
     return out, counts, r
+
+
+def instances_render(host_scene, frames: int, card: str, size=(1920, 1088),
+                     device="cuda"):
+    """The five instances of atrium_big at 1920x1088 through
+    intersector="auto" (which must take "traverse": K4 twice a query,
+    one per superchunk, K5 and K6, no K2 and no K1): a warm-up frame
+    (frame 0, kept), `frames` timed frames with the launch counts read
+    around them, bench.py's rays-per-camera-ray invariant (its film-mean
+    band was set for one atrium_big: the mean is printed beside it, not
+    gated), a torch.profiler window over one more frame; then frame 0
+    through "cluster" (K6 alone) and rows BAND_ROWS of frame 0 through
+    "pallas" (K1, brute force over every slot), each within relative
+    RMSE REL_RMSE_TOL of the "auto" frame 0. Returns (record, launches)."""
+    import torch
+
+    from bench import ACCUM_MEAN_BANDS
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import cuda_lib
+
+    r = RayTracingRenderer("atrium_big_x5", *size, max_depth=4, rr_depth=2,
+                           spp=1, intersector="auto", device=device)
+    t0 = time.perf_counter()
+    r.set_scene(host_scene)  # the upload
+    upload_s = time.perf_counter() - t0
+    r.commit()
+    frame0 = warm_up(r)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    out = run_render(r, frames, frames, f"atrium_big x{INSTANCES} auto", card,
+                     cell=f"atrium_big_x{INSTANCES}")
+    counts = cuda_lib.launches()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["upload_s"] = upload_s
+    out["launches_per_frame"] = {key: v / frames for key, v in counts.items() if v}
+    queries = counts["traverse_candidates"]
+    if not (queries > 0 and counts["cull_topk"] == 2 * queries
+            and counts["cluster_stream"] == queries
+            and counts["matrix_traverse"] == 0
+            and counts["intersect_bruteforce"] == 0):
+        raise AssertionError(f"atrium_big x{INSTANCES} auto launches {counts}")
+    band = ACCUM_MEAN_BANDS["sponza"]
+    log(f"  atrium_big x{INSTANCES} auto: film mean {out['mean']:.4f} (one "
+        f"atrium_big's band {band}, not gated here); launches per frame "
+        f"{out['launches_per_frame']}; set_scene (the upload) {upload_s:.2f} s; peak "
+        f"memory {out['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    out["profile"] = profile_frames(f"atrium_big x{INSTANCES} auto",
+                                    lambda: r.render_loop(1), 1,
+                                    out["ms_per_frame"], card)
+    clus = RayTracingRenderer("atrium_big_x5_cluster", *size, max_depth=4,
+                              rr_depth=2, spp=1, intersector="cluster",
+                              device=device)
+    clus.set_scene(host_scene)
+    clus.commit()
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    clus.render_loop(1)
+    torch.cuda.synchronize()
+    out["cluster_frame_ms"] = (time.perf_counter() - t0) * 1e3
+    after = cuda_lib.launches()
+    if not (after["cluster_stream"] > 0
+            and sum(after.values()) == after["cluster_stream"]):
+        raise AssertionError(f"atrium_big x{INSTANCES} cluster launches {after}")
+    out["rel_rmse_frame0_vs_cluster"] = rel_rmse(frame0, clus.film.accum[..., :3])
+    del clus
+    off, rows = BAND_ROWS
+    k1_band = band_frame0(r, "pallas")
+    out["rel_rmse_frame0_vs_k1_band"] = rel_rmse(frame0[off:off + rows], k1_band)
+    log(f"  atrium_big x{INSTANCES} frame 0: relative RMSE to the cluster "
+        f"engine's frame 0 {out['rel_rmse_frame0_vs_cluster']:.3g} (that frame "
+        f"{out['cluster_frame_ms']:.1f} ms), to K1's rows {off}-{off + rows - 1} "
+        f"{out['rel_rmse_frame0_vs_k1_band']:.3g} [{card}]")
+    for key in ("rel_rmse_frame0_vs_cluster", "rel_rmse_frame0_vs_k1_band"):
+        if not out[key] < REL_RMSE_TOL:
+            raise AssertionError(f"atrium_big x{INSTANCES} {key}: {out[key]}")
+    return out, counts
 
 
 def post_program():
@@ -1672,8 +1925,12 @@ def main() -> int:
     k4_rec = check_k4(big_dev, small, big, reps=5)
     k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
     k7_rec, k8_rec = check_k7_k8(big_dev, small, big, reps=5)
-    wide_rec = check_past_key_width(big_dev, 32768)
     del big_dev, small, big
+    x5_host, x5_dev, x5_upload_s, _ = upload_instances(big_host, dev)
+    wide_rec = check_past_key_width(x5_dev, 32768)
+    k4_x5, k6_x5 = check_instances(x5_dev, reps=3)
+    wide_rec.update(upload_s=x5_upload_s)
+    del x5_dev
     golden_renders(dev)
     golden_raster(dev)
 
@@ -1773,6 +2030,7 @@ def main() -> int:
                              f"{t_out['rel_rmse_frame0_vs_cluster']}")
     del clus
     witness = shadow_range_witness(sponza, trav_frame0, k2_frame0, card)
+    x5_out, after_x5 = instances_render(x5_host, 2, card)
 
     # The same K2 render without matrix_query's coherence sort, before
     # and after a second sorted window: K2 is exact under any order, so
@@ -1899,6 +2157,7 @@ def main() -> int:
             out["ms_unsorted"] = rec["ms_unsorted"]
         return out
 
+    per_query = k4_x5["launches_per_query"]
     kernels = [
         entry("intersect_bruteforce (K1)",
               "hala_tpu_torch/csrc/intersect_bruteforce.cu",
@@ -1910,14 +2169,27 @@ def main() -> int:
         entry("raster_tiled (K3)", "hala_tpu_torch/csrc/raster_tiled.cu",
               "hala_tpu/ops/raster_kernel.py:309",
               after_ra["raster_tiled"], k3_rec),
-        entry("cull_topk (K4)", "hala_tpu_torch/csrc/cull_topk.cu",
-              "hala_tpu/ops/cull.py:237", after_trav["cull_topk"], k4_rec),
+        # K4-K6: launches where "auto" runs them (the five instances),
+        # K4 per launch (a query's two superchunk launches, halved)
+        dict(entry("cull_topk (K4)", "hala_tpu_torch/csrc/cull_topk.cu",
+                   "hala_tpu/ops/cull.py:237", after_x5["cull_topk"], dict(
+                       k4_x5, ms=k4_x5["query_ms"] / per_query,
+                       plain_ms=k4_x5["plain_query_ms"] / per_query,
+                       bound_ms=k4_x5["bound_ms"] / per_query, library_ms=None)),
+             query_ms=k4_x5["query_ms"], launches_per_query=per_query,
+             ms_atrium_big=k4_rec["ms"], ms_atrium_big_unsorted=k4_rec["ms_unsorted"],
+             bound_ms_atrium_big=k4_rec["bound_ms"],
+             library_ms_atrium_big=k4_rec["library_ms"]),
         entry("traverse_candidates (K5)",
               "hala_tpu_torch/csrc/traverse_candidates.cu",
               "hala_tpu/ops/traverse.py:463",
-              after_trav["traverse_candidates"], k5_rec),
-        entry("cluster_stream (K6)", "hala_tpu_torch/csrc/cluster_stream.cu",
-              "hala_tpu/ops/cluster.py:285", after_trav["cluster_stream"], k6_rec),
+              after_x5["traverse_candidates"], k5_rec),
+        dict(entry("cluster_stream (K6)", "hala_tpu_torch/csrc/cluster_stream.cu",
+                   "hala_tpu/ops/cluster.py:285", after_x5["cluster_stream"], k6_x5),
+             ms_atrium_big=k6_rec["ms"], ms_atrium_big_unsorted=k6_rec["ms_unsorted"],
+             bound_ms_atrium_big=k6_rec["bound_ms"],
+             full_range_ms_atrium_big=k6_rec["full_ms"],
+             full_range_ms=k6_x5["full_ms"]),
         entry("wavefront_walk (K7)", "hala_tpu_torch/csrc/wavefront_walk.cu",
               "hala_tpu/ops/wavefront.py:287", after_wave["wavefront_walk"], k7_rec),
         entry("grouped_walk (K8)", "hala_tpu_torch/csrc/grouped_walk.cu",
@@ -1940,10 +2212,12 @@ def main() -> int:
                    k3_longest_segment=k3_rec["longest"],
                    atrium_big_traverse=t_out, atrium_big_cluster=cl_out,
                    k4_rays=k4_rec["rays"], k4_truncated=k4_rec["truncated"],
+                   k4_atrium_big=k4_rec, k4_x5=k4_x5, k6_atrium_big=k6_rec,
+                   k6_x5=k6_x5, atrium_big_x5=x5_out,
+                   atrium_big_traverse_launches=after_trav,
                    k5_visits=k5_rec["visited"], k5_mt_pairs=k5_rec["mt_pairs"],
                    k5_unresolved=k5_rec["unresolved"],
-                   k6_fallback_active=k6_rec["active"],
-                   k6_full_range_ms=k6_rec["full_ms"],
+
                    k5_tri_mismatches=k5_rec["tri_mismatches"],
                    k6_tri_mismatches=k6_rec["tri_mismatches"],
                    shadow_range_witness=witness,

@@ -1,13 +1,12 @@
 // Device code shared by the cluster kernels (matrix_traverse.cu,
 // cluster_stream.cu, traverse_candidates.cu): the conservative slab test
-// of a ray against a cluster AABB, Moller-Trumbore over one 128-slot
-// cluster block of `tri_packed`, the ascending walk over every cluster
-// that K6 runs, and the pieces of K2's and K5's out-of-order walks (the
-// slab test of any box, the row-9 pretest, one slot's Moller-Trumbore,
-// the lexicographic merge).
+// of a ray against a cluster AABB or a row-9 sub-box, one slot's
+// Moller-Trumbore, and the lexicographic (t, slot) merge. All three
+// kernels meet the clusters out of ascending id order (K2 front to
+// back, K5 a ray's candidate list, K6 a warp's 32 boxes at a time).
 //
 // The arithmetic is written in the order of the plain PyTorch versions
-// (ops/cluster.py `slab_live`, ops/intersect.py `mt_components`); the
+// (ops/cluster.py `slab_entry`, ops/intersect.py `mt_components`); the
 // kernels are compiled with --fmad=false, so both round alike.
 //
 // The slab test must be conservative (never skip a cluster whose
@@ -66,25 +65,6 @@ __device__ __forceinline__ Ray load_ray(const float* o, const float* d,
   return r;
 }
 
-// One axis of the slab test; false when the ray misses the padded slab.
-__device__ __forceinline__ bool slab_axis(float lo, float hi, float o,
-                                          float d, float inv, float* tn,
-                                          float* tf) {
-  const float pad = kPadRel * (fabsf(lo) + fabsf(hi)) + kPadAbs;
-  const float lo_p = lo - pad;
-  const float hi_p = hi + pad;
-  if (fabsf(d) < kTinyDir) {
-    *tn = -CUDART_INF_F;
-    *tf = CUDART_INF_F;
-    return lo_p <= o && o <= hi_p;
-  }
-  const float t0 = (lo_p - o) * inv;
-  const float t1 = (hi_p - o) * inv;
-  *tn = fminf(t0, t1);
-  *tf = fmaxf(t0, t1);
-  return true;
-}
-
 __device__ __forceinline__ float widen_down(float t) {
   return t < 0.f ? t * (1.0f + kWiden) : t * (1.0f - kWiden);
 }
@@ -93,105 +73,21 @@ __device__ __forceinline__ float widen_up(float t) {
   return t > 0.f ? t * (1.0f + kWiden) : t * (1.0f - kWiden);
 }
 
-// Conservative slab test of cluster c: true where a hit in its box could
-// still beat t_cur.
-__device__ __forceinline__ bool slab_live(const float* __restrict__ cmin,
-                                          const float* __restrict__ cmax,
-                                          int c, const Ray& r,
-                                          float t_cur) {
-  float tnx, tfx, tny, tfy, tnz, tfz;
-  const bool in_x = slab_axis(__ldg(cmin + 3 * c), __ldg(cmax + 3 * c),
-                              r.ox, r.dx, r.invx, &tnx, &tfx);
-  const bool in_y = slab_axis(__ldg(cmin + 3 * c + 1),
-                              __ldg(cmax + 3 * c + 1), r.oy, r.dy, r.invy,
-                              &tny, &tfy);
-  const bool in_z = slab_axis(__ldg(cmin + 3 * c + 2),
-                              __ldg(cmax + 3 * c + 2), r.oz, r.dz, r.invz,
-                              &tnz, &tfz);
-  const float tn = widen_down(fmaxf(fmaxf(tnx, tny), tnz));
-  const float tf = widen_up(fminf(fminf(tfx, tfy), tfz));
-  return in_x && in_y && in_z && tn <= tf && tf > 0.f && tn < t_cur;
-}
-
-// Moller-Trumbore over cluster c's 128 slots in ascending order. A slot
-// replaces the best hit when it is nearer (strict <: the lower slot wins
-// a tie within the walk's order); with kLex also at an equal t when its
-// global slot id is lower than the best's, so the result is the
-// lexicographic (t, slot) minimum whatever order the clusters come in.
-// With any_hit the walk stops at the first hit; returns true then.
-template <bool kLex>
-__device__ __forceinline__ bool mt_cluster(const float* __restrict__ tri_packed,
-                                           int c, const Ray& r, Best& b,
-                                           bool any_hit) {
-  const float* blk = tri_packed + static_cast<size_t>(c) * kBlock;
-  for (int k = 0; k < kSlots; ++k) {
-    const float v0x = __ldg(blk + 0 * kSlots + k);
-    const float v0y = __ldg(blk + 1 * kSlots + k);
-    const float v0z = __ldg(blk + 2 * kSlots + k);
-    const float e1x = __ldg(blk + 3 * kSlots + k);
-    const float e1y = __ldg(blk + 4 * kSlots + k);
-    const float e1z = __ldg(blk + 5 * kSlots + k);
-    const float e2x = __ldg(blk + 6 * kSlots + k);
-    const float e2y = __ldg(blk + 7 * kSlots + k);
-    const float e2z = __ldg(blk + 8 * kSlots + k);
-    // pvec = d x e2
-    const float px = r.dy * e2z - r.dz * e2y;
-    const float py = r.dz * e2x - r.dx * e2z;
-    const float pz = r.dx * e2y - r.dy * e2x;
-    const float det = px * e1x + py * e1y + pz * e1z;
-    const bool ok_det = fabsf(det) > kEps;
-    const float inv_det = ok_det ? 1.0f / det : 0.0f;
-    const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-    const float u = (tx * px + ty * py + tz * pz) * inv_det;
-    // qvec = tvec x e1
-    const float qx = ty * e1z - tz * e1y;
-    const float qy = tz * e1x - tx * e1z;
-    const float qz = tx * e1y - ty * e1x;
-    const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-    const float tt = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-    const int slot = c * kSlots + k;
-    bool closer = tt < b.t;
-    if (kLex) closer = closer || (tt == b.t && b.tri >= 0 && slot < b.tri);
-    if (ok_det && u >= 0.f && v >= 0.f && u + v <= 1.f && tt > kTMin &&
-        closer) {
-      b.t = tt;
-      b.tri = slot;
-      b.u = u;
-      b.v = v;
-      if (any_hit) return true;
-    }
-  }
-  return false;
-}
-
-// Every cluster in ascending id order: the slab test against the current
-// best t, then Moller-Trumbore where it passes. Ascending clusters and
-// ascending slots with a strict `<` give brute force's tie order (lowest
-// slot wins), so the result equals the brute force over all slots.
-__device__ __forceinline__ void walk_all_clusters(
-    const float* __restrict__ cmin, const float* __restrict__ cmax,
-    const float* __restrict__ tri_packed, int n_clusters, const Ray& r,
-    bool any_hit, Best& b) {
-  if (!(b.t > kTMin)) return;
-  for (int c = 0; c < n_clusters; ++c) {
-    if (!slab_live(cmin, cmax, c, r, b.t)) continue;
-    if (mt_cluster<false>(tri_packed, c, r, b, any_hit)) return;
-  }
-}
-
-// --- the out-of-order walks of K2 and K5 -------------------------------------
+// --- the out-of-order walks ---------------------------------------------------
 //
-// K2 visits clusters front to back and K5 splits a cluster over a warp,
-// so neither meets the slots in ascending order. Both keep the
-// lexicographic (t, slot) minimum instead (as mt_cluster<true>), and
-// test a box with `tn <= t_best`, not `<`: a box entered exactly at the
-// best t may still hold a lower slot at that t.
+// K2 visits clusters front to back, K5 splits a cluster over half a
+// warp and K6 a warp over 32 boxes at a time, so none meets the slots
+// in ascending order. Each keeps the lexicographic (t, slot) minimum
+// instead (`lex_better`), and tests a box with `tn <= t_best`, not `<`:
+// a box entered exactly at the best t may still hold a lower slot at
+// that t.
 
 constexpr int kPretestTris = 16;  // slots per row-9 sub-box
 constexpr int kPretestBoxes = kSlots / kPretestTris;
 
-// slab_axis in two halves: the padded corners of a box, which depend on
-// the box alone, and the test of one ray against them.
+// One axis of the padded slab test in two halves: the padded corners of
+// a box, which depend on the box alone, and the test of one ray against
+// them (false when the ray is parallel to the axis outside the slab).
 __device__ __forceinline__ void pad_axis(float lo, float hi, float* lo_p,
                                          float* hi_p) {
   const float pad = kPadRel * (fabsf(lo) + fabsf(hi)) + kPadAbs;
@@ -228,8 +124,8 @@ __device__ __forceinline__ bool padded_entry(const float* p, const Ray& r,
   return in_x && in_y && in_z && *tn <= tf && tf > 0.f;
 }
 
-// The same test of a box given by its corners: the operations of
-// slab_live, which is this test with `tn < t_cur` added.
+// The same test of a box given by its corners (ops/cluster.py
+// `slab_entry`).
 __device__ __forceinline__ bool slab_entry(float lox, float loy, float loz,
                                            float hix, float hiy, float hiz,
                                            const Ray& r, float* tn) {
@@ -257,7 +153,7 @@ __device__ __forceinline__ bool pretest_entry(const float* row9, int s,
   return slab_entry(bx[0], bx[1], bx[2], bx[3], bx[4], bx[5], r, tn);
 }
 
-// Moller-Trumbore of one slot, in mt_cluster's operations and order:
+// Moller-Trumbore of one slot, in mt_components' operations and order:
 // true where the slot is hit in (1e-4, inf), with t, u, v.
 __device__ __forceinline__ bool mt_slot(const Ray& r, float v0x, float v0y,
                                         float v0z, float e1x, float e1y,
@@ -280,7 +176,7 @@ __device__ __forceinline__ bool mt_slot(const Ray& r, float v0x, float v0y,
   return ok_det && *u >= 0.f && *v >= 0.f && *u + *v <= 1.f && *t > kTMin;
 }
 
-// mt_cluster<true>'s rule: a hit at global slot `slot` replaces the best
+// The lexicographic rule: a hit at global slot `slot` replaces the best
 // when nearer, or at an equal t when the best is a hit of a higher slot.
 __device__ __forceinline__ bool lex_better(float t, int slot, const Best& b) {
   return t < b.t || (t == b.t && b.tri >= 0 && slot < b.tri);

@@ -41,7 +41,7 @@
 //    where that fails (all-padding spans are far point boxes).
 //  * Reduce: each lane keeps the lowest (t, slot) hit of its slots;
 //    shuffles reduce them to the ray's, u and v come from the winning
-//    lane, and mt_cluster<true>'s rule merges it into the best. The
+//    lane, and `lex_better` merges it into the best. The
 //    lexicographic minimum does not depend on the order, so this equals
 //    the sequential walk bit for bit.
 // Walks of uneven length cost little across rays: a warp holds two. A

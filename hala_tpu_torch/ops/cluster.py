@@ -8,13 +8,18 @@ slot blocks `tri_packed` (C, 16, 128) whose rows 0-8 hold v0/e1/e2. It
 serves `intersector="cluster"` and the exact fallback of the candidate
 traversal (ops/traverse.py `intersect_traversed`). No cap on C.
 
-Each ray walks every cluster in ascending order with the conservative
-slab test `slab_live` (csrc/cluster_walk.cuh explains each case): the
-TPU kernel's safety net, testing a 1024-ray block's union of slab hits,
-does not exist for one ray alone. Ascending clusters and a strict `<`
-give brute force's tie order, so results equal the brute force over all
-slots. K2 (ops/traverse.py, capped at MATRIX_MAX_CLUSTERS) walks the
-clusters front to back instead and returns the same hits, so
+The kernel gives each ray whose t_max is above t_min a warp, drawn
+from a device queue (`live_queue`): the lanes split the union boxes of
+16 consecutive clusters (`stream_unions`, kept per geometry), then the
+members of each union entered (the conservative padded slab test,
+csrc/cluster_walk.cuh explains each case; the TPU kernel's safety net,
+a 1024-ray block's union of slab hits, does not exist for one ray
+alone), and share Moller-Trumbore over the slots of each cluster
+entered, keeping the lexicographic (t, slot) minimum, so results equal
+the brute force over all slots. The plain
+version walks the clusters in ascending order with a strict `<`, brute
+force's tie order. K2 (ops/traverse.py, capped at MATRIX_MAX_CLUSTERS)
+walks the clusters front to back and returns the same hits, so
 `stream_plain` is the plain version of both.
 
 The JAX module's `subchunk_aabb_row`, `cull_clusters`,
@@ -31,7 +36,8 @@ import numpy as np
 import torch
 
 from . import cuda_lib
-from .intersect import T_MAX, Hit, full_t_max, ray_triangle
+from .cull import CULL_GROUP, FAR_COORD, box_unions, cached_on
+from .intersect import T_MAX, T_MIN, Hit, full_t_max, ray_triangle
 
 TRI_CHUNK = 128  # == scene/gpu TRI_PAD
 # tri_packed row 9 holds the [min.xyz | max.xyz] boxes of 8 spans of 16
@@ -172,17 +178,60 @@ def check_stream_inputs(name, o, d, tm, cmin, cmax, tri_packed) -> None:
         )
 
 
-def _launch(o, d, tm, cmin, cmax, tri_packed) -> Hit:
+def live_queue(tm):
+    """K6's work queue, built on tm's device without a host sync: int32
+    (N + 3,) = [count, 0, the ids of the rays with t_max > 1e-4 in
+    ascending order, then unspecified]. queue[0] is the count, queue[1]
+    the pop counter the kernel advances."""
+    n = tm.shape[0]
+    live = tm > T_MIN
+    pos = torch.cumsum(live, 0, dtype=torch.int32)  # inclusive
+    queue = torch.zeros(n + 3, dtype=torch.int32, device=tm.device)
+    if n:
+        queue[0:1] = pos[-1:]
+    # live ray i goes to 2 + pos[i] - 1; the others to the spare last slot
+    dst = torch.where(live, pos + 1, n + 2).long()
+    queue.scatter_(0, dst, torch.arange(n, dtype=torch.int32, device=tm.device))
+    return queue
+
+
+def stream_unions(cluster_min, cluster_max):
+    """K6's union boxes: `cull.box_unions` of the clusters' padded boxes
+    (`slab_entry`'s padding, the operations of csrc/cluster_walk.cuh
+    `pad_axis`). Near members have every corner coordinate below
+    FAR_COORD in magnitude; the others (NaN, infinite or 3e37 corners)
+    are far and tested on their own: the padded test drops a NaN
+    (fminf / fmaxf), so it may enter a box with a NaN corner."""
+    pad = _PAD_REL * (torch.abs(cluster_min) + torch.abs(cluster_max)) + _PAD_ABS
+    lo_p = cluster_min - pad
+    hi_p = cluster_max + pad
+    near = (torch.abs(torch.cat([cluster_min, cluster_max], dim=1)) < FAR_COORD).all(dim=1)
+    return box_unions(torch.minimum(lo_p, hi_p), torch.maximum(lo_p, hi_p), near, ~near)
+
+
+def check_aligned(name, tri_packed) -> None:
+    """Raise unless the slot blocks start on 16 bytes: K2 copies them
+    with 16-byte cp.async, K5 and K6 read them as float4."""
+    if tri_packed.data_ptr() % 16:
+        raise ValueError(f"{name}: tri_packed is not 16-byte aligned")
+
+
+def _launch(o, d, tm, cmin, cmax, tri_packed, unions) -> Hit:
     dev = o.device
     n = o.shape[0]
     check_stream_inputs("intersect_clustered", o, d, tm, cmin, cmax, tri_packed)
+    check_aligned("intersect_clustered", tri_packed)
+    cuda_lib.check_cuda("intersect_clustered", dict(unions=unions), {}, dev)
+    if unions.shape != (-(-cmin.shape[0] // CULL_GROUP), 8) or unions.data_ptr() % 16:
+        raise ValueError("intersect_clustered: unions must be (G, 8), 16-byte aligned")
+    queue = live_queue(tm)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     tri_out = torch.empty(n, dtype=torch.int32, device=dev)
     u_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     P = cuda_lib.ptr
     cuda_lib.CLUSTER_STREAM(
-        P(o), P(d), P(tm), P(cmin), P(cmax), P(tri_packed),
+        P(o), P(d), P(tm), P(cmin), P(cmax), P(unions), P(tri_packed), P(queue),
         n, cmin.shape[0],
         P(t_out), P(tri_out), P(u_out), P(v_out), cuda_lib.stream_ptr(dev),
     )
@@ -202,6 +251,7 @@ def intersect_clustered(o, d, geometry, t_max=None) -> Hit:
     if o.device.type == "cpu":
         return intersect_clustered_plain(o, d, geometry, t_max)
     tm = full_t_max(t_max, o.shape[0], o.device)
-    return _launch(o, d, tm, geometry.cluster_min, geometry.cluster_max,
-                   geometry.tri_packed)
+    cmin, cmax = geometry.cluster_min, geometry.cluster_max
+    unions = cached_on(geometry, "_stream_unions", lambda: stream_unions(cmin, cmax))
+    return _launch(o, d, tm, cmin, cmax, geometry.tri_packed, unions)
 

@@ -191,7 +191,7 @@ RASTER_TILED = Kernel(
 # csrc/cull_topk.cu
 CULL_TOPK = Kernel(
     "hala_cull_topk",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P],
+    [_P] * 6 + [_I] * 3 + [_P] * 3,
 )
 # csrc/traverse_candidates.cu
 TRAVERSE_CANDIDATES = Kernel(
@@ -201,7 +201,7 @@ TRAVERSE_CANDIDATES = Kernel(
 # csrc/cluster_stream.cu
 CLUSTER_STREAM = Kernel(
     "hala_cluster_stream",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    [_P] * 8 + [_I] * 2 + [_P] * 5,
 )
 # csrc/grouped_walk.cu
 GROUPED_WALK = Kernel(

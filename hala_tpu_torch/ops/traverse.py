@@ -52,13 +52,14 @@ from .cluster import (  # noqa: F401  (slab_live, TRI_CHUNK: K2's API)
     PRETEST_PER_CHUNK,
     PRETEST_TRIS,
     TRI_CHUNK,
+    check_aligned,
     check_stream_inputs,
     intersect_clustered,
     slab_entry,
     slab_live,
     stream_plain,
 )
-from .cull import _ID_MASK, CULL_MAX_CLUSTERS, INF_KEY, cull_topk
+from .cull import _ID_MASK, CULL_MAX_CLUSTERS, INF_KEY, cull_topk, geometry_unions
 from .intersect import EPS, T_MIN, Hit, canonical_hit, full_t_max, mt_components
 from .compaction import coherence_key, order_by
 
@@ -76,13 +77,6 @@ _PLAIN_GROUPS = 256
 
 
 # --- K2: the front-to-back walk per block of rays ---------------------------
-
-
-def check_aligned(name, tri_packed) -> None:
-    """Raise unless the slot blocks start on 16 bytes: K2 copies them
-    with 16-byte cp.async and K5 reads them as float4."""
-    if tri_packed.data_ptr() % 16:
-        raise ValueError(f"{name}: tri_packed is not 16-byte aligned")
 
 
 def _launch_matrix(o, d, tm, cmin, cmax, tri_packed, any_hit: bool,
@@ -311,7 +305,7 @@ def cull_ordered(o, d, t_max, cluster_min, cluster_max, k_per_ray: int):
 
 
 def cull_candidates(o, d, t_max, cluster_min, cluster_max, k_per_ray: int,
-                    superchunk: int | None = None):
+                    superchunk: int | None = None, unions=None):
     """Per-ray K nearest candidate clusters in unpacked (ids, tns) form,
     from K4 (`cull_topk`, its plain version on the CPU) run once per
     superchunk of at most CULL_MAX_CLUSTERS clusters.
@@ -321,7 +315,9 @@ def cull_candidates(o, d, t_max, cluster_min, cluster_max, k_per_ray: int,
     is farther than K candidates of that superchunk. So the id width is
     unbounded and this serves scenes beyond MATRIX_MAX_CLUSTERS.
     `superchunk` forces a smaller split, for tests of the merge. The tns
-    are the keys' rounded-down entry distances (lower bounds).
+    are the keys' rounded-down entry distances (lower bounds). `unions`:
+    K4's union boxes per superchunk (`cull.geometry_unions`), built per
+    launch when not given.
 
     Returns (ids (N, K) int32 BIG_CLUSTER-padded, tns (N, K) f32
     3e38-padded ascending, overflow (N,) bool)."""
@@ -329,9 +325,10 @@ def cull_candidates(o, d, t_max, cluster_min, cluster_max, k_per_ray: int,
     k = min(k_per_ray, c)
     sc = CULL_MAX_CLUSTERS if superchunk is None else superchunk
     ids_all, tns_all, cnt = [], [], None
-    for lo in range(0, c, sc):
+    for j, lo in enumerate(range(0, c, sc)):
         pk, cnt_i = cull_topk(
-            o, d, t_max, cluster_min[lo:lo + sc], cluster_max[lo:lo + sc], k=k
+            o, d, t_max, cluster_min[lo:lo + sc], cluster_max[lo:lo + sc], k=k,
+            unions=None if unions is None else unions[j],
         )
         valid = pk != INF_KEY
         ids_all.append(torch.where(valid, (pk & _ID_MASK) + lo, BIG_CLUSTER))
@@ -529,9 +526,10 @@ def intersect_traversed(
     c = geometry.cluster_min.shape[0]
     k = min(k_per_ray, c)
     tm = full_t_max(t_max, n, o.device)
+    sc = CULL_MAX_CLUSTERS if superchunk is None else superchunk
     ids, tns, ovf = cull_candidates(
         o, d, tm, geometry.cluster_min, geometry.cluster_max, k,
-        superchunk=superchunk,
+        superchunk=sc, unions=geometry_unions(geometry, sc),
     )
     return _traverse_core(o, d, geometry, tm, ids, tns, ovf)
 

@@ -38,7 +38,9 @@ import torch
 
 from . import cuda_lib
 from .compaction import order_by
-from .cull import _ID_BITS, _ID_MASK, CULL_MAX_CLUSTERS, CULL_MAX_K, INF_KEY, cull_topk
+from .cull import (
+    _ID_BITS, _ID_MASK, CULL_MAX_CLUSTERS, CULL_MAX_K, INF_KEY, cull_topk, geometry_unions,
+)
 from .intersect import Hit, full_t_max
 from .traverse import (
     _INF,
@@ -231,7 +233,8 @@ def wavefront_lists(o_p, d_p, tm_p, geometry, k: int, m: int) -> WavefrontLists:
     """The cull (K4), the signature sort and the per-group lists for a
     batch already padded to whole groups."""
     g = geometry
-    pk, cnt = cull_topk(o_p, d_p, tm_p, g.cluster_min, g.cluster_max, k=k)
+    pk, cnt = cull_topk(o_p, d_p, tm_p, g.cluster_min, g.cluster_max, k=k,
+                        unions=geometry_unions(g)[0])
     # stable: the lane index breaks signature ties, a total order
     lane_s, inverse = order_by(signature_key(pk))
     pk_s = pk[lane_s]

@@ -150,6 +150,251 @@ def atrium_batch():
     return g, o, d, tm
 
 
+@pytest.fixture(scope="module")
+def atrium_big_batch():
+    """atrium_big (1861 clusters) on the card and 16,384 rays from inside
+    its bounds (a dozen along the axes, a quarter bounded, some dead)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
+    dev = torch.device("cuda", 0)
+    scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
+    g = SceneUploader.upload(scene, device=dev).geometry
+    return (g, *_inside_rays(g, 16384, 12))
+
+
+def _inside_rays(g, n, seed):
+    real = g.tri_v0[g.tri_mat >= 0]
+    lo, hi = (x.cpu().numpy() for x in (real.amin(0), real.amax(0)))
+    rs = np.random.RandomState(seed)
+    o = rs.uniform(lo + 0.1 * (hi - lo), hi - 0.1 * (hi - lo), (n, 3))
+    _, d = _rays(n, seed + 1)
+    tm = np.full(n, 3.0e38, np.float32)
+    tm[1::4] = rs.uniform(0.05, 8.0, len(tm[1::4]))
+    tm[::97] = 0.0
+    dev = g.tri_v0.device
+    return (torch.from_numpy(o.astype(np.float32)).to(dev), d.to(dev),
+            torch.from_numpy(tm).to(dev))
+
+
+@pytest.fixture(scope="module")
+def instances():
+    """Five instances of atrium_big side by side along x (the scene
+    "auto" sends to K4-K6: above 8191 clusters, two cull superchunks),
+    uploaded through the SAH build, and 16,384 rays from inside their
+    bounds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
+    from hala_tpu_torch.scene.cpu.node import Node
+
+    dev = torch.device("cuda", 0)
+    host = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
+    xs = [(p.positions @ n.world_transform[:3, :3].T + n.world_transform[:3, 3])[:, 0]
+          for n in host.nodes if n.mesh_index is not None
+          for p in host.meshes[n.mesh_index].primitives]
+    # the copies of chip_smoke.py `instanced_scene`
+    spacing = float(max(x.max() for x in xs) - min(x.min() for x in xs)) + 2.0
+    meshed = [n for n in host.nodes if n.mesh_index is not None]
+    for j in range(1, 5):
+        for n in meshed:
+            m = n.world_transform.copy()
+            m[0, 3] += j * spacing
+            host.nodes.append(Node(name=f"{n.name}_{j}", local_transform=m,
+                                   world_transform=m.copy(), mesh_index=n.mesh_index))
+    g = SceneUploader.upload(host, device=dev).geometry
+    assert g.cluster_min.shape[0] > k4.CULL_MAX_CLUSTERS
+    return (g, *_inside_rays(g, 16384, 13))
+
+
+def _coherent(g, o, d, tm):
+    perm = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+                         stable=True)
+    return tuple(x[perm].contiguous() for x in (o, d, tm))
+
+
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+@pytest.mark.parametrize("k", [4, 12, 16])
+def test_k4_atrium_big_matches_plain(atrium_big_batch, k, order):
+    """K4 (a warp skipping the 16-box groups no lane enters) on
+    atrium_big, as given and in the traverse engine's coherence order:
+    pk and cnt bit for bit."""
+    g, o, d, tm = atrium_big_batch
+    if order == "sorted":
+        o, d, tm = _coherent(g, o, d, tm)
+    before = cuda_lib.CULL_TOPK.launches
+    got = k4.cull_topk(o, d, tm, g.cluster_min, g.cluster_max, k=k)
+    ref = k4.cull_topk_plain(o, d, tm, g.cluster_min, g.cluster_max, k=k)
+    torch.cuda.synchronize()
+    assert cuda_lib.CULL_TOPK.launches == before + 1
+    _equal_bits(got, ref)
+    assert int((got[1] > k).sum()) > 0 and int((got[1] == 0).sum()) > 0
+
+
+@pytest.mark.parametrize("order", ["unsorted", "sorted"])
+def test_k4_instances_both_superchunks_match_plain(instances, order):
+    """K4 on the five instances: one launch per superchunk of 8192
+    clusters (the second ragged), each equal to its plain version, and
+    the merged lists equal to the plain merge."""
+    g, o, d, tm = instances
+    if order == "sorted":
+        o, d, tm = _coherent(g, o, d, tm)
+    cmin, cmax = g.cluster_min, g.cluster_max
+    sc = k4.CULL_MAX_CLUSTERS
+    unions = k4.geometry_unions(g)
+    assert len(unions) == 2
+    for j, lo in enumerate(range(0, cmin.shape[0], sc)):
+        sl = slice(lo, lo + sc)
+        got = k4.cull_topk(o, d, tm, cmin[sl], cmax[sl], k=12, unions=unions[j])
+        ref = k4.cull_topk_plain(o, d, tm, cmin[sl], cmax[sl], k=12)
+        torch.cuda.synchronize()
+        _equal_bits(got, ref)
+        assert int((got[1] > 0).sum()) > 100
+    before = cuda_lib.CULL_TOPK.launches
+    got = k5.cull_candidates(o, d, tm, cmin, cmax, 12, unions=unions)
+    torch.cuda.synchronize()
+    assert cuda_lib.CULL_TOPK.launches == before + 2
+    ref = k5.cull_candidates(o.cpu(), d.cpu(), tm.cpu(), cmin.cpu(), cmax.cpu(), 12)
+    _equal_bits(tuple(x.cpu() for x in got), ref)
+
+
+@pytest.mark.parametrize("superchunk", [1000, 1861])
+def test_k4_ragged_groups_and_far_boxes_match_plain(atrium_big_batch, superchunk):
+    """Superchunks that are not multiples of 16 (ragged last groups), and
+    boxes the unions must handle: a 3e37 point box (an empty cluster's),
+    one that a ray enters on the diagonal, NaN and infinite corners,
+    inside groups of real boxes."""
+    g, o, d, tm = atrium_big_batch
+    cmin, cmax = g.cluster_min.clone(), g.cluster_max.clone()
+    cmin[5] = cmax[5] = 3.0e37
+    cmin[17, 1] = float("nan")
+    cmax[40] = float("inf")
+    cmin[1003] = cmax[1003] = 3.0e37
+    # rays on the diagonal through the 3e37 point box enter it
+    o = o.clone()
+    d = d.clone()
+    o[:64] = torch.tensor([1.0, 1.0, 1.0], device=o.device) * torch.arange(
+        64, device=o.device)[:, None].float()
+    d[:64] = 1.0 / np.sqrt(3.0)
+    _, enters = k4.slab_keys(o[:64], d[:64], tm[:64], cmin[5:6], cmax[5:6])
+    assert bool(enters.any())
+    got = k5.cull_candidates(o, d, tm, cmin, cmax, 12, superchunk=superchunk)
+    torch.cuda.synchronize()
+    ref = k5.cull_candidates(o.cpu(), d.cpu(), tm.cpu(), cmin.cpu(), cmax.cpu(), 12,
+                             superchunk=superchunk)
+    _equal_bits(tuple(x.cpu() for x in got), ref)
+    pk, cnt = k4.cull_topk(o, d, tm, cmin[:superchunk], cmax[:superchunk], k=16)
+    _equal_bits((pk, cnt), k4.cull_topk_plain(o, d, tm, cmin[:superchunk],
+                                              cmax[:superchunk], k=16))
+
+
+@pytest.mark.parametrize("case", ["fallback", "full_range", "all_resolved", "sentinels"])
+def test_k6_matches_stream_plain(atrium_big_batch, case):
+    """K6 (a warp per queued ray) against `stream_plain`, bit for bit:
+    on the fallback's inputs (a few live rays), on the full range (every
+    ray live: the cluster engine), with every ray resolved (an empty
+    queue: the launch does nothing), and on the full range with 3e37
+    point boxes (an empty cluster's) inside two groups, which their
+    unions leave out and the walk tests on their own."""
+    g, o, d, tm = atrium_big_batch
+    o, d, tm = _coherent(g, o, d, tm)
+    if case == "sentinels":
+        cmin, cmax = g.cluster_min.clone(), g.cluster_max.clone()
+        cmin[[5, 21]] = cmax[[5, 21]] = 3.0e37
+        g = types.SimpleNamespace(cluster_min=cmin, cluster_max=cmax,
+                                  tri_packed=g.tri_packed)
+    if case == "fallback":
+        ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, 4)
+        hit, unres, _ = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
+        tm = k5.fallback_t_max(hit, unres)
+        live = int((tm > 1e-4).sum())
+        assert 0 < live < o.shape[0] // 2
+    elif case == "all_resolved":
+        tm = torch.full_like(tm, -torch.inf)
+    before = cuda_lib.CLUSTER_STREAM.launches
+    got = k6.intersect_clustered(o, d, g, t_max=tm)
+    ref = k6.intersect_clustered_plain(o, d, g, t_max=tm)
+    torch.cuda.synchronize()
+    assert cuda_lib.CLUSTER_STREAM.launches == before + 1
+    _equal_bits(got, ref)
+    if case == "all_resolved":
+        assert bool((got.tri == -1).all())
+    else:
+        assert int((got.tri >= 0).sum()) > 0
+
+
+@pytest.mark.parametrize("apart", [1, 40])
+def test_k6_keeps_the_lowest_slot_at_equal_t(cuda_device, apart):
+    """A triangle duplicated into a lower-id cluster: front to back a ray
+    enters cluster `apart` first (slot 128 * apart + 3) and brute force
+    keeps slot 7 of cluster 0; with `apart` 40 the two lie in different
+    32-box ballots of the warp. Bit for bit against `stream_plain`."""
+    from hala_tpu_torch.ops.cluster import with_pretest_row
+
+    c = apart + 1
+    blk = torch.zeros((c, 16, 128))
+    blk[:, 0:3, :] = 3.0e37  # padding slots: far v0, zero edges
+    tri = torch.tensor([[0, -1, -1], [0, 3, 0], [0, 0, 3]], dtype=torch.float32)
+    blk[0, 0:9, 7] = tri.reshape(9)
+    blk[apart, 0:9, 3] = tri.reshape(9)
+    blk[apart, 0:9, 9] = torch.tensor([[-3, 10, 0], [0, 1, 0], [0, 0, 1]],
+                                      dtype=torch.float32).reshape(9)
+    cmin = torch.full((c, 3), 3.0e37)
+    cmax = torch.full((c, 3), 3.0e37)
+    cmin[0], cmax[0] = torch.tensor([0.0, -1.0, -1.0]), torch.tensor([0.0, 2.0, 2.0])
+    cmin[apart] = torch.tensor([-3.0, -1.0, -1.0])
+    cmax[apart] = torch.tensor([0.0, 11.0, 2.0])
+    g = types.SimpleNamespace(cluster_min=cmin.to(cuda_device),
+                              cluster_max=cmax.to(cuda_device),
+                              tri_packed=with_pretest_row(blk).to(cuda_device))
+    rs = np.random.RandomState(8)
+    n = 200
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = -5.0
+    o[:, 1:] = rs.uniform(-0.5, 0.5, (n, 2))
+    d = np.tile(np.float32([1.0, 0.0, 0.0]), (n, 1))
+    d[150:] = rs.normal(size=(50, 3))
+    d[150:] /= np.linalg.norm(d[150:], axis=1, keepdims=True)
+    o, d = (torch.from_numpy(x).to(cuda_device) for x in (o, d))
+    tm = torch.full((n,), 3.0e38, device=cuda_device)
+    tm[140:150] = 5.0  # the tie at exactly t_max: out of range
+    got = k6.intersect_clustered(o, d, g, t_max=tm)
+    ref = k6.intersect_clustered_plain(o, d, g, t_max=tm)
+    torch.cuda.synchronize()
+    _equal_bits(got, ref)
+    assert (got.tri[:140] == 7).all() and (got.tri[140:150] == -1).all()
+
+
+def test_traverse_on_instances_matches_k1(instances):
+    """intersect_traversed (K4 over both superchunks, K5, K6) on the five
+    instances against K1 over all slots: equal triangle ids, t/u/v
+    within 1e-5, except near-ties (both t within 1e-5) and rays whose
+    K1 winner lies in a cluster the reference's unpadded cull slab test
+    misses (kept for parity)."""
+    g, o, d, tm = instances
+    before = cuda_lib.launches()
+    got = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=12)
+    ref = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm)
+    torch.cuda.synchronize()
+    after = cuda_lib.launches()
+    assert after["cull_topk"] == before["cull_topk"] + 2
+    assert after["cluster_stream"] == before["cluster_stream"] + 1
+    differ = torch.nonzero(got.tri != ref.tri).squeeze(1)
+    for i in differ.tolist():
+        assert int(ref.tri[i]) >= 0, i
+        if int(got.tri[i]) >= 0 and abs(float(got.t[i] - ref.t[i])) <= 1e-5 * float(
+                torch.maximum(got.t[i], ref.t[i])):
+            continue  # a near-tie
+        c = int(ref.tri[i]) // 128  # else the reference cull's grazing miss
+        _, enters = k4.slab_keys(o[i:i + 1], d[i:i + 1], tm[i:i + 1],
+                                 g.cluster_min[c:c + 1], g.cluster_max[c:c + 1])
+        assert not bool(enters.any()), i
+    assert differ.numel() <= 4
+    same = (got.tri == ref.tri) & (ref.tri >= 0)
+    for a, b in ((got.t, ref.t), (got.u, ref.u), (got.v, ref.v)):
+        assert torch.allclose(a[same], b[same], rtol=1e-5, atol=1e-5)
+    assert int(same.sum()) > 10000
+    assert int((ref.tri >= 128 * k4.CULL_MAX_CLUSTERS).sum()) > 100
+
+
 @pytest.mark.parametrize("k", [4, 12, 16])
 def test_k4_kernel_matches_plain(atrium_batch, k):
     g, o, d, tm = atrium_batch

@@ -1,29 +1,37 @@
 #!/usr/bin/env python
-"""Time the two cluster walks, K2 (csrc/matrix_traverse.cu) and K5
-(csrc/traverse_candidates.cu), of one checkout of hala_tpu_torch on
-the batches the main path hands them, on one NVIDIA GPU.
+"""Time the cluster kernels K2 (csrc/matrix_traverse.cu), K4
+(csrc/cull_topk.cu), K5 (csrc/traverse_candidates.cu) and K6
+(csrc/cluster_stream.cu) of one checkout of hala_tpu_torch on the
+batches the main path hands them, on one NVIDIA GPU.
 
     python3 time_walks.py [--root DIR] [--reps N] [--profile]
 
 `--root` names the checkout whose `hala_tpu_torch` is built and timed
 (default: the one holding this script), so two checkouts can be timed
-in turns within one process tree. The batches, the timer and the bounds
-(`k2_work`, `k5_work`; printed for this checkout only, as they need its
-plain model) are this checkout's `chip_smoke.py` helpers: atrium_big's mixed batches
-`small` (65,536 rays) and `big` (2^21), each unsorted and in the
-coherence order `matrix_query` gives them (`_coherence_key`,
-`order_by`); K2 closest and any-hit, K5 on `cull_candidates` lists at
-K 12. `--profile` adds, for atrium_big at 1920x1088 (depth 4, 1 spp)
-through intersector "matrix" (K2 under the coherence sort),
+in turns within one process tree. The batches, the timer, the five
+instances of atrium_big and the bounds (`k2_work`, `k4_work`,
+`k5_work`; printed for this checkout only, as they need its plain
+models) are this checkout's `chip_smoke.py` helpers: atrium_big's mixed
+batches `small` (65,536 rays) and `big` (2^21), each unsorted and in
+the coherence order `matrix_query` and the traverse engine give them
+(`_coherence_key`, `order_by`), and a 2^21-ray mixed batch of the five
+instances (above 8191 clusters: two K4 launches a query), sorted: K2
+closest and any-hit (atrium_big only), K4 at K 12 (a query: one launch
+per superchunk), K5 on its lists, K6 on the fallback's inputs
+(t_max -inf for the rays K5 resolved) and on the full range of the
+sorted 2^21 rays. `--profile` adds, for atrium_big at 1920x1088 (depth
+4, 1 spp) through intersector "matrix" (K2 under the coherence sort),
 "traverse" (K4, K5, K6) and "wavefront" (K4, K7, K2 as the fallback),
-the time of two frames after a warm-up frame and a torch.profiler
-window over one more. Prints one JSON line; exits 2 without CUDA.
+and for the five instances through "auto" ("traverse"), the time of
+two frames after a warm-up frame and a torch.profiler window over one
+more. Prints one JSON line; exits 2 without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
 import importlib.util
+import inspect
 import json
 import os
 import sys
@@ -55,7 +63,8 @@ def main() -> int:
         print("time_walks: needs an NVIDIA GPU", file=sys.stderr)
         return 2
     S = smoke_helpers()
-    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import cluster as k6
+    from hala_tpu_torch.ops import cuda_lib, cull
     from hala_tpu_torch.ops import traverse as k2
     from hala_tpu_torch.ops.compaction import order_by
     from hala_tpu_torch.scene.cpu.scene import Scene
@@ -68,44 +77,81 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     host = Scene.load(os.path.join(HERE, "assets", "atrium_big.glb"))
     scene = SceneUploader.upload(host, device=dev)
-    g = scene.geometry
-    cmin, cmax = g.cluster_min, g.cluster_max
+    x5_host, x5_scene, _, _ = S.upload_instances(host, dev)
+    own = root == HERE
+    # the parent's K4 builds nothing per launch; here the unions are
+    # built once per geometry, as the traverse engine does
+    with_unions = "unions" in inspect.signature(cull.cull_topk).parameters
     out = dict(root=root, card=card, build_s=cuda_lib.build_seconds)
-    batches = (("small", S.mixed_batch(scene, 256, 128, 32768, 31)),
-               ("big", S.mixed_batch(scene, 1024, 1024, 1 << 20, 33)))
-    for label, (o, d, tm) in batches:
+    batches = (("small", scene, S.mixed_batch(scene, 256, 128, 32768, 31)),
+               ("big", scene, S.mixed_batch(scene, 1024, 1024, 1 << 20, 33)),
+               ("x5", x5_scene, S.mixed_batch(x5_scene, 1024, 1024, 1 << 20, 35)))
+    for label, sc, (o, d, tm) in batches:
+        g = sc.geometry
+        cmin, cmax = g.cluster_min, g.cluster_max
+        c, k, step = cmin.shape[0], S.TRAVERSE_K, cull.CULL_MAX_CLUSTERS
+        slices = [slice(lo, lo + step) for lo in range(0, c, step)]
+        unions = [cull.group_unions(cmin[sl], cmax[sl]) for sl in slices] if with_unions else None
         order, _ = order_by(k2._coherence_key(o, d, tm, cmin, cmax))
         orders = (("unsorted", (o, d, tm)),
                   ("sorted", tuple(x[order].contiguous() for x in (o, d, tm))))
         for how, (o_, d_, tm_) in orders:
-            ids, tns, ovf = k2.cull_candidates(o_, d_, tm_, cmin, cmax, S.TRAVERSE_K)
-            hit = k2.intersect_matrix(o_, d_, g, t_max=tm_)
-            k5_hit, _, runs = k2.traverse_candidates(o_, d_, tm_, ids, tns, ovf,
-                                                     g.tri_packed)
-            rec = dict(rays=o_.shape[0])
-            if root == HERE:
-                k2_b = S.k2_work(g, o_, d_, tm_, hit)
-                k5_b = S.k5_work(g, o_, d_, tm_, ids, S.TRAVERSE_K, k5_hit, runs)
-                rec.update(k2_bound_ms=k2_b[0], k2_work=k2_b[2], k5_bound_ms=k5_b[0],
-                           k5_visits=k5_b[2], k5_mt_pairs=k5_b[3])
-            rec["k2_ms"] = S.cuda_ms(lambda: k2.intersect_matrix(o_, d_, g, t_max=tm_),
-                                     args.reps)
-            rec["k2_anyhit_ms"] = S.cuda_ms(lambda: k2.intersect_matrix(
-                o_, d_, g, t_max=tm_, any_hit=True), args.reps)
+            if label == "x5" and how == "unsorted":
+                continue
+
+            def cull_query():
+                return [cull.cull_topk(o_, d_, tm_, cmin[sl], cmax[sl], k=k,
+                                       **({"unions": unions[j]} if with_unions else {}))
+                        for j, sl in enumerate(slices)]
+
+            ids, tns, ovf = k2.cull_candidates(o_, d_, tm_, cmin, cmax, k)
+            k5_hit, unres, runs = k2.traverse_candidates(o_, d_, tm_, ids, tns, ovf,
+                                                         g.tri_packed)
+            fb_tm = k2.fallback_t_max(k5_hit, unres)
+            rec = dict(rays=o_.shape[0], clusters=c, k4_launches=len(slices),
+                       unresolved=int((fb_tm > 1e-4).sum()))
+            if own:
+                rec["k4_bound_ms"] = S.k4_work(o_, d_, tm_, cmin, cmax, k)[0]
+                fk = k6.intersect_clustered(o_, d_, g, t_max=fb_tm)
+                act = fb_tm > 1e-4
+                rec["k6_bound_ms"] = S.k2_work(g, o_[act], d_[act], fb_tm[act],
+                                               type(fk)(*(x[act] for x in fk)))[0]
+            if label != "x5":
+                hit = k2.intersect_matrix(o_, d_, g, t_max=tm_)
+                if own:
+                    k2_b = S.k2_work(g, o_, d_, tm_, hit)
+                    k5_b = S.k5_work(g, o_, d_, tm_, ids, k, k5_hit, runs)
+                    rec.update(k2_bound_ms=k2_b[0], k2_work=k2_b[2],
+                               k5_bound_ms=k5_b[0], k5_visits=k5_b[2],
+                               k5_mt_pairs=k5_b[3])
+                rec["k2_ms"] = S.cuda_ms(lambda: k2.intersect_matrix(
+                    o_, d_, g, t_max=tm_), args.reps)
+                rec["k2_anyhit_ms"] = S.cuda_ms(lambda: k2.intersect_matrix(
+                    o_, d_, g, t_max=tm_, any_hit=True), args.reps)
+            rec["k4_ms"] = S.cuda_ms(cull_query, args.reps)
             rec["k5_ms"] = S.cuda_ms(lambda: k2.traverse_candidates(
                 o_, d_, tm_, ids, tns, ovf, g.tri_packed), args.reps)
+            rec["k6_ms"] = S.cuda_ms(lambda: k6.intersect_clustered(
+                o_, d_, g, t_max=fb_tm), args.reps)
+            if label != "small" and how == "sorted":
+                rec["k6_full_range_ms"] = S.cuda_ms(lambda: k6.intersect_clustered(
+                    o_, d_, g, t_max=tm_), 2)
             out[f"{label}_{how}"] = rec
-            S.log(f"  {label} {how} N={rec['rays']}: K2 {rec['k2_ms']:.3f} ms "
-                  f"(any-hit {rec['k2_anyhit_ms']:.3f}), bound "
-                  f"{rec.get('k2_bound_ms', 'not computed')}; K5 {rec['k5_ms']:.3f} ms, "
-                  f"bound {rec.get('k5_bound_ms', 'not computed')} [{card}]")
+            S.log(f"  {label} {how} N={rec['rays']} x {c} clusters: "
+                  + ", ".join(f"{key} {v:.4f}" if isinstance(v, float) else f"{key} {v}"
+                              for key, v in rec.items()
+                              if key.endswith("ms") or key == "unresolved")
+                  + f" [{card}]")
     if args.profile:
         from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
 
-        for engine in ("matrix", "traverse", "wavefront"):
-            r = RayTracingRenderer("sponza", 1920, 1088, max_depth=4, rr_depth=2,
-                                   spp=1, intersector=engine, device="cuda")
-            r.set_scene(host)
+        for name, engine, scene_host in (("atrium_big", "matrix", host),
+                                         ("atrium_big", "traverse", host),
+                                         ("atrium_big", "wavefront", host),
+                                         ("x5", "auto", x5_host)):
+            r = RayTracingRenderer(f"{name}_{engine}", 1920, 1088, max_depth=4,
+                                   rr_depth=2, spp=1, intersector=engine, device="cuda")
+            r.set_scene(scene_host)
             r.commit()
             S.warm_up(r)
             cuda_lib.reset_launches()
@@ -113,11 +159,14 @@ def main() -> int:
             r.render_loop(2, frames_per_dispatch=2)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) / 2 * 1e3
-            out[f"{engine}_frame_ms"] = wall
-            out[f"{engine}_launches_per_frame"] = {
+            key = f"{name}_{engine}"
+            out[f"{key}_frame_ms"] = wall
+            out[f"{key}_launches_per_frame"] = {
                 k: v / 2 for k, v in cuda_lib.launches().items() if v}
-            out[f"{engine}_frame_profile"] = S.profile_frames(
-                f"atrium_big {engine} (sorted rays)", lambda: r.render_loop(1), 1,
+            S.log(f"  {key}: {wall:.1f} ms/frame, launches per frame "
+                  f"{out[f'{key}_launches_per_frame']} [{card}]")
+            out[f"{key}_frame_profile"] = S.profile_frames(
+                f"{name} {engine} (sorted rays)", lambda: r.render_loop(1), 1,
                 wall, card)
             del r
     print(json.dumps(out), flush=True)
