@@ -8,8 +8,10 @@ Phases, in order; any failure raises and exits non-zero:
   2. build the CUDA kernels from hala_tpu_torch/csrc, one nvcc per
      source started together (timed);
   3. each kernel against its plain PyTorch version on the card — the
-     brute-force kernel (K1) on the Cornell box and on a multi-chunk
-     triangle soup with a ragged ray count, the cluster-traversal kernel
+     brute-force kernel (K1), bit for bit, closest and any-hit, on the
+     Cornell box, on a 300-triangle soup with a ragged ray count and on
+     a 4096-triangle soup with 524,288 live rays (timed on the Cornell
+     box and the 4096-triangle soup), the cluster-traversal kernel
      (K2) on assets/atrium_big.glb's mixed batches of 65,536 and 2^21
      rays, unsorted and in matrix_query's coherence order, against its
      plain version bit for bit (closest, and the any-hit mask) and
@@ -18,7 +20,10 @@ Phases, in order; any failure raises and exits non-zero:
      `matrix_walk_runs_plain`, timed on all four batches, the tile-segment raster kernel (K3) on
      atrium_big at 1920x1088 (tile 64, bench camera) against its plain
      version and at 256x256 against the full-scan `rasterize`, bit for
-     bit; the large-scene engines on atrium_big: the cull (K4, a warp
+     bit (timed, with the pairs its sub-tile skip leaves), and on a
+     synthetic table built to break the skip (`skip_breaking_triangles`:
+     slivers along sub-tile borders, huge and non-finite rows, a tile of
+     more than 5000 candidates) against its plain version; the large-scene engines on atrium_big: the cull (K4, a warp
      skipping 16-box groups no lane enters) at K 4, 12 and 16 unsorted
      and sorted and through a forced superchunk merge, the candidate
      walk (K5, half a warp a ray, unsorted and sorted) and the cluster
@@ -164,10 +169,16 @@ def bound(ops: float, nbytes: float) -> tuple[float, str]:
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` runs after a warm-up."""
+    """Mean device milliseconds of fn() over `reps` runs after a warm-up
+    of at least 50 ms (the card's clocks ramp up from idle)."""
     import torch
 
+    t0 = time.perf_counter()
     fn()
+    torch.cuda.synchronize()
+    while time.perf_counter() - t0 < 0.05:
+        fn()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -289,52 +300,64 @@ def compare_hits(name: str, a, b, o, d, g) -> float:
     return err
 
 
-def check_k1(dev_scene, soup_scene, n_rays: int, ragged: int, reps: int):
-    """K1 (csrc/intersect_bruteforce.cu) vs its plain version."""
+def check_k1(dev_scene, soup_scene, big_soup, n_rays: int, ragged: int, reps: int):
+    """K1 (csrc/intersect_bruteforce.cu) vs its plain version, bit for
+    bit, closest and any-hit: the Cornell box's mixed batch (timed), a
+    300-triangle soup with a ragged ray count, and a 4096-triangle soup
+    (the top of "auto"'s brute-force range) with n_rays live rays
+    (timed)."""
     import torch
 
     from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 
     rec = {}
-    for label, ds, cam in (("cornell", dev_scene, True), ("soup", soup_scene, False)):
+    for label, ds, cam in (("cornell", dev_scene, True), ("soup", soup_scene, False),
+                           ("soup4096", big_soup, False)):
         g = ds.geometry
         num_real = g.num_triangles
         side = int(np.sqrt(n_rays // 2))
         if cam:
             o, d, tm = mixed_batch(ds, side, side, n_rays - side * side, 11)
         else:
-            o, d = random_rays(ds, n_rays + ragged, 12)
+            n = n_rays + (ragged if label == "soup" else 0)
+            o, d = random_rays(ds, n, 12)
             tm = torch.full((o.shape[0],), 3.0e38, device=o.device)
         args = (o, d, g.tri_v0, g.tri_e1, g.tri_e2)
         hk = k1.intersect_pallas(*args, t_max=tm, num_real=num_real)
         hp = k1.intersect_pallas_plain(*args, t_max=tm, num_real=num_real)
         torch.cuda.synchronize()
-        err = compare_hits(f"K1 {label} closest (N={o.shape[0]})", hk, hp, o, d, g)
+        equal_tensors(f"K1 {label} closest", hk, hp, ("t", "tri", "u", "v"))
         ok = k1.occluded_pallas(o, d, tm, *args[2:], num_real=num_real)
         op = k1.occluded_pallas_plain(o, d, tm, *args[2:], num_real=num_real)
         if not torch.equal(ok, op):
             raise AssertionError(f"K1 {label}: any-hit disagrees "
                                  f"({int((ok != op).sum())} rays)")
-        log(f"  K1 {label} any-hit: equal ({int(ok.sum())} blocked)")
-        if label == "cornell":
-            live = int((tm > 1e-4).sum())
-            n = o.shape[0]
-            b_ms, b_by = bound(live * num_real * OPS_MT,
-                               n * 44 + num_real * 36)
-            rec = dict(
-                bound_ms=b_ms, bound_by=b_by,
-                max_abs_err=err,
-                ms=cuda_ms(lambda: k1.intersect_pallas(
-                    *args, t_max=tm, num_real=num_real), reps),
-                plain_ms=cuda_ms(lambda: k1.intersect_pallas_plain(
-                    *args, t_max=tm, num_real=num_real), max(1, reps // 4)),
-                rays=o.shape[0],
-            )
+        log(f"  K1 {label} (N={o.shape[0]}, {num_real} triangles): closest "
+            f"t, tri, u, v and any-hit equal bit for bit "
+            f"({int((hk.tri >= 0).sum())} hits, {int(ok.sum())} blocked)")
+        if label == "soup":
+            continue
+        live = int((tm > 1e-4).sum())
+        n = o.shape[0]
+        b_ms, b_by = bound(live * num_real * OPS_MT, n * 44 + num_real * 36)
+        r = dict(
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=max_abs_diff(hk, hp),
+            ms=cuda_ms(lambda: k1.intersect_pallas(
+                *args, t_max=tm, num_real=num_real), reps),
+            anyhit_ms=cuda_ms(lambda: k1.occluded_pallas(
+                o, d, tm, *args[2:], num_real=num_real), reps),
+            plain_ms=cuda_ms(lambda: k1.intersect_pallas_plain(
+                *args, t_max=tm, num_real=num_real),
+                max(1, reps // 4) if cam else 1),
+            rays=n, triangles=num_real,
+        )
+        log(f"  K1 {label} N={n} x {num_real}: kernel {r['ms']:.3f} ms "
+            f"(any-hit {r['anyhit_ms']:.3f}), plain {r['plain_ms']:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        if cam:
+            rec = r
         else:
-            rec["max_abs_err"] = max(rec["max_abs_err"], err)
-    log(f"  K1 cornell N={rec['rays']}: kernel {rec['ms']:.3f} ms, "
-        f"plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-        f"({rec['bound_by']})")
+            rec.update({f"{k}_soup4096": v for k, v in r.items()})
     return rec
 
 
@@ -1376,6 +1399,103 @@ def inside_pairs(seg) -> int:
     return int(total)
 
 
+def skip_breaking_triangles(size: int, n_dense: int, seed: int,
+                            finite: bool = False):
+    """Screen-space triangles at size x size pixels built to break K3's
+    sub-tile skip: near-collinear slivers on lines through pixel
+    centres, slivers hugging the x = 0 and y = 0 borders with areas just
+    above the 1e-12 cut, slivers a few ulps wide along the pixel-centre
+    columns and rows next to sub-tile borders (their rounded edge
+    functions accept pixel centres outside their boxes), huge triangles
+    (some past 2^22), rows with NaN and infinite corners (left out with
+    `finite`) and `n_dense` small triangles in the 64x64 tile at
+    (64, 64); ids shuffled. Returns numpy (tri_screen, depth, inv_w,
+    valid)."""
+    rs = np.random.RandomState(seed)
+    tris = []
+    for _ in range(300):
+        a = rs.randint(0, size, 2) + 0.5
+        step = rs.randint(-3, 4, 2)
+        if not step.any():
+            step[0] = 1
+        b = a + rs.randint(3, 40) * step
+        c = (a + np.float32(rs.uniform(0.2, 0.8)) * (b - a)).astype(np.float32)
+        c = c + rs.randint(-3, 4, 2) * np.spacing(np.abs(c))
+        tris.append([a, b, c])
+    for _ in range(60):
+        y0, y1 = np.sort(rs.uniform(0, size, 2))
+        off = rs.uniform(1.0, 50.0) * 2e-12 / max(y1 - y0, 1.0)
+        tri = [[off, y0], [0.0, y1], [0.0, (y0 + y1) / 2]]
+        tris.append([q[::-1] for q in tri] if rs.rand() < 0.5 else tri)
+    for _ in range(200):
+        x = 16 * rs.randint(0, size // 16) + rs.choice([-0.5, 0.5])
+        y0, y1 = rs.randint(0, size, 2) + 0.5
+        ulp = np.spacing(np.float32(abs(x)))
+        tri = [[x, y0], [x + rs.randint(1, 4) * ulp, y1],
+               [x - rs.randint(0, 3) * ulp, (y0 + y1) / 2 + 0.25]]
+        tris.append([q[::-1] for q in tri] if rs.rand() < 0.5 else tri)
+    for s in (1e3, 1e5, 3e6, 1e7):
+        cx, cy = rs.uniform(0, size, 2)
+        tris.append([[cx - s, cy - s], [cx + 2 * s, cy - s * 0.5], [cx, cy + 2 * s]])
+    if not finite:
+        inf, nan = np.inf, np.nan
+        tris += [[[inf, 5.0], [0.0, 0.0], [0.0, 10.0]],
+                 [[nan, 5.0], [3.0, 0.0], [3.0, 40.0]],
+                 [[20.0, -inf], [30.0, 5.0], [10.0, 5.0]],
+                 [[40.0, 40.0], [nan, nan], [60.0, 50.0]],
+                 [[-inf, 70.0], [inf, 70.0], [50.0, 90.0]]]
+    dense = rs.uniform(64, 128, (n_dense, 1, 2)) + rs.uniform(-1.5, 1.5, (n_dense, 3, 2))
+    tri = np.concatenate([np.asarray(tris, np.float64), dense]).astype(np.float32)
+    t = tri.shape[0]
+    tri = tri[rs.permutation(t)]
+    return (tri, rs.uniform(0.05, 0.95, (t, 3)).astype(np.float32),
+            rs.uniform(0.5, 2.0, (t, 3)).astype(np.float32), np.ones(t, bool))
+
+
+def subtile_pairs(seg) -> int:
+    """The (candidate, pixel) pairs K3 tests under its sub-tile skip:
+    SUB_TILE^2 for every (segment row, sub-tile) that is not skipped."""
+    from hala_tpu_torch.ops import raster_kernel as k3
+
+    skip = k3.subtile_skip(seg.starts, seg.data, seg.tw, seg.tile)
+    return int((~skip).sum()) * k3.SUB_TILE ** 2
+
+
+def check_k3_skip_table(dev, reps: int, size: int = 256, n_dense: int = 5200,
+                       tile: int = 64):
+    """K3 on `skip_breaking_triangles` against its plain version, bit
+    for bit: slivers along sub-tile borders, huge and non-finite rows,
+    and one tile of more than 5000 candidates."""
+    import torch
+
+    from hala_tpu_torch.ops import raster_kernel as k3
+
+    arrays = skip_breaking_triangles(size, n_dense, 21)
+    tris = [torch.from_numpy(a).to(dev) for a in arrays]
+    seg = k3.build_segments(*tris, size, size, tile)
+    args = (seg.starts, seg.data, seg.tw, seg.tile)
+    pk = k3.raster_segments(*args)
+    pp = k3.raster_segments_plain(*args)
+    torch.cuda.synchronize()
+    equal_planes(f"K3 skip-breaking table {size}x{size}", pk, pp)
+    seg_len = (seg.starts[1:] - seg.starts[:-1]).long()
+    longest = int(seg_len.max())
+    if longest <= 5000 or float(seg.over) != 0.0:
+        raise AssertionError(f"K3 skip-breaking table: longest {longest}, "
+                             f"overflow {float(seg.over)}")
+    n_real = int(seg.n_real)
+    skipped = 1.0 - subtile_pairs(seg) / (n_real * tile * tile)
+    rec = dict(rows=arrays[0].shape[0], n_real=n_real, longest=longest,
+               skipped_share=skipped,
+               ms=cuda_ms(lambda: k3.raster_segments(*args), reps))
+    log(f"  K3 skip-breaking table {size}x{size} tile {tile}: depth, tri, uw, "
+        f"vw, iw equal bit for bit; {rec['rows']} triangles, {n_real} "
+        f"(tile, candidate) pairs, longest segment {longest}, "
+        f"{skipped:.3f} of (candidate, pixel) pairs skipped; kernel "
+        f"{rec['ms']:.3f} ms")
+    return rec
+
+
 def check_k3(dev_scene, reps: int, w: int = 1920, h: int = 1088,
              small: int = 256):
     """K3 (csrc/raster_tiled.cu) vs its plain version at the bench
@@ -1428,10 +1548,13 @@ def check_k3(dev_scene, reps: int, w: int = 1920, h: int = 1088,
         "equal bit for bit")
 
     n_inside = inside_pairs(seg)
+    n_bytes = n_real * k3.ROW_WIDTH * 4 + (n_tiles + 1) * 4 + 5 * n_tiles * n_pix * 4
     b_ms, b_by = bound(
-        n_real * n_pix * OPS_RASTER_EDGE + n_inside * OPS_RASTER_INSIDE,
-        n_real * k3.ROW_WIDTH * 4 + (n_tiles + 1) * 4 + 5 * n_tiles * n_pix * 4,
-    )
+        n_real * n_pix * OPS_RASTER_EDGE + n_inside * OPS_RASTER_INSIDE, n_bytes)
+    # what the sub-tile model needs: the pairs of the sub-tiles not skipped
+    n_sub = subtile_pairs(seg)
+    sub_ms, sub_by = bound(n_sub * OPS_RASTER_EDGE + n_inside * OPS_RASTER_INSIDE,
+                           n_bytes)
     err = max(  # over depth, uw, vw and iw (the tri plane is held equal)
         float((pk[i].double() - pp[i].double()).abs().max())
         for i in (0, 2, 3, 4)
@@ -1443,11 +1566,13 @@ def check_k3(dev_scene, reps: int, w: int = 1920, h: int = 1088,
         glue_ms=cuda_ms(lambda: k3.build_segments(*tris, w, h, tile), reps),
         bound_ms=b_ms, bound_by=b_by, n_real=n_real,
         longest=int(seg_len.max()), tiles=n_tiles,
+        subtile_pairs=n_sub, subtile_bound_ms=sub_ms,
     )
     log(f"  K3 {w}x{h}: kernel {rec['ms']:.3f} ms, plain "
         f"{rec['plain_ms']:.1f} ms, glue (binning + table) "
         f"{rec['glue_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{n_real * n_pix} (candidate, pixel) pairs, {n_inside} inside)")
+        f"{n_real * n_pix} (candidate, pixel) pairs, {n_inside} inside); "
+        f"the sub-tile model's {n_sub} pairs: {sub_ms:.4f} ms ({sub_by})")
     return rec
 
 
@@ -1915,13 +2040,15 @@ def main() -> int:
     log("== phase 3: kernels against their plain versions")
     cornell_dev = SceneUploader.upload(cornell_box(), device=dev)
     soup_dev = SceneUploader.upload(random_triangle_soup(300, seed=3), device=dev)
+    soup4k_dev = SceneUploader.upload(random_triangle_soup(4096, seed=4), device=dev)
     big_host = Scene.load(os.path.join(HERE, "assets", "atrium_big.glb"))
     big_dev = SceneUploader.upload(big_host, device=dev)
-    k1_rec = check_k1(cornell_dev, soup_dev, 2 * 512 * 512, 77, reps=20)
+    k1_rec = check_k1(cornell_dev, soup_dev, soup4k_dev, 2 * 512 * 512, 77, reps=20)
     small = mixed_batch(big_dev, 256, 128, 32768, 31)
     big = mixed_batch(big_dev, 1024, 1024, 1 << 20, 33)
     k2_rec = check_k2(big_dev, small, big, reps=6)
     k3_rec = check_k3(big_dev, reps=10)
+    k3_skip = check_k3_skip_table(dev, reps=10)
     k4_rec = check_k4(big_dev, small, big, reps=5)
     k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
     k7_rec, k8_rec = check_k7_k8(big_dev, small, big, reps=5)
@@ -2159,16 +2286,22 @@ def main() -> int:
 
     per_query = k4_x5["launches_per_query"]
     kernels = [
-        entry("intersect_bruteforce (K1)",
-              "hala_tpu_torch/csrc/intersect_bruteforce.cu",
-              "hala_tpu/ops/pallas/intersect_kernel.py:182",
-              after_cornell["intersect_bruteforce"], k1_rec),
+        # K1: the Cornell batch, and the 4096-triangle soup beside it
+        dict(entry("intersect_bruteforce (K1)",
+                   "hala_tpu_torch/csrc/intersect_bruteforce.cu",
+                   "hala_tpu/ops/pallas/intersect_kernel.py:182",
+                   after_cornell["intersect_bruteforce"], k1_rec),
+             **{k: v for k, v in k1_rec.items() if k.endswith("_soup4096")}),
         entry("matrix_traverse (K2)", "hala_tpu_torch/csrc/matrix_traverse.cu",
               "hala_tpu/ops/traverse.py:1591",
               after_sponza["matrix_traverse"], k2_rec),
-        entry("raster_tiled (K3)", "hala_tpu_torch/csrc/raster_tiled.cu",
-              "hala_tpu/ops/raster_kernel.py:309",
-              after_ra["raster_tiled"], k3_rec),
+        # K3: beside the bound, the pairs its sub-tile skip leaves
+        dict(entry("raster_tiled (K3)", "hala_tpu_torch/csrc/raster_tiled.cu",
+                   "hala_tpu/ops/raster_kernel.py:309",
+                   after_ra["raster_tiled"], k3_rec),
+             subtile_pairs=k3_rec["subtile_pairs"],
+             subtile_bound_ms=k3_rec["subtile_bound_ms"],
+             skip_table_ms=k3_skip["ms"]),
         # K4-K6: launches where "auto" runs them (the five instances),
         # K4 per launch (a query's two superchunk launches, halved)
         dict(entry("cull_topk (K4)", "hala_tpu_torch/csrc/cull_topk.cu",
@@ -2210,6 +2343,9 @@ def main() -> int:
                    k5_times=k5_rec["times"],
                    k3_glue_ms=k3_rec["glue_ms"], k3_n_real=k3_rec["n_real"],
                    k3_longest_segment=k3_rec["longest"],
+                   k3_subtile_pairs=k3_rec["subtile_pairs"],
+                   k3_subtile_bound_ms=k3_rec["subtile_bound_ms"],
+                   k3_skip_table=k3_skip,
                    atrium_big_traverse=t_out, atrium_big_cluster=cl_out,
                    k4_rays=k4_rec["rays"], k4_truncated=k4_rec["truncated"],
                    k4_atrium_big=k4_rec, k4_x5=k4_x5, k6_atrium_big=k6_rec,

@@ -175,7 +175,7 @@ _I = ctypes.c_int
 # csrc/intersect_bruteforce.cu
 INTERSECT_BRUTEFORCE = Kernel(
     "hala_intersect_bruteforce",
-    [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P],
+    [_P] * 4 + [_I] * 4 + [_P] * 5,
 )
 # csrc/matrix_traverse.cu
 MATRIX_TRAVERSE = Kernel(
@@ -186,7 +186,7 @@ MATRIX_TRAVERSE = Kernel(
 # csrc/raster_tiled.cu
 RASTER_TILED = Kernel(
     "hala_raster_tiled",
-    [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _I, _I, _I] + [_P] * 8,
 )
 # csrc/cull_topk.cu
 CULL_TOPK = Kernel(

@@ -15,12 +15,74 @@ version for CPU tensors; there is no other fallback.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 
 from .. import cuda_lib
 from ..intersect import Hit, full_t_max, intersect_bruteforce
 
-TRI_CHUNK = 128  # triangles per chunk (kernel: per shared-memory stage)
+TRI_CHUNK = 128  # triangles per chunk of the plain version
+# csrc/intersect_bruteforce.cu: a block of 1024 threads carries 2 rays a
+# thread, and stages up to STAGE_MAX triangles (48 bytes each) at once in
+# the shared memory the rays' o and d passed through.
+BLOCK_THREADS = 1024
+RAYS_PER_THREAD = 2
+BLOCK_RAYS = BLOCK_THREADS * RAYS_PER_THREAD
+STAGE_MAX = 4096
+SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
+
+
+def pack_triangles(tri_v0, tri_e1, tri_e2, num_real: int) -> torch.Tensor:
+    """The kernel's table: (num_real, 12) f32 rows v0, e1, e2, each
+    padded with a zero to a float4."""
+    k = num_real
+    pad = torch.zeros((k, 1), dtype=torch.float32, device=tri_v0.device)
+    return torch.cat([tri_v0[:k], pad, tri_e1[:k], pad, tri_e2[:k], pad],
+                     dim=1).contiguous()
+
+
+_PACKED: dict = {}  # (ids of the three tensors, num_real) -> (refs, versions, table)
+
+
+def packed_triangles(tri_v0, tri_e1, tri_e2, num_real: int) -> torch.Tensor:
+    """`pack_triangles`, kept while the three tensors live unchanged
+    (same objects, same version counters): the geometry of a scene is
+    packed once, not once a query."""
+    srcs = (tri_v0, tri_e1, tri_e2)
+    key = (*map(id, srcs), num_real)
+    versions = tuple(t._version for t in srcs)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[1] == versions and all(
+            r() is t for r, t in zip(hit[0], srcs)):
+        return hit[2]
+    table = pack_triangles(tri_v0, tri_e1, tri_e2, num_real)
+    if len(_PACKED) >= 8:
+        _PACKED.clear()
+    _PACKED[key] = (tuple(weakref.ref(t) for t in srcs), versions, table)
+    return table
+
+
+def stage_triangles(num_real: int) -> int:
+    """Triangles a block stages at once: the whole table up to
+    STAGE_MAX (192 KB of dynamic shared memory)."""
+    return max(1, min(num_real, STAGE_MAX))
+
+
+def smem_bytes(stage: int) -> int:
+    """Dynamic shared memory of one block: the rays' o and d, then the
+    staged triangles in the same bytes."""
+    return max(6 * 4 * BLOCK_RAYS, 48 * stage)
+
+
+def ray_slots(n: int) -> torch.Tensor:
+    """(blocks, RAYS_PER_THREAD, BLOCK_THREADS) i64: the ray that thread
+    t of block b carries in its slot r, -1 past n. Each slot of a warp
+    holds 32 consecutive rays (coalesced t_max loads and stores)."""
+    blocks = -(-n // BLOCK_RAYS)
+    ids = torch.arange(blocks * BLOCK_RAYS).reshape(
+        blocks, RAYS_PER_THREAD, BLOCK_THREADS)
+    return torch.where(ids < n, ids, -1)
 
 
 def _launch(o, d, tri_v0, tri_e1, tri_e2, tm, num_real: int,
@@ -39,15 +101,16 @@ def _launch(o, d, tri_v0, tri_e1, tri_e2, tm, num_real: int,
             raise ValueError(f"intersect_pallas: {name} has shape {tuple(a.shape)}")
     if not 0 <= num_real <= t_count:
         raise ValueError(f"intersect_pallas: num_real {num_real} not in [0, {t_count}]")
+    tris = packed_triangles(tri_v0, tri_e1, tri_e2, num_real)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     tri_out = torch.empty(n, dtype=torch.int32, device=dev)
     u_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
     P = cuda_lib.ptr
     cuda_lib.INTERSECT_BRUTEFORCE(
-        P(o), P(d), P(tm), P(tri_v0), P(tri_e1), P(tri_e2),
-        n, num_real, int(any_hit),
-        P(t_out), P(tri_out), P(u_out), P(v_out), cuda_lib.stream_ptr(dev),
+        P(o), P(d), P(tm), P(tris), n, num_real, stage_triangles(num_real),
+        int(any_hit), P(t_out), P(tri_out), P(u_out), P(v_out),
+        cuda_lib.stream_ptr(dev),
     )
     return Hit(t=t_out, tri=tri_out, u=u_out, v=v_out)
 

@@ -18,6 +18,10 @@ count:
    block's loads are coalesced);
 3. K3 walks each tile's segment in id order with the full scan's
    arithmetic, so the result equals `ops/raster.rasterize` bit for bit.
+   Its unit of work is a 16x16 sub-tile (`SUB_TILE`), walked by one
+   warp, longest segments first; a warp passes over the candidates
+   whose skip box (`skip_boxes`) lies beyond its sub-tile's pixel
+   centres (`subtile_skip` gives that decision on tensors).
 
 Overflow fires only on the three static selection bounds: more than
 `mid_max` mid-size triangles, more than `huge_max` huge ones, or more
@@ -38,6 +42,7 @@ from .raster import (
     ROW_WIDTH,
     FragmentBuffer,
     chunk_step,
+    edge,
     empty_planes,
     pack_candidates,
     resolve,
@@ -46,9 +51,17 @@ from .raster import (
     tile_span,
     untile,
     _BLOCK_ELEMS,
+    _SGN,
+    _X0,
+    _X1,
+    _X2,
+    _Y0,
+    _Y1,
+    _Y2,
 )
 
 CAND_CHUNK = 128          # candidates per step (kernel: per shared-memory stage)
+SUB_TILE = 16             # K3's unit of work: a SUB_TILE x SUB_TILE sub-tile
 _ID_BITS = 20             # fused key layout: cell << 20 | triangle id
 _ID_MASK = (1 << _ID_BITS) - 1
 _MID_SPAN = 8             # mid class covers <= 8x8 tiles (64 copies)
@@ -206,6 +219,74 @@ def raster_segments_plain(starts, data, tw: int, tile: int):
     return planes
 
 
+# csrc/raster_tiled.cu `skip_box`: a candidate is skipped only where its
+# box, widened by W * 2^-9 + 1 (W its larger extent), misses a
+# sub-tile's pixel centres, and only where the margin provably covers
+# the rounding of the edge functions: sign +-1 agreeing with the area,
+# no sliver (|area| >= 2^-10 W^2), 2^-16 <= W, corners within 2^22.
+_MAX_COORD = 2.0 ** 22
+_MIN_EXTENT = 2.0 ** -16
+_SLIVER = 2.0 ** -10
+_MARGIN_SCALE = 2.0 ** -9
+
+
+def skip_boxes(data: torch.Tensor) -> torch.Tensor:
+    """(N, 4) f32 skip boxes (x_lo, x_hi, y_lo, y_hi) of the table's
+    rows, as K3 computes them when it stages a chunk: infinite where
+    the skip is not proven safe (slivers, NaN or infinite corners)."""
+    x = data[:, [_X0, _X1, _X2]]
+    y = data[:, [_Y0, _Y1, _Y2]]
+    # fminf / fmaxf: NaN corners are dropped (the area catches them)
+    xmin = torch.fmin(torch.fmin(x[:, 0], x[:, 1]), x[:, 2])
+    xmax = torch.fmax(torch.fmax(x[:, 0], x[:, 1]), x[:, 2])
+    ymin = torch.fmin(torch.fmin(y[:, 0], y[:, 1]), y[:, 2])
+    ymax = torch.fmax(torch.fmax(y[:, 0], y[:, 1]), y[:, 2])
+    w = torch.fmax(xmax - xmin, ymax - ymin)
+    area = edge(x[:, 1] - x[:, 0], y[:, 1] - y[:, 0],
+                x[:, 2] - x[:, 0], y[:, 2] - y[:, 0])
+    sgn = data[:, _SGN]
+    ok = (((sgn == 1.0) | (sgn == -1.0))
+          & (xmin >= -_MAX_COORD) & (xmax <= _MAX_COORD)
+          & (ymin >= -_MAX_COORD) & (ymax <= _MAX_COORD)
+          & (w >= _MIN_EXTENT) & (sgn * area >= (w * w) * _SLIVER))
+    m = w * _MARGIN_SCALE + 1.0
+    inf = torch.full_like(w, torch.inf)
+    return torch.stack([torch.where(ok, xmin - m, -inf),
+                        torch.where(ok, xmax + m, inf),
+                        torch.where(ok, ymin - m, -inf),
+                        torch.where(ok, ymax + m, inf)], dim=1)
+
+
+def subtile_origins(n_tiles: int, tw: int, tile: int, device):
+    """(n_tiles, (tile / SUB_TILE)^2) x and y of each sub-tile's first
+    pixel, in K3's unit order within a tile (row-major)."""
+    spt = tile // SUB_TILE
+    t = torch.arange(n_tiles, device=device)[:, None]
+    s = torch.arange(spt * spt, device=device)[None]
+    return t % tw * tile + s % spt * SUB_TILE, t // tw * tile + s // spt * SUB_TILE
+
+
+def subtile_skip(starts, data, tw: int, tile: int) -> torch.Tensor:
+    """K3's decision for every (table row, sub-tile of the row's tile):
+    (N, (tile / SUB_TILE)^2) bool, True where the warp of that sub-tile
+    passes over the row. Rows outside every segment are never walked
+    and read True."""
+    n_tiles = starts.shape[0] - 1
+    rows = torch.arange(data.shape[0], device=data.device)
+    tile_of = torch.searchsorted(starts.long(), rows, right=True) - 1
+    walked = (tile_of >= 0) & (tile_of < n_tiles) & (rows < starts[-1])
+    tile_of = torch.clamp(tile_of, 0, max(n_tiles - 1, 0))
+    sx, sy = subtile_origins(n_tiles, tw, tile, data.device)
+    sx, sy = sx[tile_of], sy[tile_of]
+    cx0 = sx.to(torch.float32) + 0.5
+    cx1 = (sx + SUB_TILE - 1).to(torch.float32) + 0.5
+    cy0 = sy.to(torch.float32) + 0.5
+    cy1 = (sy + SUB_TILE - 1).to(torch.float32) + 0.5
+    b = skip_boxes(data)[:, :, None]
+    skip = (b[:, 1] < cx0) | (b[:, 0] > cx1) | (b[:, 3] < cy0) | (b[:, 2] > cy1)
+    return skip | ~walked[:, None]
+
+
 def _launch(starts, data, tw: int, tile: int):
     dev = data.device
     n_tiles = starts.shape[0] - 1
@@ -215,7 +296,9 @@ def _launch(starts, data, tw: int, tile: int):
     )
     if data.dim() != 2 or data.shape[1] != ROW_WIDTH:
         raise ValueError(f"raster_tiled: data has shape {tuple(data.shape)}")
-    if n_tiles < 0 or tile <= 0 or tw <= 0:
+    if data.data_ptr() % 16:
+        raise ValueError("raster_tiled: data is not 16-byte aligned")
+    if n_tiles < 0 or tile <= 0 or tw <= 0 or tile % SUB_TILE:
         raise ValueError("raster_tiled: bad tile layout")
     n_pix = tile * tile
     depth = torch.empty((n_tiles, n_pix), dtype=torch.float32, device=dev)
@@ -223,10 +306,12 @@ def _launch(starts, data, tw: int, tile: int):
     uw = torch.empty_like(depth)
     vw = torch.empty_like(depth)
     iw = torch.empty_like(depth)
+    order = torch.empty(max(n_tiles, 1) + 1, dtype=torch.int32, device=dev)
     P = cuda_lib.ptr
     cuda_lib.RASTER_TILED(
         P(starts), P(data), n_tiles, tw, tile,
-        P(depth), P(tri), P(uw), P(vw), P(iw), cuda_lib.stream_ptr(dev),
+        P(depth), P(tri), P(uw), P(vw), P(iw), P(order[1:]), P(order),
+        cuda_lib.stream_ptr(dev),
     )
     return depth, tri, uw, vw, iw
 

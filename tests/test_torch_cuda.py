@@ -8,6 +8,7 @@ without JAX, where tests/conftest.py cannot load:
 """
 
 import os
+import sys
 import types
 
 import numpy as np
@@ -30,6 +31,10 @@ from hala_tpu_torch.scene.procedural import cornell_box, random_triangle_soup
 
 HERE = os.path.dirname(__file__)
 pytestmark = pytest.mark.cuda
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(HERE)))
+
+import chip_smoke  # noqa: E402  (the skip-breaking raster table)
 
 
 @pytest.fixture
@@ -112,9 +117,8 @@ def test_cornell_golden_on_card(cuda_device):
 @pytest.mark.parametrize("tile", [16, 32, 64, 128])
 def test_k3_kernel_matches_plain(cuda_device, tile):
     """K3 against its plain version, bit for bit, on atrium.glb's
-    triangles from its first camera: tiles 16, 32 and 64 take the 1-,
-    4- and 16-pixels-a-thread instantiations, tile 128 walks its
-    segment in four pixel passes."""
+    triangles from its first camera: at tile 16 a unit is the tile,
+    tiles 32, 64 and 128 hold 4, 16 and 64 sub-tiles of 16x16."""
     from hala_tpu_torch.models.rz_renderer import RasterSettings, _raster_setup
 
     scene = SceneUploader.upload(
@@ -130,6 +134,94 @@ def test_k3_kernel_matches_plain(cuda_device, tile):
     for a, b in zip(got, ref):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert float(seg.over) == 0.0 and int(seg.n_real) > 0
+
+
+@pytest.mark.parametrize("tile", [16, 32, 64, 128])
+def test_k3_skip_breaking_table_matches_plain(cuda_device, tile):
+    """K3 against its plain version, bit for bit, on chip_smoke.py's
+    table built to break the sub-tile skip: slivers along sub-tile
+    borders that the rounded edge functions accept outside their boxes,
+    huge triangles, NaN and infinite corners, and at tiles 64 and 128 a
+    tile of more than 5000 candidates."""
+    arrays = chip_smoke.skip_breaking_triangles(256, 5200, 21)
+    tris = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    seg = k3.build_segments(*tris, 256, 256, tile, huge_max=1024)
+    before = cuda_lib.RASTER_TILED.launches
+    got = k3.raster_segments(seg.starts, seg.data, seg.tw, seg.tile)
+    ref = k3.raster_segments_plain(seg.starts, seg.data, seg.tw, seg.tile)
+    torch.cuda.synchronize()
+    assert cuda_lib.RASTER_TILED.launches == before + 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    longest = int((seg.starts[1:] - seg.starts[:-1]).max())
+    assert float(seg.over) == 0.0 and (tile < 64 or longest > 5000)
+
+
+def test_k3_nan_depth_cancels_its_chunk(cuda_device):
+    """A triangle with an infinite corner covers pixels with NaN depth;
+    like the plain version, K3 then keeps the carried winner there for
+    that chunk (tests/test_torch_raster_skip.py)."""
+    scr = torch.tensor([[[np.inf, 5.0], [0.0, 0.0], [0.0, 10.0]],
+                        [[0.0, 0.0], [16.0, 0.0], [0.0, 16.0]]], device=cuda_device)
+    seg = k3.build_segments(scr, torch.tensor([[0.5] * 3, [0.3] * 3], device=cuda_device),
+                            torch.ones(2, 3, device=cuda_device),
+                            torch.ones(2, dtype=torch.bool, device=cuda_device), 16, 16, 16)
+    got = k3.raster_segments(seg.starts, seg.data, seg.tw, seg.tile)
+    ref = k3.raster_segments_plain(seg.starts, seg.data, seg.tw, seg.tile)
+    torch.cuda.synchronize()
+    for a, b in zip(got, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert (got[1].reshape(16, 16)[5:10, :4] == -1).all()
+
+
+def _k1_soup(n_tris, n_rays, seed, dev):
+    """n_tris random triangles in [-1, 1]^3 (slot 2000 a copy of slot
+    1000) and n_rays rays: a tenth aimed at slot 1000's centroid, the
+    rest random; t_max unbounded, bounded, exactly 1e-4, 0 and NaN."""
+    rs = np.random.RandomState(seed)
+    v0 = rs.uniform(-1, 1, (n_tris, 3))
+    e1 = rs.uniform(-0.08, 0.08, (n_tris, 3))
+    e2 = rs.uniform(-0.08, 0.08, (n_tris, 3))
+    for a in (v0, e1, e2):
+        a[2000] = a[1000]
+    o = rs.uniform(-1.2, 1.2, (n_rays, 3))
+    d = rs.normal(size=(n_rays, 3))
+    aim = slice(0, n_rays // 10)
+    d[aim] = v0[1000] + (e1[1000] + e2[1000]) / 3 - o[aim]
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tm = np.full(n_rays, 3.0e38)
+    tm[7::31] = rs.uniform(0.1, 2.0, len(tm[7::31]))
+    tm[5::29] = 1e-4
+    tm[::17] = 0.0
+    tm[11::97] = np.nan
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (o, d, tm, v0, e1, e2)]
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("case", ["4096", "num_real_below", "two_stages"])
+def test_k1_soup_matches_plain(cuda_device, case, any_hit):
+    """K1 against its plain version, bit for bit, at the top of "auto"'s
+    brute-force range: 4096 triangles staged whole, 4000 real of 4096,
+    and 6000 (two stages); a ragged ray count, dead rays, and a
+    duplicated triangle whose copy must lose the equal-t tie."""
+    n_tris = 6000 if case == "two_stages" else 4096
+    num_real = 4000 if case == "num_real_below" else n_tris
+    o, d, tm, v0, e1, e2 = _k1_soup(n_tris, 70_000 + 37, 9, cuda_device)
+    before = cuda_lib.INTERSECT_BRUTEFORCE.launches
+    if any_hit:
+        got = k1.occluded_pallas(o, d, tm, v0, e1, e2, num_real=num_real)
+        ref = k1.occluded_pallas_plain(o, d, tm, v0, e1, e2, num_real=num_real)
+        assert torch.equal(got, ref) and 0 < int(got.sum()) < got.numel()
+    else:
+        got = k1.intersect_pallas(o, d, v0, e1, e2, t_max=tm, num_real=num_real)
+        ref = k1.intersect_pallas_plain(o, d, v0, e1, e2, t_max=tm, num_real=num_real)
+        for a, b in zip(got, ref):
+            if a.dtype.is_floating_point:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
+        assert int((got.tri == 1000).sum()) > 100 and not (got.tri == 2000).any()
+        assert int((got.tri >= num_real).sum()) == 0
+    assert cuda_lib.INTERSECT_BRUTEFORCE.launches == before + 1
 
 
 @pytest.fixture(scope="module")

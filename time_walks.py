@@ -24,7 +24,17 @@ sorted 2^21 rays. `--profile` adds, for atrium_big at 1920x1088 (depth
 "traverse" (K4, K5, K6) and "wavefront" (K4, K7, K2 as the fallback),
 and for the five instances through "auto" ("traverse"), the time of
 two frames after a warm-up frame and a torch.profiler window over one
-more. Prints one JSON line; exits 2 without CUDA.
+more.
+
+`--k1k3` times the brute-force kernel K1 (csrc/intersect_bruteforce.cu)
+and the raster kernel K3 (csrc/raster_tiled.cu) of the checkout
+instead: K1 closest and any-hit on chip_smoke's Cornell batch (524,288
+mixed rays, 34 triangles) and on a 4096-triangle `random_triangle_soup`
+with 524,288 live rays; K3 at the raster bench shape (atrium_big,
+1920x1088, tile 64, bench camera) and on chip_smoke's skip-breaking
+table; then the raster_atrium frame (RasterizationRenderer with the
+ACES post pass, 10 frames after a warm-up). Prints one JSON line;
+exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -48,11 +58,62 @@ def smoke_helpers():
     return mod
 
 
+def time_k1_k3(S, host, dev, reps: int) -> dict:
+    """K1 and K3 of the checkout on chip_smoke's inputs, and the
+    raster_atrium frame."""
+    import torch
+
+    from hala_tpu_torch.models.rz_renderer import RasterizationRenderer
+    from hala_tpu_torch.ops import raster_kernel as k3
+    from hala_tpu_torch.ops.pallas import intersect_kernel as k1
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+    from hala_tpu_torch.scene.procedural import cornell_box, random_triangle_soup
+
+    out = {}
+    n = 2 * 512 * 512
+    for label, scene_host in (("cornell", cornell_box()),
+                              ("soup4096", random_triangle_soup(4096, seed=4))):
+        sc = SceneUploader.upload(scene_host, device=dev)
+        g = sc.geometry
+        if label == "cornell":
+            side = int((n // 2) ** 0.5)
+            o, d, tm = S.mixed_batch(sc, side, side, n - side * side, 11)
+        else:
+            o, d = S.random_rays(sc, n, 12)
+            tm = torch.full((o.shape[0],), 3.0e38, device=dev)
+        tris = (g.tri_v0, g.tri_e1, g.tri_e2)
+        k = g.num_triangles
+        out[f"k1_{label}_ms"] = S.cuda_ms(lambda: k1.intersect_pallas(
+            o, d, *tris, t_max=tm, num_real=k), reps)
+        out[f"k1_{label}_anyhit_ms"] = S.cuda_ms(lambda: k1.occluded_pallas(
+            o, d, tm, *tris, num_real=k), reps)
+    scene = SceneUploader.upload(host, device=dev)
+    tile = 64
+    tris = S.raster_inputs(scene, 1920, 1088, tile)
+    seg = k3.build_segments(*tris, 1920, 1088, tile)
+    out["k3_bench_ms"] = S.cuda_ms(lambda: k3.raster_segments(
+        seg.starts, seg.data, seg.tw, seg.tile), reps)
+    arrays = S.skip_breaking_triangles(256, 5200, 21)
+    seg2 = k3.build_segments(*(torch.from_numpy(a).to(dev) for a in arrays),
+                             256, 256, tile)
+    out["k3_skip_table_ms"] = S.cuda_ms(lambda: k3.raster_segments(
+        seg2.starts, seg2.data, seg2.tw, seg2.tile), reps)
+    r = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=tile,
+                              post_program=S.post_program(), device="cuda")
+    r.set_scene(host)
+    out["raster_atrium"] = S.run_raster(r, "raster_atrium", "")
+    S.log("  " + ", ".join(f"{key} {v:.4f}" for key, v in out.items()
+                           if isinstance(v, float))
+          + f", raster_atrium {out['raster_atrium']['ms_per_frame']:.3f} ms/frame")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--k1k3", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -76,6 +137,11 @@ def main() -> int:
     cuda_lib.build()
     dev = torch.device("cuda", 0)
     host = Scene.load(os.path.join(HERE, "assets", "atrium_big.glb"))
+    if args.k1k3:
+        out = time_k1_k3(S, host, dev, args.reps)
+        out.update(root=root, card=card, build_s=cuda_lib.build_seconds)
+        print(json.dumps(out), flush=True)
+        return 0
     scene = SceneUploader.upload(host, device=dev)
     x5_host, x5_scene, _, _ = S.upload_instances(host, dev)
     own = root == HERE
