@@ -39,12 +39,19 @@ Phases, in order; any failure raises and exits non-zero:
      and K6 (the fallback) against their plain versions bit for bit at
      2^21 rays, timed, with the cost of the superchunk merge; the grouped walk (K8) and
      the wavefront walk (K7) against their plain versions, bit for bit,
-     closest and any-hit, on 65,536 coherence-sorted mixed rays at tight
-     caps (k_cap 2; k_per_ray 3, m_group 8: lists truncate, the fallback
-     runs) and at the defaults, both engines there against K2's
-     canonical hits, and again at 2^21 sorted rays (timed there, with
-     the walked and tested entries per group and the share of rays sent
-     to the fallback) — then the golden renders (path tracer, with the
+     closest and any-hit, on a table built to break their span mask
+     (`span_breaking_walls`), on 65,536 coherence-sorted mixed rays at
+     tight caps (k_cap 2; k_per_ray 3, m_group 8: lists truncate, the
+     fallback runs) and at the defaults, both engines there against
+     K2's canonical hits, and again at 2^21 sorted rays (timed there,
+     with the walked and tested entries per group, the span pairs each
+     ray enters and the spans some lane of each warp enters, the bound
+     from them and the old one, and the share of rays sent to the
+     fallback); K2 and K6 on `grazing_beside_span` (an open fault:
+     their row-9 pretest drops grazing hits that K1 and their plain
+     version accept; K2 is held to its schedule model and K1 to its
+     plain version bit for bit, the dropped hits are counted, not
+     failed on) — then the golden renders (path tracer, with the
      environment-map golden, and rasterizer) held against
      tests/fixtures (RMSE < 1e-3);
   4. Cornell 512x512, depth 4, 16 frames through RayTracingRenderer
@@ -130,10 +137,13 @@ OPS_RASTER_EDGE = 18
 OPS_RASTER_INSIDE = 8
 OPS_CULL = 26
 # the factored Moller-Trumbore of csrc/mm_chunk_test.cuh per (ray, slot)
-# pair: the 19 products of the four sums (18 multiplies and the
-# subtraction of c0), 13 more adds and 2 negations, then the epilogue
-# (3 sign products, the reciprocal, t, us + vs, 6 compares)
-OPS_MM = 48
+# pair: on every pair the division-free test, det (3 products, 2 adds,
+# the negation), u_num and v_num (6 products, 5 adds each, and v_num's
+# negation), the sign select of the three (4) and us + vs with its 4
+# compares; only where that passes t_num (3 products, 3 adds), the
+# reciprocal, t and the 2 range compares
+OPS_MM_REJECT = 38
+OPS_MM_PASS = 10
 TRAVERSE_K = 12  # RenderSettings.traverse_k, the main path's K
 # copies of atrium_big side by side: the scene "auto" sends to K4-K6
 INSTANCES = 5
@@ -987,21 +997,47 @@ def anyhit_equal(name: str, occ, ref, a, b) -> None:
 
 class TestedPairs:
     """Counts what the walks' plain versions test: for every (group,
-    entry) they hand to `mm_chunk_test_plain`, the group's live rays
-    (t_max > 1e-4; the kernels' lanes return before the first product
-    otherwise) times the cluster's real triangles. The kernels walk and
-    test the same entries (their counts are held equal), so this is the
-    work the function needs on these inputs."""
+    entry) they hand to `mm_chunk_test_plain`, with its span mask
+    (`mm_span_mask`; live rays only, t_max > 1e-4, as the kernels' lanes
+    do no work otherwise):
+      - pairs: live rays x the cluster's real triangles, every pair the
+        walks tested before the span mask (the old bound's count);
+      - span_pairs: live ray x real triangle in the spans the ray's mask
+        lets in, the work the function needs (the bound's count, with
+        slab_tests: 8 span boxes per live ray and tested entry), and of
+        them passed_pairs, those that pass the division-free test
+        (`mm_barycentric_pass`), which alone need t and the range test;
+      - ray_spans: (ray, span) pairs let in; warp_spans: (warp, span)
+        pairs some lane of the warp lets in, which the kernels run, 32
+        lanes x 16 slots each; all_warp_spans: every (warp, span) pair
+        of the tested entries.
+    The kernels walk and test the same entries with the same masks
+    (their outputs are held equal), so these are their counts too."""
 
-    def __init__(self, module, real):
-        self.module, self.real, self.pairs = module, real, 0
+    def __init__(self, module, real_spans):
+        self.module, self.real = module, real_spans
+        self.pairs = self.span_pairs = self.passed_pairs = self.slab_tests = 0
+        self.ray_spans = self.warp_spans = self.all_warp_spans = 0
 
     def __enter__(self):
         self.inner = self.module.mm_chunk_test_plain
+        module = self.module
 
-        def counted(coef, cc, cid, o, d, tm, any_hit):
-            self.pairs += int(((tm > 1e-4).sum(dim=1) * self.real[cid]).sum())
-            return self.inner(coef, cc, cid, o, d, tm, any_hit)
+        def counted(coef, cc, cid, o, d, tm, any_hit, span):
+            real = self.real[cid]  # (R, 8)
+            live = tm > 1e-4
+            self.pairs += int((live.sum(dim=1) * real.sum(dim=1)).sum())
+            self.span_pairs += int((span.long() * real[:, None, :]).sum())
+            det, un, vn, _ = module.mm_terms(coef, cc, o, d)
+            passed = module.mm_barycentric_pass(det, un, vn)
+            self.passed_pairs += int((passed & span.repeat_interleave(16, dim=2)).sum())
+            del det, un, vn, passed
+            self.slab_tests += 8 * int(live.sum())
+            self.ray_spans += int(span.sum())
+            warps = span.view(span.shape[0], -1, 32, span.shape[2]).any(dim=2)
+            self.warp_spans += int(warps.sum())
+            self.all_warp_spans += warps.numel()
+            return self.inner(coef, cc, cid, o, d, tm, any_hit, span)
 
         self.module.mm_chunk_test_plain = counted
         return self
@@ -1009,15 +1045,314 @@ class TestedPairs:
     def __exit__(self, *exc):
         self.module.mm_chunk_test_plain = self.inner
 
+    def bounds(self, nbytes):
+        """(bound ms, bound by, old bound ms): every span pair at
+        OPS_MM_REJECT, the passed pairs OPS_MM_PASS more, and the span
+        slab tests at OPS_SLAB; the old bound every live ray x real
+        triangle pair of the tested entries at the whole test's
+        OPS_MM_REJECT + OPS_MM_PASS."""
+        ops = (self.span_pairs * OPS_MM_REJECT + self.passed_pairs * OPS_MM_PASS
+               + self.slab_tests * OPS_SLAB)
+        b_ms, b_by = bound(ops, nbytes)
+        return b_ms, b_by, bound(self.pairs * (OPS_MM_REJECT + OPS_MM_PASS), nbytes)[0]
+
+    def record(self):
+        return dict(tested_pairs=self.pairs, span_pairs=self.span_pairs,
+                    passed_pairs=self.passed_pairs,
+                    slab_tests=self.slab_tests, ray_spans=self.ray_spans,
+                    warp_spans=self.warp_spans, all_warp_spans=self.all_warp_spans,
+                    warp_span_fill=self.warp_spans / max(self.all_warp_spans, 1),
+                    lane_fill=self.ray_spans / max(32 * self.warp_spans, 1))
+
+    def describe(self):
+        r = self.record()
+        return (f"{r['span_pairs']} live ray x real triangle pairs in the spans the "
+                f"rays enter ({r['passed_pairs']} pass the division-free test; "
+                f"{r['tested_pairs']} in the tested entries), "
+                f"{r['ray_spans']} (ray, span) pairs in {r['warp_spans']} warp "
+                f"spans of {r['all_warp_spans']} (per-warp span fill "
+                f"{r['warp_span_fill']:.3f}, lane fill {r['lane_fill']:.3f})")
+
+
+def real_spans(tri_packed):
+    """(C, 8) int: the real triangles (a nonzero edge) of each 16-slot
+    span."""
+    c = tri_packed.shape[0]
+    e = tri_packed[:, 3:9]
+    return (e != 0).any(dim=1).view(c, 8, 16).sum(dim=2)
+
+
+def span_breaking_walls(seed: int):
+    """A table built to break the span mask of K7 and K8
+    (csrc/mm_chunk_test.cuh), as numpy float32 arrays (tri_packed
+    (5, 16, 128), cluster_min, cluster_max (5, 3), o, d (1024, 3),
+    t_max (1024,)), the rays in the order the walks take them:
+      - cluster 0 a wall at x = 2 in 8 strips (one per span, zero-
+        thickness span boxes sharing their edges), cluster 1 a floor at
+        y = -1.5 filling spans 0, 2, 4, 6, cluster 2 a wall at z = 1.25
+        filling spans 1, 3, 5, 7 (the others empty, far v0 as the
+        uploader pads), cluster 3 96 small triangles 60 units away,
+        cluster 4 one triangle in slot 127, a padding slot in span 0 and
+        a real zero-area triangle in span 3;
+      - groups 0-3: rays from a unit box of origins at the corners, edge
+        midpoints and centres of every span box, every other one moved
+        by a relative 1e-6, every fifth with t_max 1.5;
+      - group 4: axis-aligned rays along the strips' borders, and rays
+        lying in the plane of a wall;
+      - groups 5-6: warps in which exactly one lane (a different one in
+        each warp) enters a span, the others live but short (t_max 0.3);
+      - group 7: rays at span corners, a third dead (t_max 0), a third
+        resolved (t_max -inf)."""
+    rs = np.random.RandomState(seed)
+    blk = np.zeros((5, 16, 128), np.float32)
+
+    def put(c, slot, a, b, e):
+        a, b, e = (np.asarray(x, np.float32) for x in (a, b, e))
+        blk[c, 0:3, slot] = a
+        blk[c, 3:6, slot] = b - a
+        blk[c, 6:9, slot] = e - a
+
+    def wall(c, spans, axis, w, u_rng, v_rng):
+        ua, va = [a for a in range(3) if a != axis]
+        du, dv = (u_rng[1] - u_rng[0]) / 8, (v_rng[1] - v_rng[0]) / 8
+
+        def pt(u, v):
+            p = np.zeros(3)
+            p[axis], p[ua], p[va] = w, u, v
+            return p
+
+        for s in spans:
+            for q in range(8):
+                u0, v0 = u_rng[0] + s * du, v_rng[0] + q * dv
+                p00, p10 = pt(u0, v0), pt(u0 + du, v0)
+                p01, p11 = pt(u0, v0 + dv), pt(u0 + du, v0 + dv)
+                put(c, 16 * s + 2 * q, p00, p10, p11)
+                put(c, 16 * s + 2 * q + 1, p00, p11, p01)
+
+    blk[2, 0:3] = 3.0e37
+    wall(0, range(8), 0, 2.0, (-1.0, 1.0), (-1.0, 1.0))
+    wall(1, (0, 2, 4, 6), 1, -1.5, (0.0, 4.0), (-1.0, 1.0))
+    wall(2, (1, 3, 5, 7), 2, 1.25, (0.0, 4.0), (-1.5, 1.0))
+    for slot in range(96):
+        a = np.array([60.0, 0.3, -0.2]) + rs.uniform(-1, 1, 3)
+        put(3, slot, a, a + rs.normal(size=3) * 1e-2, a + rs.normal(size=3) * 1e-2)
+    put(4, 127, (3.0, -0.2, -0.2), (3.0, 0.2, -0.2), (3.0, -0.2, 0.2))
+    blk[4, 0:3, 5] = 5.0e3
+    put(4, 50, (3.5, 0.0, 0.0), (3.5, 0.1, 0.0), (3.5, 0.1, 0.0))
+
+    v0, e1, e2 = blk[:, 0:3], blk[:, 3:6], blk[:, 6:9]
+    real = ((e1 != 0) | (e2 != 0)).any(axis=1)[:, None, :]
+    lo = np.where(real, np.minimum(np.minimum(v0, v0 + e1), v0 + e2), np.inf)
+    hi = np.where(real, np.maximum(np.maximum(v0, v0 + e1), v0 + e2), -np.inf)
+    cmin, cmax = lo.min(axis=2), hi.max(axis=2)
+    targets, centres = [], []
+    for c in range(5):
+        for s in range(8):
+            slo, shi = lo[c, :, 16 * s:16 * s + 16].min(1), hi[c, :, 16 * s:16 * s + 16].max(1)
+            if not np.isfinite(slo).all():
+                continue
+            mid = 0.5 * (slo + shi)
+            centres.append(mid)
+            for corner in range(27):  # corners, edge and face midpoints, centre
+                sel = [corner // 9, corner // 3 % 3, corner % 3]
+                targets.append(np.array([(slo, mid, shi)[sel[a]][a] for a in range(3)]))
+    targets = np.array(targets)[rs.permutation(len(targets))]
+    n = 1024
+    o = np.array([0.5, 0.0, -0.25]) + rs.uniform(-0.5, 0.5, (n, 3))
+    tgt = targets[np.arange(n) % len(targets)].copy()
+    tgt[1::2] *= 1.0 + 1e-6 * rs.normal(size=(n // 2, 3))
+    tm = np.full(n, 3.0e38)
+    tm[0:512:5] = 1.5
+    # group 4: along the strips' borders, and in a wall's plane
+    g4 = slice(512, 640)
+    grid = np.linspace(-1.0, 1.0, 9)
+    yz = np.array([(y, z) for y in grid for z in grid])
+    o[512:593] = np.column_stack([np.zeros(81), yz])
+    tgt[512:593] = o[512:593] + np.array([1.0, 0.0, 0.0])
+    xs = np.linspace(0.0, 4.0, 9)
+    xz = np.array([(x, z) for x in xs for z in (-1.0, -0.5, 0.0, 0.5, 1.0)])[:40]
+    o[593:633] = np.column_stack([xz[:, 0], np.zeros(40), xz[:, 1]])
+    tgt[593:633] = o[593:633] + np.array([0.0, -1.0, 0.0])
+    o[633:640] = np.column_stack([np.full(7, 2.0), np.linspace(-0.9, 0.9, 7), np.full(7, 0.3)])
+    tgt[633:640] = o[633:640] + np.array([0.0, 1.0, 0.0])
+    tm[g4] = 3.0e38
+    # groups 5-6: one lane a warp enters a span
+    o[640:896] = np.array([0.5, 0.0, -0.25]) + rs.uniform(-0.5, 0.5, (256, 3))
+    tgt[640:896] = o[640:896] + rs.normal(size=(256, 3))
+    tm[640:896] = 0.3
+    for w, lane in enumerate((0, 31, 5, 17, 9, 26, 13, 22)):
+        i = 640 + 32 * w + lane
+        tgt[i] = centres[(3 * w) % len(centres)]
+        tm[i] = 3.0e38
+    # group 7: dead and resolved rays among live ones
+    tm[896::3] = 0.0
+    tm[897::3] = -np.inf
+    d = tgt - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    f32 = np.float32
+    return (blk, cmin.astype(f32), cmax.astype(f32), o.astype(f32), d.astype(f32),
+            tm.astype(f32))
+
+
+def span_table_cases(dev):
+    """The walks' inputs on `span_breaking_walls`, for K8 (k_cap 2 and 5)
+    and K7 (k 2 and 5, m 8; the lists merged in the table's ray order,
+    without the signature sort), each closest and any-hit: a list of
+    (label, kernel, plain version, arguments, output labels)."""
+    import torch
+
+    from hala_tpu_torch.ops import cull
+    from hala_tpu_torch.ops import traverse as k8
+    from hala_tpu_torch.ops import wavefront as k7
+
+    blk, cmin, cmax, o, d, tm = (torch.from_numpy(a).to(dev)
+                                 for a in span_breaking_walls(41))
+    c = cmin.shape[0]
+    g_total = o.shape[0] // k8.GROUP
+    cases = []
+    for k_cap in (2, 5):
+        ids, tns, usz = k8._group_candidates(o, d, tm, cmin, cmax, k_cap)
+        args = (o, d, tm, torch.clamp(usz, max=k_cap),
+                torch.clamp(ids, max=c - 1).contiguous(), tns.view(torch.int32),
+                blk, cmin, cmax)
+        for any_hit in (False, True):
+            cases.append((f"K8 span table k_cap={k_cap} any_hit={any_hit}",
+                          k8.grouped_walk, k8.grouped_walk_plain, args + (any_hit,),
+                          ("t", "tri", "u", "v", "walked")))
+    for k in (2, 5):
+        pk, _ = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
+        tnb, _ = k7._group_lists(pk, g_total, k, 8)
+        args = (o, d, tm, tnb, k7.pack_want(k7.want_mask(tnb, pk, k)),
+                k7.own_last_key(pk), blk, cmin, cmax)
+        for any_hit in (False, True):
+            cases.append((f"K7 span table k={k} m=8 any_hit={any_hit}",
+                          k7.wavefront_walk, k7.wavefront_walk_plain, args + (any_hit,),
+                          ("t", "tri", "u", "v", "stats")))
+    return cases
+
+
+def check_span_table(dev):
+    """K8 and K7 against their plain versions, bit for bit, on
+    `span_breaking_walls`, with the table's span counts."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k8
+
+    out = {}
+    for label, kernel, plain, args, labels in span_table_cases(dev):
+        got = kernel(*args)
+        with TestedPairs(k8, real_spans(args[6])) as work:
+            ref = plain(*args)
+        torch.cuda.synchronize()
+        equal_tensors(label, got, ref, labels)
+        hits = int((got[1] >= 0).sum())
+        out[label] = dict(work.record(), hits=hits)
+        log(f"  {label}: equal bit for bit, {hits} rays hit; {work.describe()}")
+    return out
+
+
+def grazing_beside_span(seed: int, n: int = 1024):
+    """One cluster whose span 0 holds a unit triangle near (1000, 1000,
+    0) and span 1 a larger triangle 1 below it, and n rays within ~1e-5
+    rad of the first triangle's plane, crossing it 0.5 to 2 widths beside
+    its edge e1 (tests/test_torch_mm_span.py `_grazing_case`), all turned
+    by one random rotation. The second triangle widens the cluster's box
+    over the rays' path, so they enter it but not span 0's padded box.
+    Returns (geometry on the CPU, o, d, t_max)."""
+    import types
+
+    import torch
+
+    from hala_tpu_torch.ops.cluster import with_pretest_row
+
+    rs = np.random.RandomState(seed)
+    v0 = np.array([1000.0, 1000.0, 0.0])
+    far = rs.uniform(500, 2000, n)
+    h = far * rs.uniform(0.3e-5, 3e-5, n)
+    o = np.stack([v0[0] + rs.uniform(0.1, 0.9, n) - far,
+                  v0[1] - rs.uniform(0.5, 2.0, n), h], 1)
+    d = np.stack([far, np.zeros(n), -h], 1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    q, _ = np.linalg.qr(rs.normal(size=(3, 3)))
+    blk = np.zeros((1, 16, 128), np.float32)
+    blk[0, 0:3, :] = 3.0e37  # padding slots: far v0, zero edges
+    for slot, w0, e1, e2 in ((0, v0, (1.0, 0, 0), (0, 1.0, 0)),
+                             (16, v0 + (-1.0, -3.0, -1.0), (4.0, 0, 0), (0, 5.0, 0))):
+        blk[0, 0:3, slot], blk[0, 3:6, slot], blk[0, 6:9, slot] = (
+            q @ w0, q @ np.array(e1), q @ np.array(e2))
+    blk = with_pretest_row(torch.from_numpy(blk))
+    rows = blk[0, 0:9, :].T.contiguous()
+    real = rows[[0, 16]]
+    corners = torch.cat([real[:, 0:3], real[:, 0:3] + real[:, 3:6],
+                         real[:, 0:3] + real[:, 6:9]])
+    g = types.SimpleNamespace(
+        cluster_min=corners.amin(0)[None].contiguous(),
+        cluster_max=corners.amax(0)[None].contiguous(), tri_packed=blk,
+        tri_v0=rows[:, 0:3].contiguous(), tri_e1=rows[:, 3:6].contiguous(),
+        tri_e2=rows[:, 6:9].contiguous())
+    f32 = np.float32
+    return (g, torch.from_numpy((o @ q.T).astype(f32)),
+            torch.from_numpy((d @ q.T).astype(f32)), torch.full((n,), 3.0e38))
+
+
+def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
+    """An open fault (ROADMAP Queue 3), measured: on `grazing_beside_span`
+    K1's classic Moller-Trumbore and `stream_plain` accept rays that
+    miss span 0's padded box, which the row-9 pretest of K2 and K6
+    skips. Holds K2 against its schedule model `matrix_walk_runs_plain`
+    and K1 against its plain version, bit for bit (failing otherwise),
+    and counts per seed the rays K1, `stream_plain`, K2 and K6 hit and
+    those where K2 or K6 differ from `stream_plain`, their plain
+    version: the fault, logged, not failed on."""
+    import torch
+
+    from hala_tpu_torch.ops import cluster as k6
+    from hala_tpu_torch.ops import traverse as k2
+    from hala_tpu_torch.ops.pallas import intersect_kernel as k1
+
+    labels = ("t", "tri", "u", "v")
+    out = []
+    for seed in seeds:
+        g, o, d, tm = grazing_beside_span(seed)
+        for key in vars(g):
+            setattr(g, key, getattr(g, key).to(dev))
+        o, d, tm = o.to(dev), d.to(dev), tm.to(dev)
+        args = (o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed)
+        hit, runs = k2.matrix_walk_runs(o, d, g, t_max=tm)
+        model, model_runs = k2.matrix_walk_runs_plain(*args, False)
+        brute = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm)
+        brute_plain = k1.intersect_pallas_plain(o, d, g.tri_v0, g.tri_e1, g.tri_e2,
+                                                t_max=tm)
+        stream = k6.stream_plain(*args)
+        k6_hit = k6.intersect_clustered(o, d, g, t_max=tm)
+        torch.cuda.synchronize()
+        equal_tensors(f"K2 vs its schedule model, grazing seed {seed}",
+                      (*hit, runs), (*model, model_runs), labels + ("runs",))
+        equal_tensors(f"K1 vs plain, grazing seed {seed}", brute, brute_plain, labels)
+        rec = dict(seed=seed, rays=o.shape[0], k1=int((brute.tri >= 0).sum()),
+                   stream_plain=int((stream.tri >= 0).sum()),
+                   k2=int((hit.tri >= 0).sum()), k6=int((k6_hit.tri >= 0).sum()),
+                   k2_vs_plain=int((hit.tri != stream.tri).sum()),
+                   k6_vs_plain=int((k6_hit.tri != stream.tri).sum()))
+        out.append(rec)
+        log(f"  grazing beside span 0, seed {seed}: K2 equals its schedule model and "
+            f"K1 its plain version bit for bit; rays hit of {rec['rays']}: K1 "
+            f"{rec['k1']}, stream_plain {rec['stream_plain']}, K2 {rec['k2']}, K6 "
+            f"{rec['k6']}; differ from stream_plain: K2 {rec['k2_vs_plain']}, K6 "
+            f"{rec['k6_vs_plain']} (open fault, ROADMAP Queue 3)")
+    return out
+
 
 def check_k7_k8(dev_scene, small, big, reps: int):
     """K8 (csrc/grouped_walk.cu) and K7 (csrc/wavefront_walk.cu) vs
-    their plain versions, bit for bit, closest and any-hit: on `small`
-    with tight caps (k_cap 2; k_per_ray 3, m_group 8), so that lists
-    truncate and the fallback runs, and with the defaults; the two
-    engines there against K2's canonical hits and any-hit mask; then on
-    `big` in coherence order, as matrix_query feeds them, at the
-    defaults (k_cap 32; k_per_ray 16 and 8, m_group 32), timed."""
+    their plain versions, bit for bit, closest and any-hit: on
+    `span_breaking_walls`; on `small` with tight caps (k_cap 2;
+    k_per_ray 3, m_group 8), so that lists truncate and the fallback
+    runs, and with the defaults; the two engines there against K2's
+    canonical hits and any-hit mask; then on `big` in coherence order,
+    as matrix_query feeds them, at the defaults (k_cap 32; k_per_ray 16
+    and 8, m_group 32), timed, with `TestedPairs`' span counts and the
+    bound recounted from them (the old bound beside it)."""
     import torch
 
     from hala_tpu_torch.ops import traverse as k8
@@ -1027,8 +1362,9 @@ def check_k7_k8(dev_scene, small, big, reps: int):
     g = dev_scene.geometry
     cmin, cmax, blk = g.cluster_min, g.cluster_max, g.tri_packed
     c = cmin.shape[0]
-    real = (g.tri_mat >= 0).view(c, k8.TRI_CHUNK).sum(dim=1)
+    spans_real = (g.tri_mat >= 0).view(c, 8, 16).sum(dim=2)
     walk_labels = ("t", "tri", "u", "v", "walked")
+    span_table = check_span_table(g.tri_packed.device)
 
     def coherent(batch):
         o, d, tm = k8.pad_to_groups(*batch)
@@ -1093,21 +1429,23 @@ def check_k7_k8(dev_scene, small, big, reps: int):
     ray_bytes = n * 28 + n * 16 + blk.numel() * 4 + c * 24
     args, usz = k8_args(o, d, tm, 32)
     got = k8.grouped_walk(*args)
-    with TestedPairs(k8, real) as work:
+    with TestedPairs(k8, spans_real) as work:
         ref = k8.grouped_walk_plain(*args)
     torch.cuda.synchronize()
     equal_tensors(f"K8 k_cap=32 N={n}", got, ref, walk_labels)
+    ref_any = k8.grouped_walk_plain(*args, True)
+    equal_tensors(f"K8 k_cap=32 N={n} any-hit", k8.grouped_walk(*args, True), ref_any,
+                  walk_labels)
     walked = int(got[4].sum())
     t_fin = torch.where(got[0] < 3.0e38, got[0], tm)
     bound8 = torch.where(usz > 32, args[5].view(torch.float32)[:, -1], 3.0e38)
     need8 = t_fin > bound8.repeat_interleave(k8.GROUP)
-    b_ms, b_by = bound(work.pairs * OPS_MM,
-                       ray_bytes + g_total * (4 + 32 * 8) + g_total * 4)
+    b_ms, b_by, old_ms = work.bounds(ray_bytes + g_total * (4 + 32 * 8) + g_total * 4)
     k8_rec = dict(
         max_abs_err=max_abs_diff(got[:1] + got[2:4], ref[:1] + ref[2:4]),
         tri_mismatches=int((got[1] != ref[1]).sum()),
-        bound_ms=b_ms, bound_by=b_by, library_ms=None, rays=n,
-        tested_pairs=work.pairs, slot_fill=work.pairs / (walked * 128 * 128),
+        bound_ms=b_ms, bound_by=b_by, old_bound_ms=old_ms, library_ms=None, rays=n,
+        **work.record(), slot_fill=work.pairs / (walked * 128 * 128),
         walked_per_group=walked / g_total, need_share=need_share(tm, need8),
         truncated_groups=float((usz > 32).float().mean()),
         ms=cuda_ms(lambda: k8.grouped_walk(*args), reps),
@@ -1116,34 +1454,37 @@ def check_k7_k8(dev_scene, small, big, reps: int):
         lists_ms=cuda_ms(lambda: k8._group_candidates(o, d, tm, cmin, cmax, 32), 1),
         engine_ms=cuda_ms(lambda: k8.intersect_grouped(o, d, g, t_max=tm), 1),
     )
-    log(f"  K8 k_cap=32 N={n}: equal bit for bit; kernel {k8_rec['ms']:.3f} ms "
-        f"(any-hit {k8_rec['anyhit_ms']:.3f}), plain {k8_rec['plain_ms']:.1f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by}; {work.pairs} live ray x real triangle "
-        f"pairs, {k8_rec['slot_fill']:.3f} of the walked entries' 128 x 128); "
-        f"{k8_rec['walked_per_group']:.2f} entries walked per group, {k8_rec['truncated_groups']:.3f} of groups truncated, "
+    log(f"  K8 k_cap=32 N={n}: equal bit for bit, closest and any-hit; kernel "
+        f"{k8_rec['ms']:.3f} ms (any-hit {k8_rec['anyhit_ms']:.3f}), plain "
+        f"{k8_rec['plain_ms']:.1f} ms, bound {b_ms:.4f} ms ({b_by}; old bound "
+        f"{old_ms:.4f}, every live ray x real triangle of the walked entries, "
+        f"{k8_rec['slot_fill']:.3f} of their 128 x 128); {work.describe()}; "
+        f"{k8_rec['walked_per_group']:.2f} entries walked per group, "
+        f"{k8_rec['truncated_groups']:.3f} of groups truncated, "
         f"{k8_rec['need_share']:.4f} of live rays to the fallback; list glue "
         f"{k8_rec['lists_ms']:.1f} ms, the whole engine {k8_rec['engine_ms']:.1f} ms")
-    del args, got, ref
+    del args, got, ref, ref_any
 
     k7_rec = None
     for k in (16, 8):
         args, w = k7_args(o, d, tm, k, 32)
         got = k7.wavefront_walk(*args)
-        with TestedPairs(k8, real) as work:
+        with TestedPairs(k8, spans_real) as work:
             ref = k7.wavefront_walk_plain(*args)
         torch.cuda.synchronize()
         equal_tensors(f"K7 k={k} m=32 N={n}", got, ref, walk_labels[:4] + ("stats",))
+        equal_tensors(f"K7 k={k} m=32 N={n} any-hit", k7.wavefront_walk(*args, True),
+                      k7.wavefront_walk_plain(*args, True), walk_labels[:4] + ("stats",))
         walked, tested = (int(x) for x in got[4].sum(dim=0))
         t_fin = torch.where(got[0] < 3.0e38, got[0], w.t_max)
         need7 = torch.clamp(t_fin, min=0.0).view(torch.int32) > k7.fallback_bound(
             w.pk, w.cnt, w.grp_bound, k)
-        b_ms, b_by = bound(work.pairs * OPS_MM,
-                           ray_bytes + g_total * 32 * 4 + n * 8 + g_total * 8)
+        b_ms, b_by, old_ms = work.bounds(ray_bytes + g_total * 32 * 4 + n * 8 + g_total * 8)
         rec = dict(
             max_abs_err=max_abs_diff(got[:1] + got[2:4], ref[:1] + ref[2:4]),
             tri_mismatches=int((got[1] != ref[1]).sum()),
-            bound_ms=b_ms, bound_by=b_by, library_ms=None, rays=n, k=k,
-            tested_pairs=work.pairs, slot_fill=work.pairs / (tested * 128 * 128),
+            bound_ms=b_ms, bound_by=b_by, old_bound_ms=old_ms, library_ms=None,
+            rays=n, k=k, **work.record(), slot_fill=work.pairs / (tested * 128 * 128),
             walked_per_group=walked / g_total, tested_per_group=tested / g_total,
             need_share=need_share(w.t_max, need7),
             list_len=float((w.tnb != k7.INF_KEY).sum()) / g_total,
@@ -1154,10 +1495,11 @@ def check_k7_k8(dev_scene, small, big, reps: int):
             engine_ms=cuda_ms(lambda: k7.intersect_wavefront(
                 o, d, g, t_max=tm, k_per_ray=k), 1),
         )
-        log(f"  K7 k={k} m=32 N={n}: equal bit for bit; kernel {rec['ms']:.3f} ms "
-            f"(any-hit {rec['anyhit_ms']:.3f}), plain {rec['plain_ms']:.1f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}; {work.pairs} live ray x real triangle "
-            f"pairs, {rec['slot_fill']:.3f} of the tested entries' 128 x 128); "
+        log(f"  K7 k={k} m=32 N={n}: equal bit for bit, closest and any-hit; kernel "
+            f"{rec['ms']:.3f} ms (any-hit {rec['anyhit_ms']:.3f}), plain "
+            f"{rec['plain_ms']:.1f} ms, bound {b_ms:.4f} ms ({b_by}; old bound "
+            f"{old_ms:.4f}, every live ray x real triangle of the tested entries, "
+            f"{rec['slot_fill']:.3f} of their 128 x 128); {work.describe()}; "
             f"lists of {rec['list_len']:.2f} entries, "
             f"{rec['walked_per_group']:.2f} walked and {rec['tested_per_group']:.2f} "
             f"tested per group, {rec['need_share']:.4f} of live rays to the "
@@ -1167,8 +1509,9 @@ def check_k7_k8(dev_scene, small, big, reps: int):
             k7_rec = rec
         else:
             k7_rec["k8"] = {key: rec[key] for key in (
-                "ms", "anyhit_ms", "bound_ms", "tested_pairs", "walked_per_group",
-                "tested_per_group", "need_share", "list_len", "engine_ms")}
+                "ms", "anyhit_ms", "bound_ms", "old_bound_ms", "span_pairs",
+                "warp_span_fill", "walked_per_group", "tested_per_group",
+                "need_share", "list_len", "engine_ms")}
         del args, got, ref, w
     # both engines against K2 at this size, the defaults
     k2c = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2,
@@ -1178,6 +1521,7 @@ def check_k7_k8(dev_scene, small, big, reps: int):
     k7_rec["flips_vs_k2"] = canonical_equal(
         f"intersect_wavefront vs K2 (N={n})", k7.intersect_wavefront(o, d, g, t_max=tm),
         k2c)
+    k8_rec["span_table"] = span_table
     return k7_rec, k8_rec
 
 
@@ -2052,6 +2396,7 @@ def main() -> int:
     k4_rec = check_k4(big_dev, small, big, reps=5)
     k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
     k7_rec, k8_rec = check_k7_k8(big_dev, small, big, reps=5)
+    graze_span = check_k2_grazing(dev)
     del big_dev, small, big
     x5_host, x5_dev, x5_upload_s, _ = upload_instances(big_host, dev)
     wide_rec = check_past_key_width(x5_dev, 32768)
@@ -2323,10 +2668,16 @@ def main() -> int:
              bound_ms_atrium_big=k6_rec["bound_ms"],
              full_range_ms_atrium_big=k6_rec["full_ms"],
              full_range_ms=k6_x5["full_ms"]),
-        entry("wavefront_walk (K7)", "hala_tpu_torch/csrc/wavefront_walk.cu",
-              "hala_tpu/ops/wavefront.py:287", after_wave["wavefront_walk"], k7_rec),
-        entry("grouped_walk (K8)", "hala_tpu_torch/csrc/grouped_walk.cu",
-              "hala_tpu/ops/traverse.py:2013", after_grouped["grouped_walk"], k8_rec),
+        # K7, K8: beside the bound from the spans the rays enter, the old
+        # one from every pair of the tested entries
+        dict(entry("wavefront_walk (K7)", "hala_tpu_torch/csrc/wavefront_walk.cu",
+                   "hala_tpu/ops/wavefront.py:287", after_wave["wavefront_walk"], k7_rec),
+             old_bound_ms=k7_rec["old_bound_ms"], anyhit_ms=k7_rec["anyhit_ms"],
+             warp_span_fill=k7_rec["warp_span_fill"]),
+        dict(entry("grouped_walk (K8)", "hala_tpu_torch/csrc/grouped_walk.cu",
+                   "hala_tpu/ops/traverse.py:2013", after_grouped["grouped_walk"], k8_rec),
+             old_bound_ms=k8_rec["old_bound_ms"], anyhit_ms=k8_rec["anyhit_ms"],
+             warp_span_fill=k8_rec["warp_span_fill"]),
     ]
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
                    atrium_big_peak_bytes=peak, atrium_big_profile=s_prof,
@@ -2358,6 +2709,7 @@ def main() -> int:
                    k6_tri_mismatches=k6_rec["tri_mismatches"],
                    shadow_range_witness=witness,
                    traverse_cull_misses_vs_k2=graze_k2,
+                   k2_grazing_beside_span=graze_span,
                    past_key_width=wide_rec,
                    k7=k7_rec, k8=k8_rec, k2_sort=sort_out,
                    atrium_big_grouped=g_out, atrium_big_wavefront=w_out,

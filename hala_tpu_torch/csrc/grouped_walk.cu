@@ -4,25 +4,30 @@
 // of hala_tpu/ops/traverse.py (intersect_grouped, occluded_grouped, run
 // under matrix_query(kernel="grouped")): each group of 128 rays walks
 // its `counts[g]` candidate clusters in ascending group entry distance,
-// tests all its rays against each cluster's 128 triangle slots
-// (mm_chunk_test.cuh), keeps the lexicographic (t, slot) minimum per
-// ray, and stops once no ray's best t lies beyond the next entry
+// tests each ray against the cluster's slots in the 16-slot spans the
+// ray enters (mm_chunk_test.cuh), keeps the lexicographic (t, slot)
+// minimum per ray, and stops once no ray's best t lies beyond the next entry
 // distance (compared as int32 bit patterns, monotonic for the
 // non-negative floats involved).
 //
 // Design: one block per group, one thread per ray. The TPU kernel's
 // scalar-prefetch tables, its two-slot DMA ring and its (16,512)
 // coefficient table become: the block reads its own list entries, forms
-// the entry's coefficients in shared memory from the cluster's
-// `tri_packed` block, and `__syncthreads_or` takes the group-wide exit
-// decision (it is also the barrier that frees the shared block for the
-// next entry).
+// the entry's coefficients and span boxes in shared memory from rows
+// 0-8 of the cluster's `tri_packed` block, and `__syncthreads_or` takes
+// the group-wide exit decision (it is also the barrier that frees the
+// shared block for the next entry).
 //
-// What bounds it on an H100: arithmetic, about 50 fp32 operations per
-// (ray, slot) pair of every walked entry; the cluster blocks it reads
-// stay in L2 (atrium_big's are 15 MB). All 128 lanes test every walked
-// entry, as in the TPU kernel, so the cost follows the group's list and
-// tight groups (sorted rays) are what keeps it short.
+// What bounds it on an H100: issuing CUDA-core instructions, 46 per
+// (ray, slot) pair of the spans a warp runs (mm_chunk_test.cuh), and
+// per walked entry the staging and each lane's 8 span-box tests.
+// A warp runs a span of an entry only where one of its lanes enters the
+// span's padded box, so the cost follows the spans the rays of a warp
+// share, not the group's whole list; the cluster blocks stay in L2
+// (atrium_big's are 15 MB).
+// In a warp that runs a span about one lane in six enters it (the lane
+// fill chip_smoke.py prints for atrium_big), so most issued pairs are
+// lanes masked off.
 
 #include "mm_chunk_test.cuh"
 
@@ -38,7 +43,7 @@ grouped_walk_kernel(
     float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ walked_out) {
-  __shared__ float4 coef[hala::kMmSlots * 4];
+  __shared__ hala::MmShared sh;
   const int g = blockIdx.x;
   const int lane = threadIdx.x;
   const int i = g * hala::kMmGroup + lane;
@@ -55,9 +60,13 @@ grouped_walk_kernel(
     const float ccx = 0.5f * (__ldg(cmin + 3 * c) + __ldg(cmax + 3 * c));
     const float ccy = 0.5f * (__ldg(cmin + 3 * c + 1) + __ldg(cmax + 3 * c + 1));
     const float ccz = 0.5f * (__ldg(cmin + 3 * c + 2) + __ldg(cmax + 3 * c + 2));
-    hala::mm_stage(tri_packed, c, ccx, ccy, ccz, lane, coef);
+    float q[hala::kMmRows];
+    hala::mm_load_rows(tri_packed, c, lane, q);
+    hala::mm_stage(q, ccx, ccy, ccz, lane, sh);
     __syncthreads();
-    hala::mm_merge(acc, hala::mm_chunk_test(coef, c, ccx, ccy, ccz, r,
+    const unsigned mask =
+        hala::mm_span_mask(sh, r, hala::mm_t_cur(acc, r, any_hit != 0));
+    hala::mm_merge(acc, hala::mm_chunk_test(sh, c, ccx, ccy, ccz, r, mask,
                                             any_hit != 0));
     ++j;
   }

@@ -11,9 +11,9 @@
 //     candidate key (`own_last`); the padding ends it;
 //   * the entry is tested only if some ray that ranks it among its OWN
 //     candidates (bit j of the ray's `want` word) can still improve;
-//   * a tested entry runs all 128 rays against the cluster's 128
-//     triangle slots (mm_chunk_test.cuh) and keeps the lexicographic
-//     (t, slot) minimum per ray.
+//   * a tested entry runs each ray against the cluster's slots in the
+//     16-slot spans the ray enters (mm_chunk_test.cuh) and keeps the
+//     lexicographic (t, slot) minimum per ray.
 // It also counts the walked and the tested entries of each group.
 //
 // Design: one block per group, one thread per ray, as grouped_walk.cu.
@@ -22,9 +22,13 @@
 // DMA ring become a (G, m) key list, one 32-bit want word and one int
 // per ray, and two `__syncthreads_or` votes per entry.
 //
-// What bounds it on an H100: arithmetic, about 50 fp32 operations per
-// (ray, slot) pair of every tested entry; skipped entries cost two
-// block-wide votes.
+// What bounds it on an H100: issuing CUDA-core instructions, 46 per
+// (ray, slot) pair of the spans a warp runs (mm_chunk_test.cuh), and
+// per tested entry the staging and each lane's 8 span-box tests;
+// skipped entries cost two block-wide votes.
+// In a warp that runs a span about one lane in six enters it (the lane
+// fill chip_smoke.py prints for atrium_big), so most issued pairs are
+// lanes masked off.
 
 #include "mm_chunk_test.cuh"
 
@@ -41,7 +45,7 @@ wavefront_walk_kernel(
     float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
     int* __restrict__ stats_out) {
-  __shared__ float4 coef[hala::kMmSlots * 4];
+  __shared__ hala::MmShared sh;
   const int g = blockIdx.x;
   const int lane = threadIdx.x;
   const int i = g * hala::kMmGroup + lane;
@@ -61,9 +65,13 @@ wavefront_walk_kernel(
       const float ccx = 0.5f * (__ldg(cmin + 3 * c) + __ldg(cmax + 3 * c));
       const float ccy = 0.5f * (__ldg(cmin + 3 * c + 1) + __ldg(cmax + 3 * c + 1));
       const float ccz = 0.5f * (__ldg(cmin + 3 * c + 2) + __ldg(cmax + 3 * c + 2));
-      hala::mm_stage(tri_packed, c, ccx, ccy, ccz, lane, coef);
+      float q[hala::kMmRows];
+      hala::mm_load_rows(tri_packed, c, lane, q);
+      hala::mm_stage(q, ccx, ccy, ccz, lane, sh);
       __syncthreads();
-      hala::mm_merge(acc, hala::mm_chunk_test(coef, c, ccx, ccy, ccz, r,
+      const unsigned mask =
+          hala::mm_span_mask(sh, r, hala::mm_t_cur(acc, r, any_hit != 0));
+      hala::mm_merge(acc, hala::mm_chunk_test(sh, c, ccx, ccy, ccz, r, mask,
                                               any_hit != 0));
       ++tested;
     }

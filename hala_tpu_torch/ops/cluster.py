@@ -94,22 +94,51 @@ def slab_live(o, d, cmin, cmax, t_cur):
     return enters & (tn < t_cur[:, None])
 
 
-def with_pretest_row(tri_packed):
-    """A copy of hand-built slot blocks (C, 16, 128) with row 9 filled as
-    the uploader fills it: per 16-slot span the [min.xyz | max.xyz] box
-    of its triangles (slots whose edges are both zero are padding), a
-    far point box at 3e37 where a span holds none."""
+FAR_BOX = 3.0e37    # the point box of a span without triangles
+WHOLE_BOX = 1.0e38  # the box of a span with a non-finite corner
+
+
+def real_slots(tri_packed):
+    """(C, 128) bool: the slots of blocks (C, 16, 128) with a nonzero
+    edge (padding slots have both edges zero)."""
+    return ((tri_packed[:, 3:6] != 0) | (tri_packed[:, 6:9] != 0)).any(dim=1)
+
+
+def span_boxes(tri_packed, real):
+    """The boxes (lo, hi), each (C, 8, 3), of the 8 spans of 16 slots of
+    blocks (C, 16, 128), over the slots `real` (C, 128) marks: per slot
+    the min and max of v0, v0 + e1, v0 + e2, NaN coordinates left out,
+    reduced over the span. A span without a real slot gets the far
+    point box at 3e37, a span with a non-finite corner the box +-1e38,
+    which every live ray enters (so no pretest drops a finite triangle
+    beside it). Row 9 of `tri_packed` (the uploader, `with_pretest_row`)
+    and the walks' span mask (ops/traverse.py `mm_span_mask`,
+    csrc/mm_chunk_test.cuh `mm_stage`) are these boxes."""
     c = tri_packed.shape[0]
     v0, e1, e2 = tri_packed[:, 0:3], tri_packed[:, 3:6], tri_packed[:, 6:9]
-    real = ((e1 != 0) | (e2 != 0)).any(dim=1)[:, None, :]
-    lo = torch.where(real, torch.minimum(torch.minimum(v0, v0 + e1), v0 + e2), torch.inf)
-    hi = torch.where(real, torch.maximum(torch.maximum(v0, v0 + e1), v0 + e2), -torch.inf)
-    lo = lo.view(c, 3, PRETEST_PER_CHUNK, PRETEST_TRIS).amin(dim=-1)
-    hi = hi.view(c, 3, PRETEST_PER_CHUNK, PRETEST_TRIS).amax(dim=-1)
-    empty = ~torch.isfinite(lo[:, :1])
-    boxes = torch.cat([torch.where(empty, 3.0e37, lo), torch.where(empty, 3.0e37, hi)], dim=1)
+    v1, v2 = v0 + e1, v0 + e2
+    real = real[:, None, :]
+    lo = torch.fmin(torch.fmin(v0, v1), v2)
+    hi = torch.fmax(torch.fmax(v0, v1), v2)
+    lo = torch.where(real & ~torch.isnan(lo), lo, torch.inf)
+    hi = torch.where(real & ~torch.isnan(hi), hi, -torch.inf)
+    spans = (c, 3, PRETEST_PER_CHUNK, PRETEST_TRIS)
+    lo = lo.view(spans).amin(dim=-1).permute(0, 2, 1)
+    hi = hi.view(spans).amax(dim=-1).permute(0, 2, 1)
+    empty = ~real.view(c, PRETEST_PER_CHUNK, PRETEST_TRIS).any(dim=-1)[..., None]
+    whole = ~(torch.isfinite(lo).all(dim=-1) & torch.isfinite(hi).all(dim=-1))[..., None]
+    lo = torch.where(empty, FAR_BOX, torch.where(whole, -WHOLE_BOX, lo))
+    hi = torch.where(empty, FAR_BOX, torch.where(whole, WHOLE_BOX, hi))
+    return lo.contiguous(), hi.contiguous()
+
+
+def with_pretest_row(tri_packed):
+    """A copy of hand-built slot blocks (C, 16, 128) with row 9 (lanes
+    0-47) filled as the uploader fills it: the [lo.xyz | hi.xyz]
+    `span_boxes` of the real slots, span by span."""
+    lo, hi = span_boxes(tri_packed, real_slots(tri_packed))
     out = tri_packed.clone()
-    out[:, 9, :6 * PRETEST_PER_CHUNK] = boxes.permute(0, 2, 1).reshape(c, -1)
+    out[:, 9, :6 * PRETEST_PER_CHUNK] = torch.cat([lo, hi], dim=2).reshape(lo.shape[0], -1)
     return out
 
 

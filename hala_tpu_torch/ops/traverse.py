@@ -21,11 +21,11 @@ clusters of 128 triangle slots with per-cluster AABBs
   engine (ops/wavefront.py) on the sorted batch, and undoes the sort.
 - `intersect_grouped` / `occluded_grouped` (K8): each 128-ray group
   walks its nearest `k_cap` candidate clusters, ordered by the group's
-  entry distance, testing all its rays against each cluster by the
-  factored Moller-Trumbore `mm_chunk_test_plain` /
-  csrc/mm_chunk_test.cuh; rays whose hit lies beyond a truncated list
-  rerun through K2 with t_max preset to their best. Winners are
-  re-evaluated with `canonical_hit`.
+  entry distance, testing each ray against the 16-slot spans of each
+  cluster that it enters (`mm_span_mask`) by the factored
+  Moller-Trumbore `mm_chunk_test_plain` / csrc/mm_chunk_test.cuh; rays
+  whose hit lies beyond a truncated list rerun through K2 with t_max
+  preset to their best. Winners are re-evaluated with `canonical_hit`.
 - `intersect_traversed` (K5): the large-scene engine.
   The cull (`cull_candidates`, K4 per superchunk of CULL_MAX_CLUSTERS)
   lists each ray's K nearest slab-entered clusters; K5 walks them
@@ -55,8 +55,10 @@ from .cluster import (  # noqa: F401  (slab_live, TRI_CHUNK: K2's API)
     check_aligned,
     check_stream_inputs,
     intersect_clustered,
+    real_slots,
     slab_entry,
     slab_live,
+    span_boxes,
     stream_plain,
 )
 from .cull import _ID_MASK, CULL_MAX_CLUSTERS, INF_KEY, cull_topk, geometry_unions
@@ -564,18 +566,27 @@ def mm_coefficients(tri_packed, cluster_min, cluster_max):
     return coef, cc
 
 
-def mm_chunk_test_plain(coef, cc, cid, o, d, tm, any_hit: bool):
-    """R groups of 128 rays, each against the 128 slots of one cluster:
-    the JAX package's `_mm_chunk_test`. coef (R, 16, 128) and cc (R, 3)
-    of the clusters cid (R,); o, d (R, 128, 3); tm (R, 128). Returns
-    (t, tri, u, v), each (R, 128): per ray the hit of lowest t in
-    (1e-4, t_max), the lowest slot among equal t, or (3e38, -1, 0, 0);
-    with any_hit (0, cid * 128, 0, 0) where any slot is hit.
+def mm_span_mask(o, d, tm, t_cur, lo, hi):
+    """(R, 128, 8) bool: the spans of a group's entry a ray may hit in.
+    o, d (R, 128, 3), tm and t_cur (R, 128), the entry's span boxes lo,
+    hi (R, 8, 3). A span is in where the ray's range is live
+    (t_max > 1e-4) and it enters the span's padded box (`slab_entry`,
+    the row-9 pretest of K2) at a distance below t_cur: the ray's best
+    t at the start of the entry, its t_max while it has no hit and
+    always for any-hit."""
+    tn, enters = slab_entry(o[:, :, None, :], d[:, :, None, :],
+                            lo[:, None], hi[:, None])
+    return enters & (tn < t_cur[..., None]) & (tm > T_MIN)[..., None]
 
-    det = -(d.n), u_num = w'.e2 - d.c1, v_num = -(w'.e1 + d.c2),
-    t_num = o'.n - c0 with o' = o - cc and w' = o x d - cc x d, each
-    three-term dot product summed left to right: the order of
-    csrc/mm_chunk_test.cuh, which rounds alike."""
+
+def mm_terms(coef, cc, o, d):
+    """The four sums of the factored Moller-Trumbore, (det, u_num,
+    v_num, t_num), each (R, 128 rays, 128 slots): coef (R, 16, 128) and
+    cc (R, 3) of R clusters, o, d (R, 128, 3). det = -(d.n),
+    u_num = w'.e2 - d.c1, v_num = -(w'.e1 + d.c2), t_num = o'.n - c0
+    with o' = o - cc and w' = o x d - cc x d, each three-term dot
+    product summed left to right: the order of csrc/mm_chunk_test.cuh,
+    which rounds alike."""
     ox, oy, oz = o[..., 0], o[..., 1], o[..., 2]
     dx, dy, dz = d[..., 0], d[..., 1], d[..., 2]
     ccx, ccy, ccz = cc[:, 0:1], cc[:, 1:2], cc[:, 2:3]
@@ -598,14 +609,35 @@ def mm_chunk_test_plain(coef, cc, cid, o, d, tm, any_hit: bool):
     vn = -((wpx * tri(9) + wpy * tri(10) + wpz * tri(11)) + (
         dx * tri(6) + dy * tri(7) + dz * tri(8)))
     tn = (ray(opx) * tri(0) + ray(opy) * tri(1) + ray(opz) * tri(2)) - tri(15)
+    return det, un, vn, tn
+
+
+def mm_barycentric_pass(det, un, vn):
+    """The division-free half of the test: |det| > eps and both
+    barycentric numerators, signed by det, in the triangle. The kernels
+    form t_num, the reciprocal and the range test only where it passes."""
     sg = torch.where(det >= 0.0, 1.0, -1.0)
     adet = det * sg
     us = un * sg
     vs = vn * sg
-    inv_det = 1.0 / torch.where(adet > EPS, det, 1.0)
+    return (adet > EPS) & (us >= 0.0) & (vs >= 0.0) & (us + vs <= adet)
+
+
+def mm_chunk_test_plain(coef, cc, cid, o, d, tm, any_hit: bool, span):
+    """R groups of 128 rays, each against the 128 slots of one cluster:
+    the JAX package's `_mm_chunk_test` with a pair accepted only in the
+    spans `span` (R, 128, 8) lets in (`mm_span_mask`). coef (R, 16, 128)
+    and cc (R, 3) of the clusters cid (R,); o, d (R, 128, 3); tm
+    (R, 128). Returns (t, tri, u, v), each (R, 128): per ray the hit of
+    lowest t in (1e-4, t_max), the lowest slot among equal t, or
+    (3e38, -1, 0, 0); with any_hit (0, cid * 128, 0, 0) where any slot
+    is hit. The sums are `mm_terms`'; the kernels divide only where
+    `mm_barycentric_pass` holds, which gives the same bits."""
+    det, un, vn, tn = mm_terms(coef, cc, o, d)
+    inv_det = 1.0 / torch.where(torch.abs(det) > EPS, det, 1.0)
     tt = tn * inv_det
-    valid = ((adet > EPS) & (us >= 0.0) & (vs >= 0.0) & (us + vs <= adet)
-             & (tt > T_MIN) & (tt < ray(tm)))
+    valid = (mm_barycentric_pass(det, un, vn) & (tt > T_MIN) & (tt < tm[:, :, None])
+             & span.repeat_interleave(PRETEST_TRIS, dim=2))
     base = (cid * TRI_CHUNK).to(torch.int32)[:, None]
     if any_hit:
         blocked = valid.any(dim=2)
@@ -641,10 +673,12 @@ def walk_groups_plain(o, d, tm, tri_packed, cluster_min, cluster_max,
     for entry j the groups still walking (G,) bool (a group that stops
     stays stopped), those that test it (G,) bool and its cluster per
     group (G,) int. Returns (t, tri, u, v) as (N,) tensors, and per
-    group the walked and the tested entries."""
+    group the walked and the tested entries. A tested entry lets each
+    ray in only at the spans `mm_span_mask` gives it."""
     dev = o.device
     g_total = o.shape[0] // GROUP
     coef, cc = mm_coefficients(tri_packed, cluster_min, cluster_max)
+    lo, hi = span_boxes(tri_packed, real_slots(tri_packed))
     o_g, d_g = o.view(g_total, GROUP, 3), d.view(g_total, GROUP, 3)
     tm_g = tm.view(g_total, GROUP)
     acc = (
@@ -668,8 +702,10 @@ def walk_groups_plain(o, d, tm, tri_packed, cluster_min, cluster_max,
         for r0 in range(0, rows.numel(), _PLAIN_GROUPS):
             r = rows[r0:r0 + _PLAIN_GROUPS]
             c = cid[r].long()
+            t_cur = tm_g[r] if any_hit else torch.where(acc[1][r] >= 0, acc[0][r], tm_g[r])
+            span = mm_span_mask(o_g[r], d_g[r], tm_g[r], t_cur, lo[c], hi[c])
             new = mm_chunk_test_plain(coef[c], cc[c], c, o_g[r], d_g[r],
-                                      tm_g[r], any_hit)
+                                      tm_g[r], any_hit, span)
             merged = mm_merge(tuple(a[r] for a in acc), new)
             for a, m in zip(acc, merged):
                 a[r] = m
@@ -747,7 +783,8 @@ def grouped_walk(o, d, tm, counts, ids, tnb, tri_packed, cluster_min,
     entries to walk; ids (G, K) int32 cluster ids in [0, C); tnb (G, K)
     int32, the bits of the ascending entry distances (lower bounds).
     Returns (t, tri, u, v, walked): per ray the lexicographic (t, slot)
-    minimum in (1e-4, t_max) over the walked clusters, t = 3e38 and
+    minimum in (1e-4, t_max) over the walked clusters' spans it enters
+    (`mm_span_mask`), t = 3e38 and
     tri = -1 where there is none (with any_hit: t = 0 and tri = the
     cluster's first slot where blocked), and per group the entries
     walked before every ray's t was at or inside the next distance."""

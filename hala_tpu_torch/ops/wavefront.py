@@ -188,11 +188,12 @@ def wavefront_walk(o, d, tm, pkl, want, own_last, tri_packed, cluster_min,
     int32, bit j set iff entry j is among the ray's own candidates;
     own_last (N,) int32, the ray's last own candidate key. The walk of a
     group goes on while some ray has its best t's bits beyond the entry
-    key and own_last at or beyond it; an entry is tested (all 128 rays
-    against the cluster's 128 slots) only if some ray wanting it still
-    has its best t beyond the key. Returns (t, tri, u, v, stats): per
-    ray the lexicographic (t, slot) minimum in (1e-4, t_max) over the
-    tested clusters, t = 3e38 and tri = -1 where there is none (with
+    key and own_last at or beyond it; an entry is tested (each ray
+    against the cluster's slots in the spans it enters, `mm_span_mask`)
+    only if some ray wanting it still has its best t beyond the key.
+    Returns (t, tri, u, v, stats): per ray the lexicographic (t, slot)
+    minimum in (1e-4, t_max) over the tested clusters' spans it enters,
+    t = 3e38 and tri = -1 where there is none (with
     any_hit: t = 0 and tri = the cluster's first slot where blocked),
     and stats (G, 2) int32, the walked and the tested entries."""
     if o.device.type == "cpu":

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from ...error import HalaRendererError
+from ...ops.cluster import span_boxes
 from ..cpu.scene import Scene
 from ..cpu.camera import PerspectiveCamera, OrthographicCamera
 from ..cpu.material import Material, MaterialType
@@ -529,24 +530,16 @@ class SceneUploader:
         tri_packed[:, 3:6] = e1p.reshape(n_clusters, TRI_PAD, 3).transpose(0, 2, 1)
         tri_packed[:, 6:9] = e2p.reshape(n_clusters, TRI_PAD, 3).transpose(0, 2, 1)
         # row 9: 8 x 16-triangle sub-chunk AABBs (lanes 0-47) for the
-        # matrix kernel's in-chunk Moller-Trumbore pretest
-        # (the JAX package's ops/cluster.subchunk_aabb_row conventions;
-        # t_min/t_max carry +-inf in padding slots here, empty
-        # sub-chunks become far point boxes)
-        pre_lo = t_min.reshape(
-            n_clusters, PRETEST_PER_CHUNK, PRETEST_TRIS, 3
-        ).min(axis=2)
-        pre_hi = t_max.reshape(
-            n_clusters, PRETEST_PER_CHUNK, PRETEST_TRIS, 3
-        ).max(axis=2)
-        pre_empty = ~np.isfinite(pre_lo[..., :1]) | ~np.isfinite(
-            pre_hi[..., :1]
+        # matrix kernel's in-chunk Moller-Trumbore pretest: ops/cluster
+        # `span_boxes` over the real slots, equal to the JAX package's
+        # row wherever the corners are finite
+        pre_lo, pre_hi = span_boxes(
+            torch.from_numpy(tri_packed),
+            torch.from_numpy(real.reshape(n_clusters, TRI_PAD)),
         )
-        pre_lo = np.where(pre_empty, far, pre_lo)
-        pre_hi = np.where(pre_empty, far, pre_hi)
-        tri_packed[:, 9, : PRETEST_PER_CHUNK * 6] = np.concatenate(
-            [pre_lo, pre_hi], axis=-1
-        ).reshape(n_clusters, PRETEST_PER_CHUNK * 6)
+        tri_packed[:, 9, : PRETEST_PER_CHUNK * 6] = (
+            torch.cat([pre_lo, pre_hi], dim=2).reshape(n_clusters, -1).numpy()
+        )
 
         return DeviceGeometry(
             shade_table=_t(take(shade, 0), device),

@@ -34,7 +34,7 @@ pytestmark = pytest.mark.cuda
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(HERE)))
 
-import chip_smoke  # noqa: E402  (the skip-breaking raster table)
+import chip_smoke  # noqa: E402  (the skip-breaking raster and span tables)
 
 
 @pytest.fixture
@@ -718,6 +718,26 @@ def test_k7_kernel_matches_plain(atrium_batch, any_hit, k, m):
     assert bool((got[4][:, 1] <= got[4][:, 0]).all())  # tested <= walked
     if k == 3:
         assert int((w.cnt > k).sum()) > 0 and int((w.grp_bound != k7.INF_KEY).sum()) > 0
+
+
+def test_k7_k8_span_breaking_table_matches_plain(cuda_device):
+    """K8 and K7 against their plain versions, bit for bit, closest and
+    any-hit, on chip_smoke.py's table built to break the span mask
+    (`span_breaking_walls`: zero-thickness span boxes, empty spans, rays
+    at span-box corners and edges, warps in which one lane enters a
+    span, dead and resolved rays)."""
+    before = cuda_lib.launches()
+    cases = chip_smoke.span_table_cases(cuda_device)
+    for label, kernel, plain, args, _ in cases:
+        got = kernel(*args)
+        ref = plain(*args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, ref):
+            assert torch.equal(a, b), label
+        assert int((got[1] >= 0).sum()) > 300, label
+    after = cuda_lib.launches()
+    assert after["grouped_walk"] - before["grouped_walk"] == 4
+    assert after["wavefront_walk"] - before["wavefront_walk"] == 4
 
 
 def test_grouped_and_wavefront_engines_on_card_equal_cpu(atrium_batch):

@@ -35,6 +35,22 @@ with 524,288 live rays; K3 at the raster bench shape (atrium_big,
 table; then the raster_atrium frame (RasterizationRenderer with the
 ACES post pass, 10 frames after a warm-up). Prints one JSON line;
 exits 2 without CUDA.
+
+`--k7k8` times the grouped walk K8 (csrc/grouped_walk.cu, k_cap 32)
+and the wavefront walk K7 (csrc/wavefront_walk.cu, k_per_ray 16,
+m_group 32) of the checkout, closest and any-hit, on chip_smoke's
+atrium_big batches (65,536 and 2^21 mixed rays in matrix_query's
+coherence order, the lists as `check_k7_k8` builds them), then the
+atrium_big frame through intersector="wavefront" (1920x1088, depth 4,
+1 spp, two frames after a warm-up). For this checkout it also prints
+the plain model's span counts on the 2^21 batch (chip_smoke
+`TestedPairs`: pairs in the spans each ray enters, and in the spans
+some lane of each warp enters) and both bounds. `--sass` compiles the
+two walks to cubins with `-Xptxas -v` (registers, shared memory,
+spills) and prints, from `cuobjdump -sass`, the instructions of each
+loop (a backward branch and its target) of each kernel with its opcode
+counts; the cubins and their SASS go to hala_tpu_torch/_build/sass/ of
+the checkout timed.
 """
 
 from __future__ import annotations
@@ -108,12 +124,151 @@ def time_k1_k3(S, host, dev, reps: int) -> dict:
     return out
 
 
+def k7k8_inputs(S, scene, batch):
+    """The walks' arguments on `batch` in matrix_query's coherence
+    order, as chip_smoke's `check_k7_k8` builds them: K8 at k_cap 32,
+    K7 at k_per_ray 16 and m_group 32."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k8
+    from hala_tpu_torch.ops import wavefront as k7
+
+    g = scene.geometry
+    cmin, cmax = g.cluster_min, g.cluster_max
+    c = cmin.shape[0]
+    o, d, tm = k8.pad_to_groups(*batch)
+    order = torch.argsort(k8._coherence_key(o, d, tm, cmin, cmax), stable=True)
+    o, d, tm = (x[order].contiguous() for x in (o, d, tm))
+    ids, tns, usz = k8._group_candidates(o, d, tm, cmin, cmax, 32)
+    a8 = (o, d, tm, torch.clamp(usz, max=32), torch.clamp(ids, max=c - 1).contiguous(),
+          tns.view(torch.int32), g.tri_packed, cmin, cmax)
+    w = k7.wavefront_lists(o, d, tm, g, 16, 32)
+    a7 = (w.o, w.d, w.t_max, w.tnb, w.want, w.own_last, g.tri_packed, cmin, cmax)
+    return a8, a7
+
+
+def k7k8_counts(S, scene, a8, a7) -> dict:
+    """This checkout's plain models with chip_smoke's `TestedPairs` on
+    the walks' inputs: the span counts and both bounds."""
+    from hala_tpu_torch.ops import traverse as k8
+    from hala_tpu_torch.ops import wavefront as k7
+
+    g = scene.geometry
+    c = g.cluster_min.shape[0]
+    spans_real = (g.tri_mat >= 0).view(c, 8, 16).sum(dim=2)
+    out = {}
+    for name, plain, args in (("k8", k8.grouped_walk_plain, a8),
+                              ("k7", k7.wavefront_walk_plain, a7)):
+        for any_hit in (False, True):
+            with S.TestedPairs(k8, spans_real) as work:
+                plain(*args, any_hit)
+            n = args[0].shape[0]
+            # the bound's bytes are small beside its operations
+            b_ms, b_by, old_ms = work.bounds(n * 44 + g.tri_packed.numel() * 4)
+            key = f"{name}{'_anyhit' if any_hit else ''}"
+            out[key] = dict(work.record(), bound_ms=b_ms, bound_by=b_by,
+                            old_bound_ms=old_ms)
+            S.log(f"  {key} N={n}: bound {b_ms:.4f} ms ({b_by}), old bound "
+                  f"{old_ms:.4f}; {work.describe()}")
+    return out
+
+
+def time_k7_k8(S, host, dev, reps: int, own: bool) -> dict:
+    """K8 and K7 of the checkout on chip_smoke's atrium_big batches, and
+    the wavefront frame."""
+    import torch
+
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import traverse as k8
+    from hala_tpu_torch.ops import wavefront as k7
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+
+    scene = SceneUploader.upload(host, device=dev)
+    out = {}
+    for label, batch in (("small", S.mixed_batch(scene, 256, 128, 32768, 31)),
+                         ("big", S.mixed_batch(scene, 1024, 1024, 1 << 20, 33))):
+        a8, a7 = k7k8_inputs(S, scene, batch)
+        rec = {}
+        if own and label == "big":
+            rec["counts"] = k7k8_counts(S, scene, a8, a7)
+        rec.update(
+            k8_ms=S.cuda_ms(lambda: k8.grouped_walk(*a8), reps),
+            k8_anyhit_ms=S.cuda_ms(lambda: k8.grouped_walk(*a8, True), reps),
+            k7_ms=S.cuda_ms(lambda: k7.wavefront_walk(*a7), reps),
+            k7_anyhit_ms=S.cuda_ms(lambda: k7.wavefront_walk(*a7, True), reps))
+        S.log(f"  {label} N={a8[0].shape[0]}: " + ", ".join(
+            f"{key} {v:.4f}" for key, v in rec.items() if key.endswith("ms")))
+        out[label] = rec
+        del a8, a7
+    r = RayTracingRenderer("atrium_big_wavefront", 1920, 1088, max_depth=4, rr_depth=2,
+                           spp=1, intersector="wavefront", device="cuda")
+    r.set_scene(host)
+    r.commit()
+    S.warm_up(r)
+    t0 = time.perf_counter()
+    r.render_loop(2, frames_per_dispatch=2)
+    torch.cuda.synchronize()
+    out["wavefront_frame_ms"] = (time.perf_counter() - t0) / 2 * 1e3
+    S.log(f"  atrium_big wavefront: {out['wavefront_frame_ms']:.1f} ms/frame")
+    return out
+
+
+def sass_loops(root: str) -> dict:
+    """Registers, shared memory and spills (`-Xptxas -v`) of the two
+    walks, and the instructions of each loop of their SASS."""
+    import collections
+    import re
+    import subprocess
+
+    from hala_tpu_torch.ops import cuda_lib
+
+    outdir = os.path.join(cuda_lib.BUILD_DIR, "sass")
+    os.makedirs(outdir, exist_ok=True)
+    flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    out = {}
+    for name in ("grouped_walk", "wavefront_walk"):
+        src = os.path.join(root, "hala_tpu_torch", "csrc", f"{name}.cu")
+        cubin = os.path.join(outdir, f"{name}.cubin")
+        ptxas = subprocess.run([cuda_lib.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v",
+                                "-o", cubin, src], capture_output=True, text=True, check=True)
+        sass = subprocess.run([os.path.join(os.path.dirname(cuda_lib.nvcc_path()),
+                                            "cuobjdump"), "-sass", cubin],
+                              capture_output=True, text=True, check=True).stdout
+        with open(os.path.join(outdir, f"{name}.sass"), "w") as f:
+            f.write(sass)
+        code = []
+        for line in sass.splitlines():
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if m:
+                code.append((int(m.group(1), 16), m.group(2).strip()))
+        loops = []
+        for addr, text in code:
+            b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
+            if b and int(b.group(1), 16) < addr:
+                lo = int(b.group(1), 16)
+                body = [t for a, t in code if lo <= a <= addr]
+                ops = collections.Counter(
+                    re.sub(r"^@!?U?P\w+\s+", "", t).split()[0] for t in body)
+                loops.append(dict(start=hex(lo), end=hex(addr), instructions=len(body),
+                                  ops=dict(ops.most_common(12))))
+        info = [ln.strip() for ln in ptxas.stderr.splitlines()
+                if "registers" in ln or "spill" in ln or "smem" in ln]
+        out[name] = dict(ptxas=info, loops=loops)
+        print(f"  {name}: " + " | ".join(info), flush=True)
+        for lp in loops:
+            print(f"    loop {lp['start']}-{lp['end']}: {lp['instructions']} "
+                  f"instructions {lp['ops']}", flush=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--k1k3", action="store_true")
+    ap.add_argument("--k7k8", action="store_true")
+    ap.add_argument("--sass", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -140,6 +295,14 @@ def main() -> int:
     if args.k1k3:
         out = time_k1_k3(S, host, dev, args.reps)
         out.update(root=root, card=card, build_s=cuda_lib.build_seconds)
+        print(json.dumps(out), flush=True)
+        return 0
+    if args.k7k8 or args.sass:
+        out = dict(root=root, card=card, build_s=cuda_lib.build_seconds)
+        if args.sass:
+            out["sass"] = sass_loops(root)
+        if args.k7k8:
+            out.update(time_k7_k8(S, host, dev, args.reps, root == HERE))
         print(json.dumps(out), flush=True)
         return 0
     scene = SceneUploader.upload(host, device=dev)
