@@ -47,11 +47,11 @@ Phases, in order; any failure raises and exits non-zero:
      with the walked and tested entries per group, the span pairs each
      ray enters and the spans some lane of each warp enters, the bound
      from them and the old one, and the share of rays sent to the
-     fallback); K2 and K6 on `grazing_beside_span` (an open fault:
-     their row-9 pretest drops grazing hits that K1 and their plain
-     version accept; K2 is held to its schedule model and K1 to its
-     plain version bit for bit, the dropped hits are counted, not
-     failed on) — then the golden renders (path tracer, with the
+     fallback); the admissibility rule of the cluster walks
+     (ops/cluster.py) on `grazing_beside_span`, seeds 1-5: K2, K5 and K6
+     equal `stream_plain` bit for bit (K2 also its schedule model), K7
+     and K8 their plain versions, and the rays K1 hits through pairs
+     the rule rejects are counted — then the golden renders (path tracer, with the
      environment-map golden, and rasterizer) held against
      tests/fixtures (RMSE < 1e-3);
   4. Cornell 512x512, depth 4, 16 frames through RayTracingRenderer
@@ -87,7 +87,19 @@ Phases, in order; any failure raises and exits non-zero:
      wavefront frame; bench.py's envmap configuration (Cornell box
      without its light under a seeded 64x128 map, 512x512, 16 frames;
      K1 only) and a short Cornell render with a seeded blue-noise
-     texture;
+     texture; examples/render_procedural.py's scene (the Cornell box
+     and three procedural spheres, 512x512, depth 6, rr 2; K1 only), two
+     warm-up frames then 16 timed frames, whose film mean must lie in
+     PROCEDURAL_MEAN's band and whose frame 0 must equal frame 0 through
+     the plain brute force within relative RMSE 2e-3, with a
+     torch.profiler window over one more frame; atrium_big with three
+     spheres on the camera's view axis (at least 1 % of the primary
+     hits) through "auto" (K2, sorted) and "traverse" (K4, K5, K6),
+     whose frame 0 must match one "cluster" frame; the Cornell box at
+     512x512 through RayTracingProgram with identity kernels on every
+     seam (the hookless film bit for bit), then with a constant miss
+     kernel and a closest-hit kernel forcing the albedo (the film and
+     the albedo AOV change as set), timed with and without hooks;
   6. bench.py's raster cells through RasterizationRenderer with the
      ACES post program: raster_atrium (atrium_big 1920x1088, binned,
      tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
@@ -151,6 +163,16 @@ INSTANCES = 5
 REL_RMSE_TOL = 2e-3
 # the witness band of frame 0: first row and row count of 1920x1088
 BAND_ROWS = (480, 128)
+# The film mean of the procedural phase (frames 0-15 of
+# examples/render_procedural.py's scene at 512x512, depth 6, rr 2): the
+# JAX package on the CPU read 0.7778406143188477, with 5.680 rays per
+# camera ray (tools/jax_procedural_band.py, "bruteforce", 62 s on a
+# shared x86 host); the port must land within PROCEDURAL_BAND of it
+# (relative; side-by-side films agree to ~1e-3 relative RMSE, so their
+# means far closer).
+PROCEDURAL_MEAN = 0.7778406143188477
+PROCEDURAL_BAND = 5e-3
+SPHERE_SHARE_MIN = 0.01  # primary hits on the spheres added to atrium_big
 RASTER_FRAMES = {"raster_atrium": 10, "raster": 10}
 JAX_TPU_REFERENCE = {  # (film mean, rays per primary) of the JAX package
     "cornell": (0.6949, 5.46),
@@ -497,9 +519,11 @@ def k5_work(g, o, d, tm, ids, k, hit, runs):
     """The work K5's function needs on these rays, the walk of each
     ray's list as the kernel runs it (`runs` clusters): per visit the
     eight sub-box tests, and Moller-Trumbore on the real triangles of
-    the spans the ray enters at or before its hit (`span_work`). Bytes:
-    rays, lists and hits once, the slot blocks once. Returns (bound ms,
-    by, visits, Moller-Trumbore pairs)."""
+    the spans the ray enters at or before its hit (`span_work`); the
+    admissibility rule's cluster-box test is needed only for the few
+    pairs Moller-Trumbore accepts at or below the best t, and is not
+    counted. Bytes: rays, lists and hits once, the slot blocks once.
+    Returns (bound ms, by, visits, Moller-Trumbore pairs)."""
     import torch
 
     n = o.shape[0]
@@ -801,8 +825,9 @@ def check_k5_k6(dev_scene, small, big, reps: int):
 
     def run(o, d, tm, k, label, fallback=True):
         ids, tns, ovf = k5.cull_candidates(o, d, tm, cmin, cmax, k)
-        got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
-        ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, g.tri_packed)
+        got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, cmin, cmax, g.tri_packed)
+        ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, cmin, cmax,
+                                           g.tri_packed)
         torch.cuda.synchronize()
         equal_tensors(f"K5 K={k} {label}", (*got[0], got[1], got[2]),
                       (*ref[0], ref[1], ref[2]), k5_labels)
@@ -855,7 +880,7 @@ def check_k5_k6(dev_scene, small, big, reps: int):
                                         ("big_sorted", big_s, lists_s)):
         lists = lists or k5.cull_candidates(o_, d_, tm_, cmin, cmax, k)
         times[label] = cuda_ms(lambda: k5.traverse_candidates(
-            o_, d_, tm_, *lists, g.tri_packed), reps)
+            o_, d_, tm_, *lists, cmin, cmax, g.tri_packed), reps)
     k5_rec = dict(
         # over t, u, v of the pairs compared above; tri mismatches beside it
         max_abs_err=max(max_abs_diff((got[0].t, got[0].u, got[0].v),
@@ -868,7 +893,7 @@ def check_k5_k6(dev_scene, small, big, reps: int):
         unresolved=int(got[1].sum()), times=times,
         ms=times["big_sorted"], ms_unsorted=times["big"],
         plain_ms=cuda_ms(lambda: k5.traverse_candidates_plain(
-            *big_s, *lists_s, g.tri_packed), 1),
+            *big_s, *lists_s, cmin, cmax, g.tri_packed), 1),
     )
     # K6 on the fallback's inputs, in the main path's (sorted) order
     k6_rec = k6_record(g, big_s[0], big_s[1], *sorted_run[5:8], reps)
@@ -997,14 +1022,17 @@ def anyhit_equal(name: str, occ, ref, a, b) -> None:
 
 class TestedPairs:
     """Counts what the walks' plain versions test: for every (group,
-    entry) they hand to `mm_chunk_test_plain`, with its span mask
-    (`mm_span_mask`; live rays only, t_max > 1e-4, as the kernels' lanes
-    do no work otherwise):
+    entry) they hand to `mm_chunk_test_plain`, with its span limits
+    (`mm_span_mask`: a span is let in where its limit is finite; live
+    rays only, t_max > 1e-4, as the kernels' lanes do no work
+    otherwise):
       - pairs: live rays x the cluster's real triangles, every pair the
         walks tested before the span mask (the old bound's count);
       - span_pairs: live ray x real triangle in the spans the ray's mask
         lets in, the work the function needs (the bound's count, with
-        slab_tests: 8 span boxes per live ray and tested entry), and of
+        slab_tests: 8 span boxes per live ray and tested entry; the
+        cluster box of the admissibility rule is needed only on the
+        pairs that pass, and is not counted), and of
         them passed_pairs, those that pass the division-free test
         (`mm_barycentric_pass`), which alone need t and the range test;
       - ray_spans: (ray, span) pairs let in; warp_spans: (warp, span)
@@ -1023,7 +1051,8 @@ class TestedPairs:
         self.inner = self.module.mm_chunk_test_plain
         module = self.module
 
-        def counted(coef, cc, cid, o, d, tm, any_hit, span):
+        def counted(coef, cc, cid, o, d, tm, any_hit, limit):
+            span = limit < float("inf")  # the spans the rays' limits let in
             real = self.real[cid]  # (R, 8)
             live = tm > 1e-4
             self.pairs += int((live.sum(dim=1) * real.sum(dim=1)).sum())
@@ -1037,7 +1066,7 @@ class TestedPairs:
             warps = span.view(span.shape[0], -1, 32, span.shape[2]).any(dim=2)
             self.warp_spans += int(warps.sum())
             self.all_warp_spans += warps.numel()
-            return self.inner(coef, cc, cid, o, d, tm, any_hit, span)
+            return self.inner(coef, cc, cid, o, d, tm, any_hit, limit)
 
         self.module.mm_chunk_test_plain = counted
         return self
@@ -1194,38 +1223,47 @@ def span_breaking_walls(seed: int):
             tm.astype(f32))
 
 
-def span_table_cases(dev):
-    """The walks' inputs on `span_breaking_walls`, for K8 (k_cap 2 and 5)
-    and K7 (k 2 and 5, m 8; the lists merged in the table's ray order,
-    without the signature sort), each closest and any-hit: a list of
-    (label, kernel, plain version, arguments, output labels)."""
+def grazing_table(seed: int):
+    """`grazing_beside_span` in `span_breaking_walls`' form: numpy
+    (tri_packed, cluster_min, cluster_max, o, d, t_max)."""
+    g, o, d, tm = grazing_beside_span(seed)
+    return tuple(x.numpy() for x in (g.tri_packed, g.cluster_min, g.cluster_max,
+                                     o, d, tm))
+
+
+def span_table_cases(dev, table=None, caps=(2, 5), name="span table"):
+    """The walks' inputs on `span_breaking_walls` (or `table`, in its
+    form), for K8 (k_cap in `caps`) and K7 (k in `caps`, m 8; the lists
+    merged in the table's ray order, without the signature sort), each
+    closest and any-hit: a list of (label, kernel, plain version,
+    arguments, output labels)."""
     import torch
 
     from hala_tpu_torch.ops import cull
     from hala_tpu_torch.ops import traverse as k8
     from hala_tpu_torch.ops import wavefront as k7
 
-    blk, cmin, cmax, o, d, tm = (torch.from_numpy(a).to(dev)
-                                 for a in span_breaking_walls(41))
+    blk, cmin, cmax, o, d, tm = (torch.from_numpy(a).to(dev) for a in (
+        span_breaking_walls(41) if table is None else table))
     c = cmin.shape[0]
     g_total = o.shape[0] // k8.GROUP
     cases = []
-    for k_cap in (2, 5):
+    for k_cap in caps:
         ids, tns, usz = k8._group_candidates(o, d, tm, cmin, cmax, k_cap)
         args = (o, d, tm, torch.clamp(usz, max=k_cap),
                 torch.clamp(ids, max=c - 1).contiguous(), tns.view(torch.int32),
                 blk, cmin, cmax)
         for any_hit in (False, True):
-            cases.append((f"K8 span table k_cap={k_cap} any_hit={any_hit}",
+            cases.append((f"K8 {name} k_cap={k_cap} any_hit={any_hit}",
                           k8.grouped_walk, k8.grouped_walk_plain, args + (any_hit,),
                           ("t", "tri", "u", "v", "walked")))
-    for k in (2, 5):
+    for k in caps:
         pk, _ = cull.cull_topk(o, d, tm, cmin, cmax, k=k)
         tnb, _ = k7._group_lists(pk, g_total, k, 8)
         args = (o, d, tm, tnb, k7.pack_want(k7.want_mask(tnb, pk, k)),
                 k7.own_last_key(pk), blk, cmin, cmax)
         for any_hit in (False, True):
-            cases.append((f"K7 span table k={k} m=8 any_hit={any_hit}",
+            cases.append((f"K7 {name} k={k} m=8 any_hit={any_hit}",
                           k7.wavefront_walk, k7.wavefront_walk_plain, args + (any_hit,),
                           ("t", "tri", "u", "v", "stats")))
     return cases
@@ -1233,13 +1271,17 @@ def span_table_cases(dev):
 
 def check_span_table(dev):
     """K8 and K7 against their plain versions, bit for bit, on
-    `span_breaking_walls`, with the table's span counts."""
+    `span_breaking_walls`, with the table's span counts, and on the
+    grazing table (`grazing_table`, seeds 1-5, K 1)."""
     import torch
 
     from hala_tpu_torch.ops import traverse as k8
 
     out = {}
-    for label, kernel, plain, args, labels in span_table_cases(dev):
+    cases = span_table_cases(dev)
+    for seed in (1, 2, 3, 4, 5):
+        cases += span_table_cases(dev, grazing_table(seed), (1,), f"grazing seed {seed}")
+    for label, kernel, plain, args, labels in cases:
         got = kernel(*args)
         with TestedPairs(k8, real_spans(args[6])) as work:
             ref = plain(*args)
@@ -1295,15 +1337,48 @@ def grazing_beside_span(seed: int, n: int = 1024):
             torch.from_numpy((d @ q.T).astype(f32)), torch.full((n,), 3.0e38))
 
 
+def half_box_table():
+    """One cluster holding the unit triangle of the x = 0 plane (v0
+    (0, 0, 0), e1 (0, 1, 0), e2 (0, 0, 1), slot 3) whose cluster box
+    covers only y < 0.5 of it, and 64 rays along +x crossing the plane at
+    y in [0.01, 0.98], z 0.02 (none along the box's face): those above
+    y 0.5 hit the triangle inside its span box and outside the cluster
+    box, so the admissibility rule's cluster clause alone rejects them.
+    Returns (geometry on the CPU, o, d, t_max)."""
+    import types
+
+    import torch
+
+    from hala_tpu_torch.ops.cluster import with_pretest_row
+
+    blk = torch.zeros((1, 16, 128))
+    blk[0, 0:3, :] = 3.0e37
+    blk[0, 0:3, 3] = 0.0
+    blk[0, 4, 3] = 1.0
+    blk[0, 8, 3] = 1.0
+    blk = with_pretest_row(blk)
+    rows = blk[0, 0:9, :].T.contiguous()
+    g = types.SimpleNamespace(
+        cluster_min=torch.tensor([[0.0, 0.0, 0.0]]),
+        cluster_max=torch.tensor([[0.0, 0.5, 1.0]]), tri_packed=blk,
+        tri_v0=rows[:, 0:3].contiguous(), tri_e1=rows[:, 3:6].contiguous(),
+        tri_e2=rows[:, 6:9].contiguous())
+    ys = np.linspace(0.0, 0.96, 64) + 0.0101
+    o = torch.tensor([[-2.0, y, 0.02] for y in ys], dtype=torch.float32)
+    d = torch.tensor([[1.0, 0.0, 0.0]] * 64)
+    return g, o, d, torch.full((64,), 3.0e38)
+
+
 def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
-    """An open fault (ROADMAP Queue 3), measured: on `grazing_beside_span`
-    K1's classic Moller-Trumbore and `stream_plain` accept rays that
-    miss span 0's padded box, which the row-9 pretest of K2 and K6
-    skips. Holds K2 against its schedule model `matrix_walk_runs_plain`
-    and K1 against its plain version, bit for bit (failing otherwise),
-    and counts per seed the rays K1, `stream_plain`, K2 and K6 hit and
-    those where K2 or K6 differ from `stream_plain`, their plain
-    version: the fault, logged, not failed on."""
+    """The admissibility rule on the card (ops/cluster.py): on
+    `grazing_beside_span` K1's classic Moller-Trumbore accepts rays that
+    pass beside span 0's triangle, outside its padded box; the cluster
+    walks K2, K5 (on K4's lists) and K6 must equal `stream_plain`, their
+    plain version, bit for bit (t, tri, u, v), K2 also its schedule
+    model `matrix_walk_runs_plain` (runs too) and K1 its plain version,
+    or the check fails; the same on `half_box_table`, where the cluster
+    box alone rejects pairs. Logs per table the rays K1 and the walks
+    hit."""
     import torch
 
     from hala_tpu_torch.ops import cluster as k6
@@ -1312,8 +1387,8 @@ def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
 
     labels = ("t", "tri", "u", "v")
     out = []
-    for seed in seeds:
-        g, o, d, tm = grazing_beside_span(seed)
+    for seed in (*seeds, "half box"):
+        g, o, d, tm = half_box_table() if seed == "half box" else grazing_beside_span(seed)
         for key in vars(g):
             setattr(g, key, getattr(g, key).to(dev))
         o, d, tm = o.to(dev), d.to(dev), tm.to(dev)
@@ -1325,21 +1400,27 @@ def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
                                                 t_max=tm)
         stream = k6.stream_plain(*args)
         k6_hit = k6.intersect_clustered(o, d, g, t_max=tm)
+        ids, tns, ovf = k2.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, 1)
+        k5_hit = k2.traverse_candidates(o, d, tm, ids, tns, ovf, g.cluster_min,
+                                        g.cluster_max, g.tri_packed)[0]
         torch.cuda.synchronize()
         equal_tensors(f"K2 vs its schedule model, grazing seed {seed}",
                       (*hit, runs), (*model, model_runs), labels + ("runs",))
         equal_tensors(f"K1 vs plain, grazing seed {seed}", brute, brute_plain, labels)
+        for name, got in (("K2", hit), ("K5", k5_hit), ("K6", k6_hit)):
+            equal_tensors(f"{name} vs stream_plain, grazing seed {seed}", got, stream,
+                          labels)
         rec = dict(seed=seed, rays=o.shape[0], k1=int((brute.tri >= 0).sum()),
                    stream_plain=int((stream.tri >= 0).sum()),
-                   k2=int((hit.tri >= 0).sum()), k6=int((k6_hit.tri >= 0).sum()),
-                   k2_vs_plain=int((hit.tri != stream.tri).sum()),
-                   k6_vs_plain=int((k6_hit.tri != stream.tri).sum()))
+                   k2=int((hit.tri >= 0).sum()), k5=int((k5_hit.tri >= 0).sum()),
+                   k6=int((k6_hit.tri >= 0).sum()),
+                   k1_only=int(((brute.tri >= 0) & (stream.tri < 0)).sum()))
         out.append(rec)
-        log(f"  grazing beside span 0, seed {seed}: K2 equals its schedule model and "
-            f"K1 its plain version bit for bit; rays hit of {rec['rays']}: K1 "
-            f"{rec['k1']}, stream_plain {rec['stream_plain']}, K2 {rec['k2']}, K6 "
-            f"{rec['k6']}; differ from stream_plain: K2 {rec['k2_vs_plain']}, K6 "
-            f"{rec['k6_vs_plain']} (open fault, ROADMAP Queue 3)")
+        table = "half_box_table" if seed == "half box" else f"grazing beside span 0, seed {seed}"
+        log(f"  {table}: K2, K5 and K6 equal stream_plain "
+            f"bit for bit ({rec['stream_plain']} of {rec['rays']} rays hit), K2 its "
+            f"schedule model, K1 its plain version; K1 hits {rec['k1']}, "
+            f"{rec['k1_only']} through pairs the admissibility rule rejects")
     return out
 
 
@@ -1663,7 +1744,8 @@ def check_instances(dev_scene, reps: int, cam=(1024, 1024), n_rand: int = 1 << 2
         f"rays {k4['merge_ms_half']:.3f} ms")
 
     ids, tns, ovf = k5.cull_candidates(*big_s, cmin, cmax, k, unions=unions)
-    hit, unres, _ = k5.traverse_candidates(*big_s, ids, tns, ovf, g.tri_packed)
+    hit, unres, _ = k5.traverse_candidates(*big_s, ids, tns, ovf, cmin, cmax,
+                                           g.tri_packed)
     fb_tm = k5.fallback_t_max(hit, unres)
     fk = k6.intersect_clustered(big_s[0], big_s[1], g, t_max=fb_tm)
     fp = k6.intersect_clustered_plain(big_s[0], big_s[1], g, t_max=fb_tm)
@@ -2346,6 +2428,300 @@ def profile_frames(label: str, step, frames: int, wall_ms: float, card: str):
                      for ms, c, k in rows[:12]])
 
 
+# ---------------------------------------------------------------------------
+# procedural spheres and pushed kernels
+# ---------------------------------------------------------------------------
+
+
+def procedural_scene():
+    """examples/render_procedural.py's scene on the port: the Cornell box
+    and three spheres (diffuse, Disney metal, emissive)."""
+    from hala_tpu_torch import Material, MaterialType, ProceduralSphere
+    from hala_tpu_torch.scene.procedural import cornell_box
+
+    scene = cornell_box()
+    blue = Material(base_color=np.array([0.2, 0.4, 0.9], np.float32))
+    metal = Material(type=MaterialType.DISNEY,
+                     base_color=np.array([0.95, 0.85, 0.6], np.float32),
+                     metallic=1.0, roughness=0.15)
+    glow = Material(base_color=np.array([1.0, 1.0, 1.0], np.float32),
+                    emission=np.array([6.0, 3.0, 1.5], np.float32))
+    for mat, center, radius in ((blue, (-0.45, -0.65, 0.1), 0.35),
+                                (metal, (0.45, -0.7, -0.2), 0.30),
+                                (glow, (0.0, 0.35, -0.4), 0.15)):
+        scene.materials.append(mat)
+        scene.procedurals.append(ProceduralSphere(center=center, radius=radius,
+                                                  material=len(scene.materials) - 1))
+    return scene
+
+
+def frame0(r, intersector: str | None = None):
+    """Frame 0 of renderer r's settings (or through `intersector`) on a
+    fresh film: its RGB."""
+    import torch
+
+    from hala_tpu_torch.models.integrator import Film, render_frame
+
+    st = r.settings if intersector is None else dataclasses.replace(
+        r.settings, intersector=intersector)
+    film = Film.create(st.width, st.height, r.device)
+    render_frame(r.scene, None, r.uniforms, film, 0, st, hooks=r.hooks)
+    torch.cuda.synchronize()
+    return film.accum[..., :3]
+
+
+def procedural_render(card: str, frames: int = 16, size=(512, 512), device="cuda"):
+    """examples/render_procedural.py's scene through RayTracingRenderer
+    "auto" (K1): two warm-up frames, `frames` timed frames (Mrays/s,
+    ms/frame, K1 launches), gates: rays above 1.2x camera rays, the film
+    mean within PROCEDURAL_BAND of PROCEDURAL_MEAN, frame 0 against the
+    plain brute force's frame 0 (relative RMSE 2e-3); then a
+    torch.profiler window over one more frame (the busy share)."""
+    import torch
+
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import cuda_lib
+
+    r = RayTracingRenderer("procedural", *size, max_depth=6, rr_depth=2, device=device)
+    r.set_scene(procedural_scene())
+    r.commit()
+    r.render_loop(2)
+    torch.cuda.synchronize()
+    r.reset_accumulation()
+    r.total_rays = 0.0
+    cuda_lib.reset_launches()
+    t0 = time.perf_counter()
+    r.render_loop(frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = cuda_lib.launches()
+    if not (counts["intersect_bruteforce"] > 0
+            and sum(counts.values()) == counts["intersect_bruteforce"]):
+        raise AssertionError(f"procedural launches {counts}")
+    accum = r.film.accum[..., :3]
+    primaries = size[0] * size[1] * frames
+    out = dict(mean=float(accum.mean()), rays_per_primary=r.total_rays / primaries,
+               mrays_per_s=r.total_rays / dt / 1e6, ms_per_frame=dt / frames * 1e3,
+               k1_launches=counts["intersect_bruteforce"],
+               frame0_rel_rmse_vs_plain=rel_rmse(frame0(r), frame0(r, "bruteforce")))
+    if not bool(torch.isfinite(accum).all()) or not out["rays_per_primary"] > 1.2:
+        raise AssertionError(f"procedural: {out}")
+    if not abs(out["mean"] - PROCEDURAL_MEAN) <= PROCEDURAL_BAND * PROCEDURAL_MEAN:
+        raise AssertionError(f"procedural: film mean {out['mean']} outside "
+                             f"{PROCEDURAL_MEAN} +- {PROCEDURAL_BAND:.1%}")
+    if not out["frame0_rel_rmse_vs_plain"] < REL_RMSE_TOL:
+        raise AssertionError(f"procedural frame 0 vs plain: {out}")
+    log(f"  procedural {size[0]}x{size[1]}x{frames}f: film mean {out['mean']:.5f} "
+        f"(JAX on the CPU {PROCEDURAL_MEAN}), rays/primary "
+        f"{out['rays_per_primary']:.3f}; {out['mrays_per_s']:.2f} Mrays/s, "
+        f"{out['ms_per_frame']:.2f} ms/frame, K1 {out['k1_launches']} launches; "
+        f"frame 0 vs the plain brute force: relative RMSE "
+        f"{out['frame0_rel_rmse_vs_plain']:.3g} [{card}]")
+    out["profile"] = profile_frames("procedural", lambda: r.render_loop(1), 1,
+                                    out["ms_per_frame"], card)
+    return out
+
+
+def with_spheres_on_view_axis(host, dev_scene):
+    """A copy of host scene `host` with three diffuse spheres on its
+    first camera's view axis, at 0.3, 0.5 and 0.7 of the distance t0 to
+    the first surface along it (radii 0.05, 0.07, 0.09 t0, set off
+    sideways by -0.12, 0, 0.12 t0); t0 from K2 on `dev_scene`."""
+    import copy
+
+    import torch
+
+    from hala_tpu_torch import Material, ProceduralSphere
+    from hala_tpu_torch.ops import traverse
+
+    node = next(n for n in host.nodes if n.camera_index is not None)
+    w = np.asarray(node.world_transform, np.float64)
+    pos, right, fwd = w[:3, 3], w[:3, 0] / np.linalg.norm(w[:3, 0]), -w[:3, 2]
+    fwd = fwd / np.linalg.norm(fwd)
+    dev = dev_scene.geometry.tri_v0.device
+    hit = traverse.intersect_matrix(
+        torch.tensor(pos[None], dtype=torch.float32, device=dev),
+        torch.tensor(fwd[None], dtype=torch.float32, device=dev), dev_scene.geometry)
+    t0 = float(hit.t[0])
+    if not (hit.tri[0] >= 0 and np.isfinite(t0)):
+        raise AssertionError("the camera's view axis hits nothing")
+    out = copy.copy(host)
+    out.materials = list(host.materials)
+    out.procedurals = []
+    for i, (at, rad, side) in enumerate(((0.3, 0.05, -0.12), (0.5, 0.07, 0.0),
+                                         (0.7, 0.09, 0.12))):
+        out.materials.append(Material(base_color=np.array(
+            [0.8, 0.3 + 0.2 * i, 0.2], np.float32)))
+        c = pos + fwd * (at * t0) + right * (side * t0)
+        out.procedurals.append(ProceduralSphere(center=tuple(float(x) for x in c),
+                                                radius=rad * t0,
+                                                material=len(out.materials) - 1))
+    return out, t0
+
+
+def spheres_render(host, card: str, frames: int = 2, size=(1920, 1088), device="cuda"):
+    """atrium_big with three spheres on the view axis (`with_spheres_on_
+    view_axis`), 1 spp, depth 4, rr 2: the share of primary hits on the
+    spheres (>= SPHERE_SHARE_MIN), then "auto" (K2 sorted; bench.py's
+    sponza invariants) and "traverse" (K4, K5, K6; the same), each a
+    warm-up frame and `frames` timed frames, the traverse frame 0
+    against one "cluster" frame (relative RMSE 2e-3)."""
+    import torch
+
+    from hala_tpu_torch.models import integrator
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops.prims import PROC_BASE
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+
+    base = SceneUploader.upload(host, device=device)
+    scene, t0 = with_spheres_on_view_axis(host, base)
+    del base
+    out = dict(view_axis_t0=t0)
+    for label, sel in (("auto", "auto"), ("traverse", "traverse")):
+        r = RayTracingRenderer(f"atrium_big_spheres_{label}", *size, max_depth=4,
+                               rr_depth=2, spp=1, intersector=sel, device=device)
+        r.set_scene(scene)
+        r.commit()
+        if label == "auto":
+            o, d = camera_rays(r.scene, *size, seed=7)
+            hit = integrator._intersect(r.scene, o, d, r.settings)
+            out["sphere_share"] = float((hit.tri >= PROC_BASE).float().mean())
+            out["hit_share"] = float((hit.tri >= 0).float().mean())
+            if not out["sphere_share"] >= SPHERE_SHARE_MIN:
+                raise AssertionError(f"spheres on atrium_big: {out}")
+        first = warm_up(r)
+        cuda_lib.reset_launches()
+        rec = run_render(r, frames, frames, f"atrium_big + spheres {label}", card,
+                         cell="sponza")
+        rec["launches"] = cuda_lib.launches()
+        large = ("cull_topk", "traverse_candidates", "cluster_stream")
+        if label == "auto":
+            ok = rec["launches"]["matrix_traverse"] > 0 and not any(
+                rec["launches"][k] for k in large)
+        else:
+            ok = all(rec["launches"][k] > 0 for k in large) and not rec["launches"][
+                "matrix_traverse"]
+            rec["frame0_rel_rmse_vs_cluster"] = rel_rmse(first, frame0(r, "cluster"))
+            ok = ok and rec["frame0_rel_rmse_vs_cluster"] < REL_RMSE_TOL
+        if not ok:
+            raise AssertionError(f"atrium_big + spheres {label}: {rec}")
+        out[label] = rec
+        del r
+    log(f"  atrium_big + spheres: {out['sphere_share']:.4f} of primary rays hit a "
+        f"sphere ({out['hit_share']:.4f} hit anything), launches auto "
+        f"{out['auto']['launches']}, traverse {out['traverse']['launches']}; "
+        f"traverse frame 0 vs cluster: relative RMSE "
+        f"{out['traverse']['frame0_rel_rmse_vs_cluster']:.3g} [{card}]")
+    return out
+
+
+def _identity_kernels():
+    """name -> kernel: an identity on every seam of RayTracingProgram."""
+    return {
+        "chip_smoke:identity_raygen": lambda gpix, fidx, r_jit: r_jit,
+        "chip_smoke:identity_miss": lambda d, uniforms, default: default,
+        "chip_smoke:identity_post_shade": lambda L, alb, nrm: (L, alb, nrm),
+        "chip_smoke:identity_closest_hit": lambda ctx, mp: mp,
+        "chip_smoke:identity_any_hit": lambda ctx, mp, r, default_pass: default_pass,
+        "chip_smoke:identity_intersection": lambda o, d, lhit: lhit,
+    }
+
+
+HOOK_MISS = (0.0, 5.0, 0.0)     # the constant miss kernel's radiance
+HOOK_ALBEDO = (1.0, 0.0, 0.0)   # the base color the closest-hit kernel forces
+
+
+def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
+    """The Cornell box through RayTracingProgram (depth 4), frames 0 and
+    1: the builtin desc; the desc with identity kernels on every seam
+    (equal bit for bit); one with a constant miss kernel (HOOK_MISS: the
+    film's green mean rises, the albedo AOV stays bit for bit); one with
+    a closest-hit kernel forcing the base color (HOOK_ALBEDO: the film
+    changes, the albedo AOV is HOOK_ALBEDO times the share of frames
+    whose camera ray met a surface first, so its green and blue are 0
+    and its red positive on every such pixel). Each desc then `frames`
+    timed frames (ms/frame)."""
+    import torch
+
+    from hala_tpu_torch.models.integrator import Film, Uniforms
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.programs import KernelCache, RayTracingProgram, RayTracingProgramDesc
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+    from hala_tpu_torch.scene.procedural import cornell_box
+
+    cache = KernelCache.get_instance()
+    kernels = _identity_kernels()
+    kernels["chip_smoke:green_miss"] = lambda d, uniforms, default: torch.tensor(
+        HOOK_MISS, device=default.device).expand_as(default)
+    kernels["chip_smoke:forced_albedo"] = lambda ctx, mp: mp._replace(
+        base_color=torch.tensor(HOOK_ALBEDO, device=mp.base_color.device).expand_as(
+            mp.base_color))
+    for name, fn in kernels.items():
+        cache.from_memory(name, fn)
+    scene = SceneUploader.upload(cornell_box(), device=device)
+    uni = Uniforms.default(device)
+    ident = [k for k in kernels if "identity" in k]
+    descs = {
+        "builtin": RayTracingProgramDesc(ray_recursion_depth=4),
+        "identity": RayTracingProgramDesc(
+            ray_recursion_depth=4, ray_gen_shader_file_path=ident[0],
+            miss_shader_file_paths=[ident[1]], callable_shader_file_paths=[ident[2]],
+            hit_shader_file_paths=ident[3:6]),
+        "miss": RayTracingProgramDesc(
+            ray_recursion_depth=4, miss_shader_file_paths=["chip_smoke:green_miss"]),
+        "closest_hit": RayTracingProgramDesc(
+            ray_recursion_depth=4, hit_shader_file_paths=["chip_smoke:forced_albedo"]),
+    }
+    out, films = {}, {}
+    try:
+        for label, desc in descs.items():
+            prog = RayTracingProgram(desc, scene)
+            film = Film.create(*size, device)
+            for f in range(2):
+                prog.trace_rays(film, *size, frame_index=f, uniforms=uni)
+            torch.cuda.synchronize()
+            films[label] = film
+            timed = Film.create(*size, device)
+            cuda_lib.reset_launches()
+            t0 = time.perf_counter()
+            for f in range(frames):
+                prog.trace_rays(timed, *size, frame_index=f, uniforms=uni)
+            torch.cuda.synchronize()
+            out[label] = dict(ms_per_frame=(time.perf_counter() - t0) / frames * 1e3,
+                              k1_launches=cuda_lib.launches()["intersect_bruteforce"])
+    finally:
+        for name in kernels:
+            cache.remove(name)
+    a, b = films["builtin"], films["identity"]
+    m, c = films["miss"], films["closest_hit"]
+    for k in ("accum", "albedo", "normal"):
+        if not torch.equal(getattr(a, k), getattr(b, k)):
+            raise AssertionError(f"identity kernels changed the film's {k}")
+    surface = a.albedo[..., :3].abs().sum(-1) > 0  # a surface met first
+    out.update(
+        identity_equal=True, surface_share=float(surface.float().mean()),
+        green_mean=[float(a.accum[..., 1].mean()), float(m.accum[..., 1].mean())],
+        albedo_forced=bool((c.albedo[..., 1:3] == 0).all()
+                           and (c.albedo[..., 0][surface] > 0).all()
+                           and torch.equal(c.albedo[..., 0] > 0, surface)))
+    if not (out["surface_share"] > 0.5 and out["albedo_forced"]
+            and out["green_mean"][1] > out["green_mean"][0]
+            and torch.equal(a.albedo, m.albedo)
+            and not torch.equal(a.accum, c.accum)):
+        raise AssertionError(f"hooks: {out}")
+    log(f"  hooks, Cornell {size[0]}x{size[1]} through RayTracingProgram: identity "
+        f"kernels on every seam give the hookless film bit for bit; the miss kernel "
+        f"raises the film's green mean {out['green_mean'][0]:.4f} -> "
+        f"{out['green_mean'][1]:.4f}, the closest-hit kernel forces the albedo AOV "
+        f"on the {out['surface_share']:.4f} of pixels a surface meets first; "
+        f"ms/frame builtin {out['builtin']['ms_per_frame']:.2f}, identity "
+        f"{out['identity']['ms_per_frame']:.2f}, miss "
+        f"{out['miss']['ms_per_frame']:.2f}, closest hit "
+        f"{out['closest_hit']['ms_per_frame']:.2f} [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2580,6 +2956,12 @@ def main() -> int:
     log(f"  launches: envmap {after_env}")
     del envr, bn
 
+    # procedural spheres (K1 on the Cornell box, K2 and K4-K6 on
+    # atrium_big) and pushed kernels through RayTracingProgram (K1)
+    proc_out = procedural_render(card)
+    spheres_out = spheres_render(big_host, card)
+    hooks_out = hooks_render(card)
+
     post = post_program()
     ra = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=64,
                                post_program=post, device="cuda")
@@ -2716,6 +3098,8 @@ def main() -> int:
                    atrium_big_wavefront_profile=w_prof,
                    atrium_big_matrix_wavefront_routes=x_out,
                    envmap=e_out, cornell_blue_noise=bn_out,
+                   procedural=proc_out, atrium_big_spheres=spheres_out,
+                   hooks=hooks_out,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -26,6 +26,7 @@ from .scene.cpu.mesh import Mesh, Primitive  # noqa: E402
 from .scene.cpu.material import Material, Medium, MaterialType, MediumType  # noqa: E402
 from .scene.cpu.light import Light, LightType  # noqa: E402
 from .scene.cpu.camera import Camera, PerspectiveCamera, OrthographicCamera  # noqa: E402
+from .scene.cpu.prims import ProceduralSphere  # noqa: E402
 from .scene.cpu.image_data import ImageData, ImageFormat  # noqa: E402
 from .scene.loader.gltf_loader import GltfLoader  # noqa: E402
 from .scene.loader.uploader import SceneUploader  # noqa: E402
@@ -34,11 +35,17 @@ from .envmap import EnvMap  # noqa: E402
 from .models.renderer import RendererInfo, RendererStatistics, BaseRenderer  # noqa: E402
 from .models.rt_renderer import RayTracingRenderer, EnvType  # noqa: E402
 from .models.rz_renderer import RasterizationRenderer  # noqa: E402
-from .programs import KernelCache, ComputeProgram, GraphicsProgram  # noqa: E402
+from .programs import (  # noqa: E402
+    KernelCache,
+    ComputeProgram, ComputeProgramDesc,
+    RayTracingProgram, RayTracingProgramDesc,
+    GraphicsProgram, GraphicsProgramDesc,
+)
 
 __version__ = "0.1.0"
 
 __all__ = [
+    "ProceduralSphere",
     "HalaRendererError",
     "Bounds", "Meshlet", "MESHLET_MAX_VERTICES", "MESHLET_MAX_PRIMITIVES",
     "Scene", "Node", "Mesh", "Primitive",
@@ -49,5 +56,8 @@ __all__ = [
     "GltfLoader", "SceneUploader", "DeviceScene", "from_numpy", "EnvMap",
     "RendererInfo", "RendererStatistics", "BaseRenderer",
     "RayTracingRenderer", "EnvType", "RasterizationRenderer",
-    "KernelCache", "ComputeProgram", "GraphicsProgram",
+    "KernelCache",
+    "ComputeProgram", "ComputeProgramDesc",
+    "RayTracingProgram", "RayTracingProgramDesc",
+    "GraphicsProgram", "GraphicsProgramDesc",
 ]

@@ -45,15 +45,19 @@
 //  * Reduce. Each lane keeps its lowest (t, slot) hit; shuffles reduce
 //    them to the cluster's, u and v come from the winning lane, and
 //    `lex_better` merges it into the ray's best, the same on every lane.
+// The function (cluster_walk.cuh `admissible`, ops/cluster.py): a pair
+// Moller-Trumbore accepts at t counts only where the ray enters the
+// cluster's padded box at tn_c <= t and its lane's span box at
+// tn_s <= t, two compares on the accepted pairs alone. Every skip is
+// exact under it: a union, a cluster or a span entered beyond the best
+// t (a union's entry is at most each member's) holds only admissible
+// pairs with t above the best, which cannot win, ties included.
 // Tie rule: the warp meets the clusters a ray enters in ascending id
 // order, but it keeps the lexicographic (t, slot) minimum and enters a
 // box with tn <= best t, not <, so the result does not rest on the
 // order: a box entered exactly at the best t may still hold a lower
-// slot at that t. With the conservative tests (a union, a cluster or a
-// 16-slot span holding a hit at t is entered at a widened-down distance
-// <= t) the result equals the brute force over all slots, ties to the
-// lowest slot, as `stream_plain`; the unions and the pretest only prune
-// boxes and spans with no hit that could win.
+// slot at that t. The result is the lexicographic minimum over the
+// admissible pairs, as `stream_plain`.
 //
 // What bounds it on an H100: per ray the function needs the slab tests
 // of the cluster boxes (a union per 16 boxes and the members of the
@@ -83,10 +87,12 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // Moller-Trumbore over cluster c's 128 slots, 4 a lane (float4 loads
 // of rows 0-8) behind the lane's row-9 span pretest; the warp's lowest
-// (t, slot) hit merged into b by `lex_better`, the same on every lane.
+// (t, slot) admissible hit (tn_c: the cluster's entry distance) merged
+// into b by `lex_better`, the same on every lane.
 __device__ __forceinline__ void walk_cluster(const float* __restrict__ tri_packed,
-                                             int c, const hala::Ray& r,
-                                             int lane, hala::Best& b) {
+                                             int c, float tn_c,
+                                             const hala::Ray& r, int lane,
+                                             hala::Best& b) {
   const int first = kPer * lane;  // this lane's first slot
   const float* blk = tri_packed + static_cast<size_t>(c) * hala::kBlock;
   // this lane's lowest (t, slot) hit; slot INT_MAX: none
@@ -109,7 +115,7 @@ __device__ __forceinline__ void walk_cluster(const float* __restrict__ tri_packe
       if (hala::mt_slot(r, f[e], f[4 + e], f[8 + e], f[12 + e], f[16 + e],
                         f[20 + e], f[24 + e], f[28 + e], f[32 + e], &tt, &uu,
                         &vv) &&
-          tt < lt) {  // ascending slots: the lowest wins a tie
+          hala::admissible(tn_c, stn, tt) && tt < lt) {  // ascending slots: the lowest wins a tie
         lt = tt;
         ls = first + e;
         lu = uu;
@@ -205,8 +211,9 @@ cluster_stream_kernel(
         while (entered != 0u) {
           const int m = __ffs(entered) - 1;
           entered &= entered - 1u;
-          if (__shfl_sync(kFull, tn, m) > b.t) continue;
-          walk_cluster(tri_packed, c0 + m, r, lane, b);
+          const float tn_c = __shfl_sync(kFull, tn, m);
+          if (tn_c > b.t) continue;
+          walk_cluster(tri_packed, c0 + m, tn_c, r, lane, b);
         }
       }
     }

@@ -9,11 +9,22 @@
 // (ops/cluster.py `slab_entry`, ops/intersect.py `mt_components`); the
 // kernels are compiled with --fmad=false, so both round alike.
 //
-// The slab test must be conservative (never skip a cluster whose
-// triangles Moller-Trumbore would accept):
+// The walks compute one function, the admissibility rule (ops/cluster.py,
+// `admissible` below): a pair counts only where Moller-Trumbore accepts
+// it at t and the ray enters the padded boxes of the slot's cluster and
+// of its 16-slot span (row 9) at entry distances <= t. No fixed padding
+// could make the box tests a mere skip of Moller-Trumbore alone: for a
+// ray nearly in a triangle's plane det can be as small as kEps and the
+// rounding of u, v grows like eps |o - v0| |p| / |det|, hundreds of
+// triangle widths at |o - v0| ~ 1000, so the classic test accepts noise
+// hits outside the triangle's padded box. The rule makes the boxes part
+// of the function; a box entered beyond the best t is skipped exactly.
+//
+// The slab test must be conservative (never drop a pair whose hit point
+// lies on its triangle):
 //   * every box is padded by 1e-5 of its coordinates' magnitude plus
 //     1e-6, which covers the zero-thickness boxes of axis-aligned walls
-//     and Moller-Trumbore's acceptance slack at triangle edges;
+//     and the rounding of the corners;
 //   * direction components below 1e-20 in magnitude are treated as
 //     parallel (inside-the-padded-slab test), which avoids 0 * inf;
 //   * entry/exit distances are widened by a relative 1e-6 without
@@ -174,6 +185,16 @@ __device__ __forceinline__ bool mt_slot(const Ray& r, float v0x, float v0y,
   *v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
   *t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
   return ok_det && *u >= 0.f && *v >= 0.f && *u + *v <= 1.f && *t > kTMin;
+}
+
+// The admissibility rule (ops/cluster.py): a pair Moller-Trumbore
+// accepts at t counts only where the ray enters the padded box of the
+// slot's cluster at tn_c <= t and that of the slot's 16-slot span (row
+// 9) at tn_s <= t. It reads no running best t, so every walk order
+// gives the same function, and a box entered beyond the best t holds
+// no admissible pair that could win: the `tn <= best` skips are exact.
+__device__ __forceinline__ bool admissible(float tn_c, float tn_s, float t) {
+  return tn_c <= t && tn_s <= t;
 }
 
 // The lexicographic rule: a hit at global slot `slot` replaces the best

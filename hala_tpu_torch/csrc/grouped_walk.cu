@@ -5,10 +5,10 @@
 // under matrix_query(kernel="grouped")): each group of 128 rays walks
 // its `counts[g]` candidate clusters in ascending group entry distance,
 // tests each ray against the cluster's slots in the 16-slot spans the
-// ray enters (mm_chunk_test.cuh), keeps the lexicographic (t, slot)
-// minimum per ray, and stops once no ray's best t lies beyond the next entry
-// distance (compared as int32 bit patterns, monotonic for the
-// non-negative floats involved).
+// ray enters, by the admissibility rule (mm_chunk_test.cuh), keeps the
+// lexicographic (t, slot) minimum per ray, and stops once no ray's best
+// t lies beyond the next entry distance (compared as int32 bit
+// patterns, monotonic for the non-negative floats involved).
 //
 // Design: one block per group, one thread per ray. The TPU kernel's
 // scalar-prefetch tables, its two-slot DMA ring and its (16,512)
@@ -64,9 +64,9 @@ grouped_walk_kernel(
     hala::mm_load_rows(tri_packed, c, lane, q);
     hala::mm_stage(q, ccx, ccy, ccz, lane, sh);
     __syncthreads();
-    const unsigned mask =
-        hala::mm_span_mask(sh, r, hala::mm_t_cur(acc, r, any_hit != 0));
-    hala::mm_merge(acc, hala::mm_chunk_test(sh, c, ccx, ccy, ccz, r, mask,
+    const float tn_c = hala::mm_cluster_tn(cmin, cmax, c, r);
+    hala::mm_merge(acc, hala::mm_chunk_test(sh, c, ccx, ccy, ccz, r, tn_c,
+                                            hala::mm_t_cur(acc, r, any_hit != 0),
                                             any_hit != 0));
     ++j;
   }

@@ -49,16 +49,27 @@
 //     shared memory with cp.async while the current block is tested
 //     (two buffers); every lane then reads the same slot, a broadcast.
 //  5. Test. A lane re-runs its own slab test of the cluster against its
-//     current best, then the eight row-9 sub-boxes, and runs
-//     Moller-Trumbore on the 16-slot spans that pass (empty sub-chunks
-//     are far point boxes whose slots have zero edges: no hit). A warp
-//     with no live lane skips the cluster.
+//     current best, then span by span the row-9 sub-box against its
+//     current best, and runs Moller-Trumbore on the 16 slots of each
+//     span that passes (empty sub-chunks are far point boxes whose slots
+//     have zero edges: no hit), keeping the cluster's entry distance tn_c
+//     and the span's tn_s. A warp with no live lane skips the cluster.
+//     (Testing all eight sub-boxes first and keeping their eight tn_s
+//     for the pair compare ran 5.6x slower on the H100: the span loop,
+//     unrolled to index them, no longer fit the instruction cache.)
+// The function (cluster_walk.cuh `admissible`, ops/cluster.py): a pair
+// Moller-Trumbore accepts at t counts only where tn_c <= t and
+// tn_s <= t, two compares on the accepted pairs alone. Every skip is
+// exact under it: a key, a cluster or a span entered beyond the best t
+// holds only admissible pairs with t above the best, which cannot win,
+// ties included; hence the tests stay `tn <= best`.
 // Tie rule: clusters no longer come in id order, so a lane keeps the
 // lexicographic (t, slot) minimum and tests boxes with tn <= best t (a
 // box entered exactly at the best t may hold a lower slot at that t):
-// the result equals the brute force over all slots, ties to the lowest
-// slot, as `stream_plain`. With any_hit a lane is done at its first hit
-// (the lowest hit slot of the first cluster that has one).
+// the result is the lexicographic minimum over the admissible pairs,
+// as `stream_plain`. With any_hit a lane is done at its first
+// admissible hit (the lowest such slot of the first cluster that has
+// one).
 // `runs_out`, when given, receives the clusters each block visited (the
 // TPU kernel's runs_out); ops/traverse.py `matrix_walk_runs_plain` is
 // the plain model of this schedule.
@@ -224,19 +235,16 @@ matrix_walk_kernel(
       if (j + 1 < count) fetch(j + 1);
       const int c = static_cast<int>(key & kIdMask);
       const float* blk = stage + (j & 1) * kStage;
-      float tn;
-      if (!want || !hala::cluster_entry(cmin, cmax, c, r, &tn) || tn > b.t) {
+      float tn_c;
+      if (!want || !hala::cluster_entry(cmin, cmax, c, r, &tn_c) || tn_c > b.t) {
         continue;
       }
-      unsigned spans = 0;
-      for (int s = 0; s < hala::kPretestBoxes; ++s) {
-        if (hala::pretest_entry(blk + 9 * hala::kSlots, s, r, &tn) &&
-            tn <= b.t) {
-          spans |= 1u << s;
-        }
-      }
       for (int s = 0; s < hala::kPretestBoxes && !done; ++s) {
-        if (!((spans >> s) & 1u)) continue;
+        float tn_s;  // the span's entry, tested against the current best
+        if (!hala::pretest_entry(blk + 9 * hala::kSlots, s, r, &tn_s) ||
+            tn_s > b.t) {
+          continue;
+        }
         for (int k = s * hala::kPretestTris;
              k < (s + 1) * hala::kPretestTris; ++k) {
           float tt, uu, vv;
@@ -244,7 +252,8 @@ matrix_walk_kernel(
                              blk[2 * hala::kSlots + k], blk[3 * hala::kSlots + k],
                              blk[4 * hala::kSlots + k], blk[5 * hala::kSlots + k],
                              blk[6 * hala::kSlots + k], blk[7 * hala::kSlots + k],
-                             blk[8 * hala::kSlots + k], &tt, &uu, &vv)) {
+                             blk[8 * hala::kSlots + k], &tt, &uu, &vv) ||
+              !hala::admissible(tn_c, tn_s, tt)) {
             continue;
           }
           const int slot = c * hala::kSlots + k;

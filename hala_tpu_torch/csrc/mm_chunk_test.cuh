@@ -22,15 +22,20 @@
 // summed left to right, as `mm_chunk_test_plain` of ops/traverse.py
 // does (compiled with --fmad=false, so both round alike).
 //
-// The span mask (ops/cluster.py `span_boxes`, ops/traverse.py
-// `mm_span_mask`): a pair (ray, slot) is accepted only where the ray
-// enters the padded box of the slot's span of 16 at a distance below
-// t_cur (its best t at the start of the entry, its t_max while it has
-// no hit and for any-hit).
-// The plain version applies the same mask, so it is part of the
+// The admissibility rule (ops/cluster.py; ops/traverse.py
+// `mm_span_mask`): a pair (ray, slot) at the factored t is accepted
+// only where the ray enters the padded box of the slot's cluster at
+// tn_c <= t and the padded box of the slot's span of 16 at tn_s <= t,
+// i.e. where lim = max(tn_c, tn_s) <= t. The rule reads no running best
+// t, so the result does not rest on the order of the walk, and the
+// same rule holds K2, K5 and K6 on the classic test. A span is skipped
+// where lim > t_cur (the ray's best t at the start of the entry, its
+// t_max while it has no hit and for any-hit): each admissible pair
+// there has t > t_cur, so it cannot win, ties included.
+// The plain version applies the same rule, so it is part of the
 // function, not a trusted skip: the factored test cannot be given a
 // padding margin (for a ray nearly parallel to an edge its barycentric
-// numerators are rounding noise), so without the mask it may accept a
+// numerators are rounding noise), so without the rule it may accept a
 // ray that passes a triangle's width away. The boxes are formed from
 // the slots while the block stages the entry, not read from row 9 of
 // `tri_packed`: hand-built blocks may lack that row. Where the uploader
@@ -190,31 +195,28 @@ __device__ __forceinline__ void mm_stage(const float q[kMmRows], float ccx,
   }
 }
 
-// The ray's 8-bit span mask for the staged entry (bit s: span s may
-// hold a hit the ray accepts); 0 for a ray whose range ends at or below
-// kMmTMin.
-__device__ __forceinline__ unsigned mm_span_mask(const MmShared& sh,
-                                                 const MmRay& r,
-                                                 float t_cur) {
-  unsigned mask = 0u;
-  if (!(r.t_max > kMmTMin)) return mask;
-#pragma unroll
-  for (int s = 0; s < kMmSpans; ++s) {
-    float tn;
-    if (padded_entry(sh.box + 6 * s, r, &tn) && tn < t_cur) mask |= 1u << s;
-  }
-  return mask;
+// tn_c of the rule: the ray's padded entry distance of cluster c's box
+// (cluster_walk.cuh `cluster_entry`), +inf where it does not enter it.
+__device__ __forceinline__ float mm_cluster_tn(const float* __restrict__ cmin,
+                                               const float* __restrict__ cmax,
+                                               int c, const MmRay& r) {
+  float tn;
+  return cluster_entry(cmin, cmax, c, r, &tn) ? tn : CUDART_INF_F;
 }
 
 // One ray against the staged cluster c: the hit of lowest t in
-// (kMmTMin, t_max) among the spans its mask lets in, the lowest slot
-// among equal t. With any_hit the result is (t 0, slot c * 128) where
-// any slot is hit. Every lane of the warp must call it (it votes).
+// (kMmTMin, t_max) among the admissible pairs of the spans entered at
+// or below t_cur, the lowest slot among equal t (ops/traverse.py
+// `mm_span_mask` and `mm_chunk_test_plain`). tn_c: `mm_cluster_tn`.
+// With any_hit the result is (t 0, slot c * 128) where any slot is hit.
+// Every lane of the warp must call it (it votes).
 __device__ __forceinline__ MmBest mm_chunk_test(const MmShared& sh, int c,
                                                 float ccx, float ccy,
                                                 float ccz, const MmRay& r,
-                                                unsigned mask, bool any_hit) {
+                                                float tn_c, float t_cur,
+                                                bool any_hit) {
   MmBest b{kMmInf, -1, 0.f, 0.f};
+  bool live = r.t_max > kMmTMin;
   const float opx = r.ox - ccx;
   const float opy = r.oy - ccy;
   const float opz = r.oz - ccz;
@@ -222,7 +224,10 @@ __device__ __forceinline__ MmBest mm_chunk_test(const MmShared& sh, int c,
   const float wpy = r.wy - (ccz * r.dx - ccx * r.dz);
   const float wpz = r.wz - (ccx * r.dy - ccy * r.dx);
   for (int s = 0; s < kMmSpans; ++s) {
-    const bool in = (mask >> s) & 1u;
+    float lim = CUDART_INF_F;  // the least admissible t in span s
+    float tn;
+    if (live && padded_entry(sh.box + 6 * s, r, &tn)) lim = fmaxf(tn_c, tn);
+    const bool in = lim <= t_cur;
     if (!__any_sync(kMmFull, in)) continue;
     if (!in) continue;
     for (int k = s * kMmSpan; k < (s + 1) * kMmSpan; ++k) {
@@ -250,11 +255,11 @@ __device__ __forceinline__ MmBest mm_chunk_test(const MmShared& sh, int c,
       const float tn = (opx * nx + opy * ny + opz * nz) - c0;
       const float inv_det = 1.0f / det;
       const float tt = tn * inv_det;
-      if (!(tt > kMmTMin && tt < r.t_max)) continue;
+      if (!(tt > kMmTMin && tt < r.t_max && lim <= tt)) continue;
       if (any_hit) {  // blocked: no later span or slot can change it
         b.t = 0.f;
         b.tri = c * kMmSlots;
-        mask = 0u;
+        live = false;
         break;
       }
       if (tt < b.t) {
@@ -278,7 +283,7 @@ __device__ __forceinline__ void mm_merge(MmBest& acc, const MmBest& nw) {
   if (take) acc = nw;
 }
 
-// t_cur of the span mask: the best t where the ray has a hit (closest
+// t_cur of the span skip: the best t where the ray has a hit (closest
 // hit), else its t_max.
 __device__ __forceinline__ float mm_t_cur(const MmBest& acc, const MmRay& r,
                                           bool any_hit) {

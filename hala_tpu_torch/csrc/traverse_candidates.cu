@@ -12,7 +12,25 @@
 //
 // The walk of one ray: its list in order, stopping at the padding or
 // once the next entry distance is greater than its best t (every later
-// candidate enters farther still). Tie order: the TPU kernel's strict `<`
+// candidate enters farther still). A visited cluster's pairs count by
+// the admissibility rule (cluster_walk.cuh `admissible`, ops/cluster.py):
+// Moller-Trumbore accepts the pair at t, and the ray enters the
+// cluster's padded box (K4's entry distances are of the unpadded box)
+// and the lane's span box at entry distances <= t. The lanes' pass over
+// their slots is the classic one; the rule is tested once a visit, on
+// the visit's least pair, and only where that pair would improve the
+// best: if no pair of the visit could, no admissible one could, and if
+// the least is admissible, it is the least admissible one. Where it
+// fails (rare), every lane passes over its slots again with the whole
+// rule. On the H100 the cluster box on every visit cost 13 %, the rule
+// inside the unrolled pass 6-7 % (two compares on each slot's ~45
+// instructions), on each lane's least pair 4 %.
+// Skipping a span box entered beyond the best t is exact (its
+// admissible pairs lie beyond the best). The stop on
+// K4's unpadded entry distance is the one step outside the rule: a
+// pair admissible only inside the padding of a cluster the ray enters
+// beyond its best t (or one K4 never lists) is not searched, the
+// reference's own cull (ROADMAP Queue 3, kept on purpose). Tie order: the TPU kernel's strict `<`
 // in its visit order can keep a different triangle than brute force when
 // two clusters hold hits at the exact same t; this kernel keeps the
 // lexicographic (t, slot) minimum instead, so the result equals brute
@@ -62,11 +80,26 @@ constexpr int kThreads = 128;
 constexpr int kLanes = 16;  // half a warp a ray: ops/traverse.K5_LANES
 constexpr int kBigCluster = 0x3FFFFFFF;  // ops/traverse.BIG_CLUSTER
 
+// The lexicographic (t, slot) minimum over the 16 lanes of a ray, the
+// same on each of them.
+__device__ __forceinline__ void half_min(unsigned mask, float* wt, int* ws) {
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(mask, *wt, off, kLanes);
+    const int os = __shfl_xor_sync(mask, *ws, off, kLanes);
+    if (ot < *wt || (ot == *wt && os < *ws)) {
+      *wt = ot;
+      *ws = os;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 traverse_candidates_kernel(
     const float* __restrict__ o, const float* __restrict__ d,
     const float* __restrict__ tmax, const int* __restrict__ ids,
     const float* __restrict__ tns, const unsigned char* __restrict__ ovf,
+    const float* __restrict__ cmin, const float* __restrict__ cmax,
     const float* __restrict__ tri_packed, int n, int k,
     float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
@@ -91,9 +124,15 @@ traverse_candidates_kernel(
     // this lane's lowest (t, slot) hit; slot INT_MAX: none
     float lt = CUDART_INF_F, lu = 0.f, lv = 0.f;
     int ls = INT_MAX;
-    float tn;
-    if (hala::pretest_entry(blk + 9 * hala::kSlots, span, r, &tn) &&
-        tn <= b.t) {
+    // The pass over the slots is the classic one. The rule (the lane's
+    // span box, and the padded cluster box: K4's tns are of the
+    // unpadded box) is tested on the visit's least pair, once it would
+    // improve the best.
+    float tn_s;
+    const bool pre =
+        hala::pretest_entry(blk + 9 * hala::kSlots, span, r, &tn_s) &&
+        tn_s <= b.t;
+    if (pre) {
       for (int h = 0; h < kPer; h += 4) {
         float4 q[9];
 #pragma unroll
@@ -119,25 +158,47 @@ traverse_candidates_kernel(
     }
     float wt = lt;
     int ws = ls;
-#pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1) {
-      const float ot = __shfl_xor_sync(mask, wt, off, kLanes);
-      const int os = __shfl_xor_sync(mask, ws, off, kLanes);
-      if (ot < wt || (ot == wt && os < ws)) {
-        wt = ot;
-        ws = os;
+    half_min(mask, &wt, &ws);
+    // the same on every lane of the ray from here
+    if (ws == INT_MAX || !hala::lex_better(wt, c * hala::kSlots + ws, b)) {
+      continue;  // no pair of the visit, admissible or not, can win
+    }
+    float tn_c;
+    if (!hala::cluster_entry(cmin, cmax, c, r, &tn_c)) tn_c = CUDART_INF_F;
+    if (!hala::admissible(tn_c, __shfl_sync(mask, tn_s, ws / kPer, kLanes),
+                          wt)) {
+      // the least pair is not admissible (rare): every lane again over
+      // its slots with the whole rule
+      lt = CUDART_INF_F;
+      ls = INT_MAX;
+      if (pre) {
+#pragma unroll 1
+        for (int q = first; q < first + kPer; ++q) {
+          float tt, uu, vv;
+          if (hala::mt_slot(r, blk[q], blk[hala::kSlots + q],
+                            blk[2 * hala::kSlots + q], blk[3 * hala::kSlots + q],
+                            blk[4 * hala::kSlots + q], blk[5 * hala::kSlots + q],
+                            blk[6 * hala::kSlots + q], blk[7 * hala::kSlots + q],
+                            blk[8 * hala::kSlots + q], &tt, &uu, &vv) &&
+              hala::admissible(tn_c, tn_s, tt) && tt < lt) {
+            lt = tt;
+            ls = q;
+            lu = uu;
+            lv = vv;
+          }
+        }
+      }
+      wt = lt;
+      ws = ls;
+      half_min(mask, &wt, &ws);
+      if (ws == INT_MAX || !hala::lex_better(wt, c * hala::kSlots + ws, b)) {
+        continue;
       }
     }
-    if (ws == INT_MAX) continue;  // the same on every lane of the ray
-    const float wu = __shfl_sync(mask, lu, ws / kPer, kLanes);
-    const float wv = __shfl_sync(mask, lv, ws / kPer, kLanes);
-    const int slot = c * hala::kSlots + ws;
-    if (hala::lex_better(wt, slot, b)) {
-      b.t = wt;
-      b.tri = slot;
-      b.u = wu;
-      b.v = wv;
-    }
+    b.t = wt;
+    b.tri = c * hala::kSlots + ws;
+    b.u = __shfl_sync(mask, lu, ws / kPer, kLanes);
+    b.v = __shfl_sync(mask, lv, ws / kPer, kLanes);
   }
   if (lane == 0) {
     t_out[i] = b.t;
@@ -153,7 +214,8 @@ traverse_candidates_kernel(
 
 extern "C" int hala_traverse_candidates(
     const void* o, const void* d, const void* tmax, const void* ids,
-    const void* tns, const void* ovf, const void* tri_packed, int n, int k,
+    const void* tns, const void* ovf, const void* cmin, const void* cmax,
+    const void* tri_packed, int n, int k,
     void* t_out, void* tri_out, void* u_out, void* v_out, void* unres_out,
     void* runs_out, void* stream) {
   if (n <= 0) return 0;
@@ -164,6 +226,7 @@ extern "C" int hala_traverse_candidates(
       static_cast<const float*>(o), static_cast<const float*>(d),
       static_cast<const float*>(tmax), static_cast<const int*>(ids),
       static_cast<const float*>(tns), static_cast<const unsigned char*>(ovf),
+      static_cast<const float*>(cmin), static_cast<const float*>(cmax),
       static_cast<const float*>(tri_packed), n, k, static_cast<float*>(t_out),
       static_cast<int*>(tri_out), static_cast<float*>(u_out),
       static_cast<float*>(v_out), static_cast<int*>(unres_out),

@@ -12,8 +12,9 @@
 //   * the entry is tested only if some ray that ranks it among its OWN
 //     candidates (bit j of the ray's `want` word) can still improve;
 //   * a tested entry runs each ray against the cluster's slots in the
-//     16-slot spans the ray enters (mm_chunk_test.cuh) and keeps the
-//     lexicographic (t, slot) minimum per ray.
+//     16-slot spans the ray enters, by the admissibility rule
+//     (mm_chunk_test.cuh), and keeps the lexicographic (t, slot) minimum
+//     per ray.
 // It also counts the walked and the tested entries of each group.
 //
 // Design: one block per group, one thread per ray, as grouped_walk.cu.
@@ -69,9 +70,9 @@ wavefront_walk_kernel(
       hala::mm_load_rows(tri_packed, c, lane, q);
       hala::mm_stage(q, ccx, ccy, ccz, lane, sh);
       __syncthreads();
-      const unsigned mask =
-          hala::mm_span_mask(sh, r, hala::mm_t_cur(acc, r, any_hit != 0));
-      hala::mm_merge(acc, hala::mm_chunk_test(sh, c, ccx, ccy, ccz, r, mask,
+      const float tn_c = hala::mm_cluster_tn(cmin, cmax, c, r);
+      hala::mm_merge(acc, hala::mm_chunk_test(sh, c, ccx, ccy, ccz, r, tn_c,
+                                              hala::mm_t_cur(acc, r, any_hit != 0),
                                               any_hit != 0));
       ++tested;
     }

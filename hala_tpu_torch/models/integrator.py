@@ -16,9 +16,11 @@ Rays are flat (N,) SoA batches. The film is traced in tiles of
 in place. Every pixel's samples come from PCG4D keyed on its global
 pixel id, so results do not depend on tiling.
 
-Not ported yet (each raises HalaRendererError when requested): pushed
-kernel hooks, procedural spheres, the geometry-sharded `scene_axis` mode
-and the "bvh" engine.
+Procedural spheres (ops/prims.py) join every closest-hit and any-hit
+query after the triangle backend. Pushed kernels (`KernelHooks`) override
+the integrator's seams. Not ported yet (each raises HalaRendererError
+when requested): the geometry-sharded `scene_axis` mode and the "bvh"
+engine.
 """
 
 from __future__ import annotations
@@ -44,6 +46,7 @@ from ..ops.intersect import (
 )
 from ..ops.lights import intersect_lights, sample_one_light
 from ..ops.pallas.intersect_kernel import intersect_pallas, occluded_pallas
+from ..ops.prims import PROC_BASE, merge_procedural, occluded_spheres
 from ..ops.sampling import (
     build_basis,
     cross,
@@ -185,6 +188,39 @@ class Film(TensorTables):
         return Film(accum=z(), albedo=z(), normal=z())
 
 
+@dataclasses.dataclass(frozen=True)
+class KernelHooks:
+    """Pushed kernels, each overriding one seam of the integrator (the
+    JAX package's KernelHooks; rt_renderer.rs:925-1112 shader push).
+    Each is a plain callable on tensors of the shapes the built-in stage
+    uses; None keeps the built-in stage:
+
+    - raygen(gpix, frame_index, r_jit) -> (N, 4): the per-pixel sample
+      jitter (pixel xy in [:, :2], lens uv in [:, 2:]) before camera ray
+      generation;
+    - miss(d, uniforms, default_radiance) -> (N, 3): radiance of rays
+      that leave the scene;
+    - post_shade(radiance, albedo, normal) -> the same triple: a traced
+      tile's outputs before film accumulation;
+    - closest_hit(ctx, mp) -> mp: the resolved material parameters at
+      the shading point (ctx: dict of p, ns, ng, uv, wo, t, tri, mat,
+      on_surface), before every BSDF and NEE consumer;
+    - any_hit(ctx, mp, r, default_pass) -> (N,) bool: the stochastic
+      pass-through decision (True ignores the hit) given the lane's
+      random draw and the built-in alpha test;
+    - intersection(o, d, lhit) -> lhit: custom primitives merged into
+      the analytic light-set hit (fields t, radiance, pdf); a closer
+      such hit ends the path with its radiance.
+    """
+
+    raygen: object = None
+    miss: object = None
+    post_shade: object = None
+    closest_hit: object = None
+    any_hit: object = None
+    intersection: object = None
+
+
 _BACKENDS = ("auto", "pallas", "matrix", "grouped", "wavefront", "traverse",
              "cluster", "bruteforce")
 _MATRIX_FAMILY = ("wavefront", "matrix", "grouped")
@@ -275,10 +311,26 @@ def _matrix_family(scene, o, d, t_max, any_hit: bool,
     return intersect_matrix(o, d, g, t_max=t_max, any_hit=any_hit)
 
 
+def _merge_proc(scene, o, d, hit: Hit, t_max) -> Hit:
+    """Fold the procedural spheres' hits into a triangle Hit (ops/prims.py;
+    ids at tri >= PROC_BASE)."""
+    if scene.procedural is None:
+        return hit
+    return merge_procedural(scene.procedural, o, d, hit, t_max)
+
+
 def _intersect(scene, o, d, settings: RenderSettings, t_max=None,
                extend: bool = False) -> Hit:
-    """Closest-hit dispatch. `extend` marks a bounce rays' query, which
+    """Closest-hit dispatch: the triangle backend's query, then the
+    procedural spheres. `extend` marks a bounce rays' query, which
     `extend_intersector` may send to the wavefront."""
+    return _merge_proc(scene, o, d, _intersect_local(scene, o, d, settings, t_max,
+                                                     extend), t_max)
+
+
+def _intersect_local(scene, o, d, settings: RenderSettings, t_max=None,
+                     extend: bool = False) -> Hit:
+    """The triangle backend's closest-hit query."""
     g = scene.geometry
     backend = _backend(settings, scene)
     o, d = o.contiguous(), d.contiguous()
@@ -311,8 +363,16 @@ def _intersect(scene, o, d, settings: RenderSettings, t_max=None,
 
 
 def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
-    """Any-hit dispatch: True where a blocker lies in
-    (1e-4, t_far * (1 - 1e-4))."""
+    """Any-hit dispatch: True where a triangle lies in
+    (1e-4, t_far * (1 - 1e-4)) or a procedural sphere in (1e-4, t_far)."""
+    occ = _occluded_local(scene, o, d, t_far, settings)
+    if scene.procedural is not None:
+        occ = occ | occluded_spheres(scene.procedural, o, d, t_far)
+    return occ
+
+
+def _occluded_local(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
+    """The triangle backend's any-hit query."""
     g = scene.geometry
     backend = _backend(settings, scene)
     o, d = o.contiguous(), d.contiguous()
@@ -328,7 +388,8 @@ def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
             ).tri >= 0
         return _matrix_family(scene, o, d, tf, True, settings).tri >= 0
     if backend in ("traverse", "cluster"):
-        return _intersect(scene, o, d, settings, t_max=t_far * (1.0 - 1e-4)).tri >= 0
+        return _intersect_local(scene, o, d, settings,
+                                t_max=t_far * (1.0 - 1e-4)).tri >= 0
     if backend == "pallas":
         return occluded_pallas(
             o, d, t_far, g.tri_v0, g.tri_e1, g.tri_e2, num_real=_num_real(g)
@@ -338,9 +399,7 @@ def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
     )
 
 
-def _check_ported(settings: RenderSettings, hooks) -> None:
-    if hooks is not None:
-        raise HalaRendererError("pushed kernel hooks are not yet ported")
+def _check_ported(settings: RenderSettings) -> None:
     if settings.scene_axis is not None:
         raise HalaRendererError("geometry-sharded rendering is not yet ported")
 
@@ -354,6 +413,7 @@ def _path_context(
     settings: RenderSettings,
     full_height: int | None = None,
     blue_noise=None,
+    hooks: KernelHooks | None = None,
 ):
     """Build the per-trace path-tracing closures.
 
@@ -431,6 +491,9 @@ def _path_context(
 
         hit = Hit(t=st["hit_t"], tri=st["hit_tri"], u=st["hit_u"], v=st["hit_v"])
         lhit = intersect_lights(scene.lights, o, d)
+        if hooks is not None and hooks.intersection is not None:
+            # intersection seam: custom primitives join the light-set hit
+            lhit = hooks.intersection(o, d, lhit)
 
         # --- SCATTER media: free-flight distance sampling ----------------
         if w_scatter:
@@ -474,6 +537,8 @@ def _path_context(
                 * uniforms.env_intensity
             )
             w_env = torch.ones_like(zeros)
+        if hooks is not None and hooks.miss is not None:
+            env_rad = hooks.miss(d, uniforms, env_rad)
         radiance = radiance + torch.where(
             (active & miss & ~light_first)[:, None],
             throughput * env_rad * w_env[:, None],
@@ -484,7 +549,9 @@ def _path_context(
         on_surface = active & ~scatter
 
         # --- shading point ----------------------------------------------
-        tid = torch.clamp(hit.tri, min=0).long()
+        # procedural ids clip to the last row (overridden below): on the
+        # card an out-of-range gather is a device assert
+        tid = torch.clamp(hit.tri, 0, geom.shade_table.shape[0] - 1).long()
         u, v = hit.u, hit.v
         w0 = 1.0 - u - v
         rows = geom.shade_table[tid]
@@ -504,6 +571,20 @@ def _path_context(
         hit_p = o + hit.t[:, None] * d
 
         mat_idx = rows[:, 18].to(torch.int32)
+        # Procedural sphere hits (tri >= PROC_BASE, ops/prims.py): the
+        # analytic attributes replace the clipped triangle row's; hit.u/v
+        # carry the spherical uv.
+        is_proc = prow = None
+        if scene.procedural is not None:
+            is_proc = hit.tri >= PROC_BASE
+            pid = torch.clamp(hit.tri - PROC_BASE, 0,
+                              scene.procedural.center.shape[0] - 1).long()
+            prow = scene.procedural.packed[pid]
+            ns_p = normalize(hit_p - prow[:, 0:3])
+            ns = torch.where(is_proc[:, None], ns_p, ns)
+            ng = torch.where(is_proc[:, None], ns_p, ng)
+            uv = torch.where(is_proc[:, None], torch.stack([u, v], dim=1), uv)
+            mat_idx = torch.where(is_proc, prow[:, 4].to(torch.int32), mat_idx)
         mp = gather_materials(scene.materials, mat_idx)
         # Vertex colors (COLOR_0) widen the shade row to 48 columns.
         if rows.shape[1] > 32:
@@ -512,6 +593,8 @@ def _path_context(
                 + u[:, None] * rows[:, 35:38]
                 + v[:, None] * rows[:, 38:41]
             )
+            if is_proc is not None:
+                vcol = torch.where(is_proc[:, None], 1.0, vcol)
             mp = mp._replace(base_color=mp.base_color * vcol)
         # KHR_texture_transform: uv' = offset + R(rot) @ (scale * uv).
         if scene.materials.has_uv_transform:
@@ -532,6 +615,9 @@ def _path_context(
             + u[:, None] * rows[:, 23:26]
             + v[:, None] * rows[:, 26:29]
         )
+        if is_proc is not None:
+            # spheres carry no tangents: zero takes the fallback basis
+            tan_raw = torch.where(is_proc[:, None], 0.0, tan_raw)
         tan_proj = tan_raw - ns * dot(tan_raw, ns)[:, None]
         tan_len = torch.sqrt(dot(tan_proj, tan_proj))[:, None]
         has_tan = tan_len[:, 0] > 1e-4
@@ -541,6 +627,11 @@ def _path_context(
         base_t = mr_t = em_t = n_tex = None
         if scene.textures is not None:
             uv_dens = rows[:, 29]
+            if is_proc is not None:
+                # ~1 / (2 pi r) texels per world unit at the equator
+                uv_dens = torch.where(
+                    is_proc, 1.0 / torch.clamp(2.0 * np.pi * prow[:, 3], min=1e-6),
+                    uv_dens)
             lod_uv = torch.log2(
                 torch.clamp(path_dist * pixel_angle * uv_dens, 1e-6, 1e6)
             )
@@ -611,6 +702,17 @@ def _path_context(
             )
         )
 
+        hit_ctx = None
+        if hooks is not None and (
+            hooks.closest_hit is not None or hooks.any_hit is not None
+        ):
+            hit_ctx = dict(p=hit_p, ns=ns_f, ng=ng_f, uv=uv, wo=-d, t=hit.t,
+                           tri=hit.tri, mat=mat_idx, on_surface=on_surface)
+        if hooks is not None and hooks.closest_hit is not None:
+            # closest-hit seam: the material parameters every BSDF and
+            # NEE consumer below reads
+            mp = hooks.closest_hit(hit_ctx, mp)
+
         # Beer-Lambert absorption: a backface hit means the segment just
         # traversed was interior.
         if scene.materials.has_absorb_medium:
@@ -652,7 +754,11 @@ def _path_context(
         # One RNG call serves the alpha test ([0]) and Russian roulette
         # ([1]); [2]/[3] seed the shadow transmittance.
         r_alpha = s4(bounce, 11)
-        pass_through = on_surface & (r_alpha[:, 0] > mp.opacity)
+        default_pass = r_alpha[:, 0] > mp.opacity
+        if hooks is not None and hooks.any_hit is not None:
+            # any-hit seam: True ignores this hit and continues the ray
+            default_pass = hooks.any_hit(hit_ctx, mp, r_alpha[:, 0], default_pass)
+        pass_through = on_surface & default_pass
 
         # --- NEE: analytic lights (occlusion deferred to the batched
         # visibility query) -----------------------------------------------
@@ -813,7 +919,12 @@ def _path_context(
         )
 
     def opacity_of(tri):
-        m = geom.tri_mat[torch.clamp(tri, min=0).long()]
+        m = geom.tri_mat[torch.clamp(tri, 0, geom.tri_mat.shape[0] - 1).long()]
+        if scene.procedural is not None:
+            # procedural blockers take their own material row
+            pid = torch.clamp(tri - PROC_BASE, 0, scene.procedural.center.shape[0] - 1)
+            m = torch.where(tri >= PROC_BASE,
+                            scene.procedural.packed[pid.long(), 4].to(m.dtype), m)
         return scene.materials.packed[:, 3][torch.clamp(m, min=0).long()]
 
     def transmit(bounce, c, tri0, t0, dir_s, tmax_s, r_first, seed0):
@@ -899,6 +1010,7 @@ def trace_paths(
     settings: RenderSettings,
     full_height: int | None = None,
     blue_noise=None,
+    hooks: KernelHooks | None = None,
 ):
     """Trace full paths for a flat ray batch.
 
@@ -907,7 +1019,7 @@ def trace_paths(
     """
     init_state, bounce_body = _path_context(
         scene, env, uniforms, pixel_idx, frame_index, settings, full_height,
-        blue_noise,
+        blue_noise, hooks,
     )
     # Prologue: closest hit for the camera rays; every later bounce folds
     # its extension ray into the batched end-of-bounce query.
@@ -917,8 +1029,8 @@ def trace_paths(
     return state["radiance"], state["albedo"], state["normal"], state["rays"]
 
 
-def _tile_raygen(scene, uniforms, blue_noise, fidx, start, w, cam_h, row_offset,
-                 spp, tile, swizzle, device):
+def _tile_raygen(scene, uniforms, blue_noise, hooks, fidx, start, w, cam_h,
+                 row_offset, spp, tile, swizzle, device):
     """Camera rays for one film tile: ray r is sample r % spp of pixel
     start + r // spp, running as virtual RNG frame fidx*spp + s.
     Returns (o, d, gpix, fidx_r)."""
@@ -947,6 +1059,8 @@ def _tile_raygen(scene, uniforms, blue_noise, fidx, start, w, cam_h, row_offset,
         r_jit = rng.bn_sample4(blue_noise, gpix % w, gpix // w, fidx_r, 0, seed=1)
     else:
         r_jit = rng.sample4(gpix, fidx_r, 0, seed=1)
+    if hooks is not None and hooks.raygen is not None:
+        r_jit = hooks.raygen(gpix, fidx_r, r_jit)
     o, d = generate_rays(
         scene.cameras, uniforms.camera_index,
         px_i.to(torch.float32), py_i.to(torch.float32), w, cam_h,
@@ -969,7 +1083,7 @@ def _render_frame_impl(
 ) -> torch.Tensor:
     """One progressive frame (settings.spp samples per pixel) added to
     `film` in place; returns the traced-ray count (0-d f32 tensor)."""
-    _check_ported(settings, hooks)
+    _check_ported(settings)
     h, w = settings.height, settings.width
     dev = film.accum.device
     cam_h = full_height if full_height is not None else h
@@ -1018,13 +1132,15 @@ def _render_frame_impl(
     for t in range(n_tiles):
         start = t * pp
         o, d, gpix, fidx_r = _tile_raygen(
-            scene, uniforms, blue_noise, fidx, start, w, cam_h, row_offset, spp,
-            tile, swizzle, dev,
+            scene, uniforms, blue_noise, hooks, fidx, start, w, cam_h, row_offset,
+            spp, tile, swizzle, dev,
         )
         L, alb, nrm, rays = trace_paths(
             scene, env, uniforms, o, d, gpix, fidx_r, settings,
-            full_height=cam_h, blue_noise=blue_noise,
+            full_height=cam_h, blue_noise=blue_noise, hooks=hooks,
         )
+        if hooks is not None and hooks.post_shade is not None:
+            L, alb, nrm = hooks.post_shade(L, alb, nrm)
         L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
         if spp > 1:
             # pixel mean over the sample-adjacent lanes

@@ -18,14 +18,18 @@ HalaRayTracingRenderer), as in the JAX package's `models/rt_renderer.py`:
 * `update` skips once the max_frames progressive budget is reached
   (rt_renderer.rs:393-396) and seeds sampling with the frame index;
 * `save_images` writes {name}_color/albedo/normal .pfm with the selected
-  tonemap applied to color only (rt_renderer.rs:1224-1352).
+  tonemap applied to color only (rt_renderer.rs:1224-1352);
+* `push_general_kernel` / `push_hit_kernels` register pushed kernels in
+  the process KernelCache (rt.raygen, rt.miss, rt.callable,
+  rt.closest_hit, rt.any_hit, rt.intersection); `commit` resolves them
+  into the frame's `KernelHooks` (rt_renderer.rs:925-1112).
 
-Not ported yet (raise HalaRendererError): the push_*_kernel hooks.
 `staged=` is accepted and does nothing: the port has one frame loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 import logging
 import os
@@ -46,6 +50,7 @@ from .integrator import (
     ENV_MAP,
     ENV_SKY,
     Film,
+    KernelHooks,
     RenderSettings,
     Uniforms,
     render_frame,
@@ -105,6 +110,7 @@ class RayTracingRenderer(BaseRenderer):
         self.uniforms = Uniforms.default(self.device)
         self.film = Film.create(width, height, self.device)
         self.settings: RenderSettings | None = None
+        self.hooks: KernelHooks | None = None
         self._frame_index = 0
         self._ui_fn = None
         self.total_rays = 0.0
@@ -148,10 +154,32 @@ class RayTracingRenderer(BaseRenderer):
     # -- kernel push API (shader push parity) -----------------------------
 
     def push_general_kernel(self, kind: str, fn_or_path) -> None:
-        raise HalaRendererError("pushed kernels are not yet ported")
+        """Register a raygen, miss or callable stage kernel
+        (rt_renderer.rs:925-1012 push_general_shader rejects other
+        stages) in the process KernelCache under rt.<kind>; `commit`
+        binds it. A callable runs at the post-shade seam."""
+        if kind not in ("raygen", "miss", "callable"):
+            raise HalaRendererError(
+                f"Only raygen/miss/callable stages accepted, got {kind!r}."
+            )
+        self._push_kernel(f"rt.{kind}", fn_or_path)
 
     def push_hit_kernels(self, closest_hit, any_hit=None, intersection=None) -> None:
-        raise HalaRendererError("pushed kernels are not yet ported")
+        """Register a hit-group kernel tuple (rt_renderer.rs:1020-1112
+        push_hit_shaders)."""
+        self._push_kernel("rt.closest_hit", closest_hit)
+        if any_hit is not None:
+            self._push_kernel("rt.any_hit", any_hit)
+        if intersection is not None:
+            self._push_kernel("rt.intersection", intersection)
+
+    def _push_kernel(self, name: str, fn_or_path) -> None:
+        """A callable, or a "module:function" path the cache resolves."""
+        from ..programs import KernelCache
+
+        cache = KernelCache.get_instance()
+        fn = cache.load(fn_or_path) if isinstance(fn_or_path, str) else fn_or_path
+        cache.from_memory(name, fn)
 
     def load_blue_noise_texture(self, path: str) -> None:
         """rt_renderer.rs:1117-1156: the texture becomes the per-pixel
@@ -176,6 +204,23 @@ class RayTracingRenderer(BaseRenderer):
             shadow_intersector=self._shadow_intersector,
             extend_intersector=self._extend_intersector,
         )
+        # the pushed kernels become the frame's dispatch table (the SBT
+        # build of the reference's commit); stages not pushed keep the
+        # built-in integrator's
+        from ..programs import KernelCache
+
+        cache = KernelCache.get_instance()
+        hooks = KernelHooks(
+            raygen=cache.get("rt.raygen"),
+            miss=cache.get("rt.miss"),
+            post_shade=cache.get("rt.callable"),
+            closest_hit=cache.get("rt.closest_hit"),
+            any_hit=cache.get("rt.any_hit"),
+            intersection=cache.get("rt.intersection"),
+        )
+        pushed = any(getattr(hooks, f.name) is not None
+                     for f in dataclasses.fields(hooks))
+        self.hooks = hooks if pushed else None
 
     def update(self, delta_time: float = 0.0, ui_fn=None) -> None:
         """Dispatch one progressive frame (rt_renderer.rs:387-471).
@@ -192,7 +237,7 @@ class RayTracingRenderer(BaseRenderer):
         t0 = time.monotonic()
         _, rays = render_frame(
             self.scene, self.env, self.uniforms, self.film, self._frame_index,
-            self.settings, blue_noise=self.blue_noise,
+            self.settings, blue_noise=self.blue_noise, hooks=self.hooks,
         )
         self._pending = True
         self._last_rays = rays
@@ -235,7 +280,7 @@ class RayTracingRenderer(BaseRenderer):
             _, rays = render_frames(
                 self.scene, self.env, self.uniforms, self.film,
                 self._frame_index, k, self.settings,
-                blue_noise=self.blue_noise,
+                blue_noise=self.blue_noise, hooks=self.hooks,
             )
             rays_acc.append(rays)
             self._frame_index += k

@@ -15,12 +15,29 @@ members of each union entered (the conservative padded slab test,
 csrc/cluster_walk.cuh explains each case; the TPU kernel's safety net,
 a 1024-ray block's union of slab hits, does not exist for one ray
 alone), and share Moller-Trumbore over the slots of each cluster
-entered, keeping the lexicographic (t, slot) minimum, so results equal
-the brute force over all slots. The plain
-version walks the clusters in ascending order with a strict `<`, brute
-force's tie order. K2 (ops/traverse.py, capped at MATRIX_MAX_CLUSTERS)
+entered, keeping the lexicographic (t, slot) minimum over the
+admissible pairs (below). The plain version walks the clusters in
+ascending order with a strict `<`, brute force's tie order. K2 (ops/traverse.py, capped at MATRIX_MAX_CLUSTERS)
 walks the clusters front to back and returns the same hits, so
 `stream_plain` is the plain version of both.
+
+The admissibility rule. The walks over clusters (K2, K5, K6 and their
+plain versions; K7 and K8 on their factored test) accept a (ray, slot)
+pair only where it is *admissible*: Moller-Trumbore accepts it with t in
+(1e-4, t_max), the ray enters the padded box of the slot's cluster at
+an entry distance tn_c <= t (`slab_entry`), and it enters the padded
+box of the slot's 16-slot span (`span_boxes`, row 9) at tn_s <= t. The
+closest hit is the lexicographic (t, slot) minimum over the admissible
+pairs, the any hit whether one exists. The rule reads no running best
+t, so it does not rest on the order in which a walk meets the clusters,
+and every skip of a box entered beyond the best t is exact: each
+admissible pair in it has t above the best. It is needed because no
+fixed padding covers the classic test's slack: for a ray nearly in a
+triangle's plane, det can be as small as 1e-7 and the rounding of u, v
+grows with |o - v0| / |det|, so Moller-Trumbore alone accepts noise
+hits outside the triangle's box (and outside the padded boxes). The
+brute force K1 has no boxes and accepts them: it differs from the
+cluster walks only on pairs the rule rejects.
 
 The JAX module's `subchunk_aabb_row`, `cull_clusters`,
 `build_cluster_tables_device` and `refit_clusters` are not ported: no
@@ -148,17 +165,45 @@ def _slot_table(tri_packed):
     return rows[:, 0:3], rows[:, 3:6], rows[:, 6:9]
 
 
+def pretest_boxes(tri_packed):
+    """Row 9 of slot blocks (C, 16, 128) as the span boxes (lo, hi),
+    each (C, 8, 3)."""
+    b = tri_packed[:, 9, :6 * PRETEST_PER_CHUNK].reshape(-1, PRETEST_PER_CHUNK, 6)
+    return b[..., :3], b[..., 3:]
+
+
+def entry_or_inf(o, d, lo3, hi3):
+    """`slab_entry`'s entry distance where the ray enters the padded box,
+    +inf where it does not: a pair at t in the box is admissible only
+    where this is <= t."""
+    tn, enters = slab_entry(o, d, lo3, hi3)
+    return torch.where(enters, tn, torch.inf)
+
+
+def admissible_limit(o, d, cmin, cmax, lo, hi):
+    """The least t at which a pair may be admissible, per (ray, span):
+    max(tn_c, tn_s) of the cluster's and the span's padded boxes, +inf
+    where the ray enters either not at all. o, d (..., 3) and the boxes
+    cmin, cmax (..., 3), lo, hi (..., 8, 3) broadcast; (..., 8)."""
+    tn_c = entry_or_inf(o, d, cmin, cmax)
+    tn_s = entry_or_inf(o[..., None, :], d[..., None, :], lo, hi)
+    return torch.maximum(tn_c[..., None], tn_s)
+
+
 def stream_plain(o, d, tm, cmin, cmax, tri_packed) -> Hit:
     """The plain ascending cluster walk of K6, and K2's plain version
     (the same hits): clusters in ascending groups; each (ray, cluster)
     pair runs Moller-Trumbore only where the slab test passes against
-    the ray's best t at the start of the group (first argmin inside a
-    group, strict `<` across groups: brute force's tie order). The
-    kernels test each cluster against the current best t, which only
-    prunes clusters that cannot win."""
+    the ray's best t at the start of the group, and keeps the admissible
+    pairs (the module's rule, with the span boxes of row 9; first argmin
+    inside a group, strict `<` across groups: brute force's tie order).
+    The kernels test each cluster and span against the current best t,
+    which only prunes boxes that hold no admissible pair that could
+    win."""
     n = o.shape[0]
     c = cmin.shape[0]
     v0, e1, e2 = _slot_table(tri_packed)
+    lo, hi = pretest_boxes(tri_packed)
     t_best = tm.clone()
     tri = torch.full((n,), -1, dtype=torch.int32, device=o.device)
     u_best = torch.zeros(n, dtype=torch.float32, device=o.device)
@@ -169,11 +214,14 @@ def stream_plain(o, d, tm, cmin, cmax, tri_packed) -> Hit:
         rows = torch.nonzero(live.any(dim=1)).squeeze(1)
         if rows.numel() == 0:
             continue
+        o_r, d_r = o[rows, None, :], d[rows, None, :]
+        limit = admissible_limit(o_r, d_r, cmin[None, g0:g1], cmax[None, g0:g1],
+                                 lo[None, g0:g1], hi[None, g0:g1])
+        limit = torch.where(live[rows][..., None], limit, torch.inf)
         sl = slice(g0 * TRI_CHUNK, g1 * TRI_CHUNK)
         t, u, v = ray_triangle(o[rows], d[rows], v0[sl], e1[sl], e2[sl])
-        t = torch.where(
-            live[rows].repeat_interleave(TRI_CHUNK, dim=1), t, T_MAX
-        )
+        limit = limit.reshape(rows.numel(), -1).repeat_interleave(PRETEST_TRIS, dim=1)
+        t = torch.where(limit <= t, t, T_MAX)
         t_min, arg = torch.min(t, dim=1)
         better = t_min < t_best[rows]
         r = torch.arange(rows.numel(), device=o.device)

@@ -196,7 +196,7 @@ CULL_TOPK = Kernel(
 # csrc/traverse_candidates.cu
 TRAVERSE_CANDIDATES = Kernel(
     "hala_traverse_candidates",
-    [_P] * 7 + [_I] * 2 + [_P] * 7,
+    [_P] * 9 + [_I] * 2 + [_P] * 7,
 )
 # csrc/cluster_stream.cu
 CLUSTER_STREAM = Kernel(

@@ -35,9 +35,11 @@ clusters of 128 triangle slots with per-cluster AABBs
   (`fallback_t_max`), while resolved rays get t_max = -inf and cost K6
   nothing. No cap on C.
 
-Results equal the brute force over all slots, ties to the lowest slot,
-except where the reference's unpadded cull slab test misses a grazing
-cluster (kept for parity with the JAX package).
+Results are the lexicographic (t, slot) minimum over the admissible
+pairs (ops/cluster.py), the brute force over all slots but where the
+classic test accepts a pair outside its padded boxes, except where the
+reference's unpadded cull slab test misses a grazing cluster ("traverse";
+kept for parity with the JAX package).
 
 The wrappers run the kernels for CUDA tensors and the plain PyTorch
 versions for CPU tensors; there is no other fallback.
@@ -48,13 +50,15 @@ from __future__ import annotations
 import torch
 
 from . import cuda_lib
-from .cluster import (  # noqa: F401  (slab_live, TRI_CHUNK: K2's API)
+from .cluster import (  # noqa: F401  (slab_live, PRETEST_PER_CHUNK: K2's API)
     PRETEST_PER_CHUNK,
     PRETEST_TRIS,
     TRI_CHUNK,
+    admissible_limit,
     check_aligned,
     check_stream_inputs,
     intersect_clustered,
+    pretest_boxes,
     real_slots,
     slab_entry,
     slab_live,
@@ -180,9 +184,9 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
     best t of every ray still walking (live, and with any_hit not yet
     hit); each walking ray runs its slab test of the cluster and the
     eight row-9 sub-boxes against its best t (tn <= t), and
-    Moller-Trumbore on the spans that pass. Closest hit: the
-    lexicographic (t, slot) minimum; any hit: the lowest hit slot of the
-    first cluster with one. Returns (Hit, runs (G,) int32, the clusters
+    Moller-Trumbore on the spans that pass, keeping the admissible pairs
+    (ops/cluster.py). Closest hit: the lexicographic (t, slot) minimum;
+    any hit: the lowest admissible slot of the first cluster with one. Returns (Hit, runs (G,) int32, the clusters
     each block visited)."""
     n = o.shape[0]
     dev = o.device
@@ -205,6 +209,7 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
     walking = torch.ones(g_total, dtype=torch.bool, device=dev)
     span = torch.arange(TRI_CHUNK, device=dev) // PRETEST_TRIS
     slot_k = torch.arange(TRI_CHUNK, dtype=torch.int32, device=dev)
+    lo, hi = pretest_boxes(tri_packed)
     for j in range(keys.shape[1]):
         key = keys[:, j]
         key_tn = (key & ~_ID_MASK).view(torch.float32).repeat_interleave(block)
@@ -218,11 +223,10 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
         tb = t_best[r]
         tn, enters = slab_entry(o[r], d[r], cluster_min[c], cluster_max[c])
         keep = enters & (tn <= tb)
-        r, c, tb = r[keep], c[keep], tb[keep]
-        boxes = tri_packed[c, 9, :6 * PRETEST_PER_CHUNK].view(-1, PRETEST_PER_CHUNK, 6)
-        tn, enters = slab_entry(o[r, None, :], d[r, None, :], boxes[..., :3],
-                                boxes[..., 3:])
+        r, c, tb, tn_c = r[keep], c[keep], tb[keep], tn[keep]
+        tn, enters = slab_entry(o[r, None, :], d[r, None, :], lo[c], hi[c])
         tested = (enters & (tn <= tb[:, None]))[:, span]
+        limit = torch.maximum(tn_c[:, None], tn)[:, span]
         blk = tri_packed[c, 0:9, :]
         o_r, d_r = o[r], d[r]
         t, u, v, valid = mt_components(
@@ -230,7 +234,7 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
             (d_r[:, 0:1], d_r[:, 1:2], d_r[:, 2:3]),
             [blk[:, q, :] for q in range(9)],
         )
-        valid = valid & tested
+        valid = valid & tested & (limit <= t)
         best = tri[r]
         if any_hit:
             valid = valid & (t < tb[:, None])
@@ -354,13 +358,16 @@ def cull_candidates(o, d, t_max, cluster_min, cluster_max, k_per_ray: int,
 # --- K5: the candidate walk -------------------------------------------------
 
 
-def _traverse_plain(o, d, tm, ids, tns, ovf, tri_packed):
+def _traverse_plain(o, d, tm, ids, tns, ovf, cluster_min, cluster_max, tri_packed):
     """The plain version of K5: each ray walks its list in order, stops
     at the padding or once the next entry distance exceeds its best t,
-    and keeps the lexicographic (t, slot) minimum over the slots of the
-    clusters it visits. Returns (Hit, unres int32, runs int32)."""
+    and keeps the lexicographic (t, slot) minimum over the admissible
+    pairs (ops/cluster.py) of the clusters it visits. Returns (Hit,
+    unres int32, runs int32)."""
     n, k = ids.shape
     dev = o.device
+    lo, hi = pretest_boxes(tri_packed)
+    span = torch.arange(TRI_CHUNK, device=dev) // PRETEST_TRIS
     t_best = tm.clone()
     tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
     u_best = torch.zeros(n, dtype=torch.float32, device=dev)
@@ -385,6 +392,10 @@ def _traverse_plain(o, d, tm, ids, tns, ovf, tri_packed):
                 (d_r[:, 0:1], d_r[:, 1:2], d_r[:, 2:3]),
                 [blk[:, q, :] for q in range(9)],
             )
+            cl = c.long()
+            limit = admissible_limit(o_r, d_r, cluster_min[cl], cluster_max[cl],
+                                     lo[cl], hi[cl])
+            valid = valid & (limit[:, span] <= t)
             t_min, arg = torch.min(torch.where(valid, t, torch.inf), dim=1)
             found = valid.any(dim=1)
             slot = c * TRI_CHUNK + slot_k[arg]
@@ -401,13 +412,13 @@ def _traverse_plain(o, d, tm, ids, tns, ovf, tri_packed):
     return Hit(t=t_best, tri=tri, u=u_best, v=v_best), unres, runs
 
 
-def _launch_traverse(o, d, tm, ids, tns, ovf, tri_packed):
+def _launch_traverse(o, d, tm, ids, tns, ovf, cluster_min, cluster_max, tri_packed):
     dev = o.device
     n, k = ids.shape
     cuda_lib.check_cuda(
         "traverse_candidates",
-        dict(o=o, d=d, t_max=tm, ids=ids, tns=tns, ovf=ovf,
-             tri_packed=tri_packed),
+        dict(o=o, d=d, t_max=tm, ids=ids, tns=tns, ovf=ovf, cluster_min=cluster_min,
+             cluster_max=cluster_max, tri_packed=tri_packed),
         dict(ids=torch.int32, ovf=torch.bool), dev,
     )
     if o.shape != (n, 3) or d.shape != (n, 3) or tm.shape != (n,):
@@ -418,6 +429,8 @@ def _launch_traverse(o, d, tm, ids, tns, ovf, tri_packed):
         raise ValueError(
             f"traverse_candidates: tri_packed has shape {tuple(tri_packed.shape)}"
         )
+    if cluster_min.shape != (tri_packed.shape[0], 3) or cluster_max.shape != cluster_min.shape:
+        raise ValueError("traverse_candidates: cluster AABBs must be (C, 3)")
     check_aligned("traverse_candidates", tri_packed)
     t_out = torch.empty(n, dtype=torch.float32, device=dev)
     tri_out = torch.empty(n, dtype=torch.int32, device=dev)
@@ -427,28 +440,35 @@ def _launch_traverse(o, d, tm, ids, tns, ovf, tri_packed):
     runs = torch.empty(n, dtype=torch.int32, device=dev)
     P = cuda_lib.ptr
     cuda_lib.TRAVERSE_CANDIDATES(
-        P(o), P(d), P(tm), P(ids), P(tns), P(ovf), P(tri_packed), n, k,
+        P(o), P(d), P(tm), P(ids), P(tns), P(ovf), P(cluster_min), P(cluster_max),
+        P(tri_packed), n, k,
         P(t_out), P(tri_out), P(u_out), P(v_out), P(unres), P(runs),
         cuda_lib.stream_ptr(dev),
     )
     return Hit(t=t_out, tri=tri_out, u=u_out, v=v_out), unres, runs
 
 
-def traverse_candidates_plain(o, d, tm, ids, tns, ovf, tri_packed):
+def traverse_candidates_plain(o, d, tm, ids, tns, ovf, cluster_min, cluster_max,
+                              tri_packed):
     """The plain version of `traverse_candidates`, on any device."""
-    return _traverse_plain(o, d, tm, ids, tns, ovf, tri_packed)
+    return _traverse_plain(o, d, tm, ids, tns, ovf, cluster_min, cluster_max,
+                           tri_packed)
 
 
-def traverse_candidates(o, d, tm, ids, tns, ovf, tri_packed):
-    """K5: the closest hit over each ray's candidate clusters.
+def traverse_candidates(o, d, tm, ids, tns, ovf, cluster_min, cluster_max,
+                        tri_packed):
+    """K5: the closest hit over the admissible pairs of each ray's
+    candidate clusters.
 
     ids (N, K) int32 ascending by entry distance, BIG_CLUSTER-padded;
     tns (N, K) f32 lower bounds of the entry distances; ovf (N,) bool,
-    the list was truncated. Returns (Hit, unres (N,) int32 = ovf and
-    t > tns[:, K-1], runs (N,) int32 = clusters visited)."""
+    the list was truncated; cluster_min, cluster_max (C, 3) the boxes
+    of the rule's cluster clause. Returns (Hit, unres (N,) int32 = ovf
+    and t > tns[:, K-1], runs (N,) int32 = clusters visited)."""
+    args = (o, d, tm, ids, tns, ovf, cluster_min, cluster_max, tri_packed)
     if o.device.type == "cpu":
-        return _traverse_plain(o, d, tm, ids, tns, ovf, tri_packed)
-    return _launch_traverse(o, d, tm, ids, tns, ovf, tri_packed)
+        return _traverse_plain(*args)
+    return _launch_traverse(*args)
 
 
 class TraverseStats:
@@ -498,7 +518,8 @@ def _traverse_core(o, d, geometry, tm, ids, tns, ovf) -> Hit:
     """K5 over the candidate lists, then K6 for the unresolved rays,
     launched for every query without a host sync."""
     hit, unres, runs = traverse_candidates(o, d, tm, ids, tns, ovf,
-                                           geometry.tri_packed)
+                                           geometry.cluster_min,
+                                           geometry.cluster_max, geometry.tri_packed)
     stats.record(tm, unres, runs)
     fb = intersect_clustered(o, d, geometry, t_max=fallback_t_max(hit, unres))
     # the lexicographic (t, slot) minimum of the two
@@ -566,17 +587,20 @@ def mm_coefficients(tri_packed, cluster_min, cluster_max):
     return coef, cc
 
 
-def mm_span_mask(o, d, tm, t_cur, lo, hi):
-    """(R, 128, 8) bool: the spans of a group's entry a ray may hit in.
-    o, d (R, 128, 3), tm and t_cur (R, 128), the entry's span boxes lo,
-    hi (R, 8, 3). A span is in where the ray's range is live
-    (t_max > 1e-4) and it enters the span's padded box (`slab_entry`,
-    the row-9 pretest of K2) at a distance below t_cur: the ray's best
-    t at the start of the entry, its t_max while it has no hit and
-    always for any-hit."""
-    tn, enters = slab_entry(o[:, :, None, :], d[:, :, None, :],
-                            lo[:, None], hi[:, None])
-    return enters & (tn < t_cur[..., None]) & (tm > T_MIN)[..., None]
+def mm_span_mask(o, d, tm, t_cur, lo, hi, cmin, cmax):
+    """(R, 128, 8) f32: per ray and span of a group's entry, the least t
+    at which a pair may be admissible (ops/cluster.py
+    `admissible_limit`: max(tn_c, tn_s) of the cluster's and the span's
+    padded boxes), +inf where the span is out. o, d (R, 128, 3), tm and
+    t_cur (R, 128), the entry's span boxes lo, hi (R, 8, 3) and cluster
+    box cmin, cmax (R, 3). A span is out where the ray's range is dead
+    (t_max <= 1e-4) or the limit exceeds t_cur (the ray's best t at the
+    start of the entry, its t_max while it has no hit and always for
+    any-hit): every admissible pair there lies beyond t_cur. A pair at
+    t is accepted where limit <= t."""
+    limit = admissible_limit(o, d, cmin[:, None], cmax[:, None], lo[:, None], hi[:, None])
+    keep = (limit <= t_cur[..., None]) & (tm > T_MIN)[..., None]
+    return torch.where(keep, limit, torch.inf)
 
 
 def mm_terms(coef, cc, o, d):
@@ -625,8 +649,9 @@ def mm_barycentric_pass(det, un, vn):
 
 def mm_chunk_test_plain(coef, cc, cid, o, d, tm, any_hit: bool, span):
     """R groups of 128 rays, each against the 128 slots of one cluster:
-    the JAX package's `_mm_chunk_test` with a pair accepted only in the
-    spans `span` (R, 128, 8) lets in (`mm_span_mask`). coef (R, 16, 128)
+    the JAX package's `_mm_chunk_test` with a pair at t accepted only
+    where t >= its span's limit `span` (R, 128, 8) (`mm_span_mask`).
+    coef (R, 16, 128)
     and cc (R, 3) of the clusters cid (R,); o, d (R, 128, 3); tm
     (R, 128). Returns (t, tri, u, v), each (R, 128): per ray the hit of
     lowest t in (1e-4, t_max), the lowest slot among equal t, or
@@ -637,7 +662,7 @@ def mm_chunk_test_plain(coef, cc, cid, o, d, tm, any_hit: bool, span):
     inv_det = 1.0 / torch.where(torch.abs(det) > EPS, det, 1.0)
     tt = tn * inv_det
     valid = (mm_barycentric_pass(det, un, vn) & (tt > T_MIN) & (tt < tm[:, :, None])
-             & span.repeat_interleave(PRETEST_TRIS, dim=2))
+             & (span.repeat_interleave(PRETEST_TRIS, dim=2) <= tt))
     base = (cid * TRI_CHUNK).to(torch.int32)[:, None]
     if any_hit:
         blocked = valid.any(dim=2)
@@ -673,8 +698,8 @@ def walk_groups_plain(o, d, tm, tri_packed, cluster_min, cluster_max,
     for entry j the groups still walking (G,) bool (a group that stops
     stays stopped), those that test it (G,) bool and its cluster per
     group (G,) int. Returns (t, tri, u, v) as (N,) tensors, and per
-    group the walked and the tested entries. A tested entry lets each
-    ray in only at the spans `mm_span_mask` gives it."""
+    group the walked and the tested entries. A tested entry accepts a
+    ray's pairs only by the admissibility rule (`mm_span_mask`)."""
     dev = o.device
     g_total = o.shape[0] // GROUP
     coef, cc = mm_coefficients(tri_packed, cluster_min, cluster_max)
@@ -703,7 +728,8 @@ def walk_groups_plain(o, d, tm, tri_packed, cluster_min, cluster_max,
             r = rows[r0:r0 + _PLAIN_GROUPS]
             c = cid[r].long()
             t_cur = tm_g[r] if any_hit else torch.where(acc[1][r] >= 0, acc[0][r], tm_g[r])
-            span = mm_span_mask(o_g[r], d_g[r], tm_g[r], t_cur, lo[c], hi[c])
+            span = mm_span_mask(o_g[r], d_g[r], tm_g[r], t_cur, lo[c], hi[c],
+                                cluster_min[c], cluster_max[c])
             new = mm_chunk_test_plain(coef[c], cc[c], c, o_g[r], d_g[r],
                                       tm_g[r], any_hit, span)
             merged = mm_merge(tuple(a[r] for a in acc), new)

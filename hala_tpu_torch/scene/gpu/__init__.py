@@ -8,11 +8,13 @@ from .scene import (
     DeviceLights,
     DeviceCameras,
     DeviceMeshlets,
+    DeviceProcedural,
     TextureStack,
     from_numpy,
 )
 
 __all__ = [
     "DeviceScene", "DeviceGeometry", "DeviceMaterials", "DeviceLights",
-    "DeviceCameras", "DeviceMeshlets", "TextureStack", "from_numpy",
+    "DeviceCameras", "DeviceMeshlets", "DeviceProcedural", "TextureStack",
+    "from_numpy",
 ]

@@ -210,6 +210,18 @@ class DeviceMeshlets(TensorTables):
 
 
 @dataclasses.dataclass
+class DeviceProcedural(TensorTables):
+    """Procedural spheres (ops/prims.py): the SoA table and the packed
+    row the shading fetch gathers."""
+
+    center: torch.Tensor   # (P, 3) f32
+    radius: torch.Tensor   # (P,) f32
+    mat: torch.Tensor      # (P,) i32, material index
+    packed: torch.Tensor   # (P, 8) f32 [cx cy cz r mat 0 0 0]
+    num_prims: int = 0
+
+
+@dataclasses.dataclass
 class DeviceScene(TensorTables):
     """Everything the integrator and the rasterizer read
     (gpu/scene.rs:11-37 role)."""
@@ -220,6 +232,7 @@ class DeviceScene(TensorTables):
     cameras: DeviceCameras
     textures: TextureStack | None = None
     meshlets: DeviceMeshlets | None = None
+    procedural: DeviceProcedural | None = None
     name: str = "scene"
     # flattened primitive id -> scene node index (host metadata)
     prim_node: tuple = ()
@@ -260,15 +273,14 @@ _NESTED = {
     "cameras": DeviceCameras,
     "textures": TextureStack,
     "meshlets": DeviceMeshlets,
+    "procedural": DeviceProcedural,
 }
 
 
 def from_numpy(tables, device) -> DeviceScene:
     """Build a DeviceScene on `device` from any object with the same
     field names whose array fields convert with `np.asarray` (a JAX
-    DeviceScene, or this package's own). Dtypes are kept as they are.
-    Tables the port does not read yet (meshlets, BVH) are dropped;
-    procedural spheres raise, as they are not ported yet."""
-    if getattr(tables, "procedural", None) is not None:
-        raise HalaRendererError("procedural spheres are not yet ported")
+    DeviceScene, or this package's own), procedural spheres included.
+    Dtypes are kept as they are. Tables the port does not read (the
+    BVH) are dropped."""
     return _carry(DeviceScene, tables, resolve_device(device))

@@ -46,6 +46,7 @@ from ..gpu.scene import (
     DeviceGeometry,
     DeviceLights,
     DeviceMaterials,
+    DeviceProcedural,
     DeviceScene,
     TextureStack,
     pad_rows,
@@ -89,8 +90,6 @@ class SceneUploader:
         device="cuda",
     ) -> DeviceScene:
         dev = resolve_device(device)
-        if getattr(scene, "procedurals", None):
-            raise HalaRendererError("procedural spheres are not yet ported")
         cameras = SceneUploader._upload_cameras(scene, dev)
         lights = SceneUploader._upload_lights(scene, dev)
         materials = SceneUploader._upload_materials(scene, dev)
@@ -118,8 +117,33 @@ class SceneUploader:
             cameras=cameras,
             textures=textures,
             meshlets=meshlets,
+            procedural=SceneUploader._upload_procedural(scene, dev),
             prim_node=prim_node,
         )
+
+    # -- procedural primitives -------------------------------------------
+
+    @staticmethod
+    def _upload_procedural(scene: Scene, device) -> DeviceProcedural | None:
+        """The sphere table of Scene.procedurals (gpu_uploader.rs:818-840
+        role); None when the scene declares no procedural shapes, so the
+        integrator's merge does nothing."""
+        prims = getattr(scene, "procedurals", None)
+        if not prims:
+            return None
+        centers = np.array([p.center for p in prims], np.float32).reshape(-1, 3)
+        radii = np.array([p.radius for p in prims], np.float32)
+        mats = np.array([p.material for p in prims], np.int32)
+        packed = np.zeros((len(prims), 8), np.float32)
+        packed[:, 0:3] = centers
+        packed[:, 3] = radii
+        packed[:, 4] = mats.astype(np.float32)
+
+        def t(a):
+            return torch.from_numpy(a).to(device)
+
+        return DeviceProcedural(center=t(centers), radius=t(radii), mat=t(mats),
+                                packed=t(packed), num_prims=len(prims))
 
     # -- cameras ---------------------------------------------------------
 

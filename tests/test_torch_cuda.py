@@ -395,7 +395,8 @@ def test_k6_matches_stream_plain(atrium_big_batch, case):
                                   tri_packed=g.tri_packed)
     if case == "fallback":
         ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, 4)
-        hit, unres, _ = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
+        hit, unres, _ = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.cluster_min,
+                                               g.cluster_max, g.tri_packed)
         tm = k5.fallback_t_max(hit, unres)
         live = int((tm > 1e-4).sum())
         assert 0 < live < o.shape[0] // 2
@@ -507,8 +508,9 @@ def test_k5_k6_kernels_match_plain(atrium_batch, k):
     g, o, d, tm = atrium_batch
     ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, k)
     before = (cuda_lib.TRAVERSE_CANDIDATES.launches, cuda_lib.CLUSTER_STREAM.launches)
-    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
-    ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, g.tri_packed)
+    boxes = (g.cluster_min, g.cluster_max, g.tri_packed)
+    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, *boxes)
+    ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, *boxes)
     torch.cuda.synchronize()
     for a, b in zip((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2])):
         assert torch.equal(a, b)
@@ -647,8 +649,9 @@ def test_k5_sorted_and_unsorted_match_plain(atrium_batch, k, order):
         o, d, tm = (x[perm].contiguous() for x in (o, d, tm))
     ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, k)
     before = cuda_lib.TRAVERSE_CANDIDATES.launches
-    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
-    ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, g.tri_packed)
+    boxes = (g.cluster_min, g.cluster_max, g.tri_packed)
+    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, *boxes)
+    ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, *boxes)
     torch.cuda.synchronize()
     assert cuda_lib.TRAVERSE_CANDIDATES.launches == before + 1
     _equal_bits((*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2]))
@@ -738,6 +741,52 @@ def test_k7_k8_span_breaking_table_matches_plain(cuda_device):
     after = cuda_lib.launches()
     assert after["grouped_walk"] - before["grouped_walk"] == 4
     assert after["wavefront_walk"] - before["wavefront_walk"] == 4
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3, 4, 5])
+def test_walks_on_the_grazing_table_equal_their_plain_versions(cuda_device, seed):
+    """The admissibility rule (ops/cluster.py) on chip_smoke.py's
+    `grazing_beside_span`, where K1 accepts rays beside span 0's
+    triangle: K2, K5 and K6 equal `stream_plain` bit for bit, and K7 and
+    K8 their plain versions (closest and any-hit)."""
+    g, o, d, tm = chip_smoke.grazing_beside_span(seed)
+    for key in vars(g):
+        setattr(g, key, getattr(g, key).to(cuda_device))
+    o, d, tm = o.to(cuda_device), d.to(cuda_device), tm.to(cuda_device)
+    ref = k6.stream_plain(o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed)
+    ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, 1)
+    walks = (k2.intersect_matrix(o, d, g, t_max=tm),
+             k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.cluster_min,
+                                    g.cluster_max, g.tri_packed)[0],
+             k6.intersect_clustered(o, d, g, t_max=tm))
+    torch.cuda.synchronize()
+    for hit in walks:
+        for a, b in zip(hit, ref):
+            assert torch.equal(a, b)
+    table = chip_smoke.grazing_table(seed)
+    for label, kernel, plain, args, _ in chip_smoke.span_table_cases(
+            cuda_device, table, (1,), "grazing"):
+        for a, b in zip(kernel(*args), plain(*args)):
+            assert torch.equal(a, b), label
+
+
+def test_walks_on_the_half_box_table_equal_stream_plain(cuda_device):
+    """chip_smoke.py's `half_box_table`, where the cluster box alone
+    rejects pairs (K5 takes its second pass over the slots there): K2,
+    K5 and K6 equal `stream_plain` bit for bit."""
+    g, o, d, tm = chip_smoke.half_box_table()
+    for key in vars(g):
+        setattr(g, key, getattr(g, key).to(cuda_device))
+    o, d, tm = o.to(cuda_device), d.to(cuda_device), tm.to(cuda_device)
+    ref = k6.stream_plain(o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed)
+    ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, 1)
+    for hit in (k2.intersect_matrix(o, d, g, t_max=tm),
+                k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.cluster_min,
+                                       g.cluster_max, g.tri_packed)[0],
+                k6.intersect_clustered(o, d, g, t_max=tm)):
+        for a, b in zip(hit, ref):
+            assert torch.equal(a, b)
+    assert 0 < int((ref.tri >= 0).sum()) < o.shape[0]
 
 
 def test_grouped_and_wavefront_engines_on_card_equal_cpu(atrium_batch):

@@ -1,9 +1,10 @@
 """The span mask of the walks' chunk test (K7, K8) against the JAX package.
 
 The port's grouped (K8) and wavefront (K7) walks accept a (ray, slot)
-pair only where the ray enters the padded box of the slot's span of 16
-below its current best t (ops/cluster.py `span_boxes`, ops/traverse.py
-`mm_span_mask`); the JAX package's `_mm_chunk_test` has no such mask.
+pair at t only where it is admissible: the ray enters the padded boxes
+of the slot's cluster and of its span of 16 at entry distances <= t
+(ops/cluster.py `admissible_limit`, `span_boxes`; ops/traverse.py
+`mm_span_mask`); the JAX package's `_mm_chunk_test` has no such rule.
 The kernels (csrc/mm_chunk_test.cuh) skip the spans no lane of a warp
 enters and are held to the masked plain version on the card
 (tests/test_torch_cuda.py); here the masked plain version is held to
@@ -50,8 +51,9 @@ from hala_tpu.scene.procedural import random_triangle_soup, sponza_like
 from hala_tpu_torch.ops import cull
 from hala_tpu_torch.ops import traverse as k8
 from hala_tpu_torch.ops import wavefront as k7
-from hala_tpu_torch.ops.cluster import (FAR_BOX, WHOLE_BOX, real_slots, slab_entry,
-                                        span_boxes, with_pretest_row)
+from hala_tpu_torch.ops.cluster import (FAR_BOX, WHOLE_BOX, admissible_limit,
+                                        real_slots, slab_entry, span_boxes,
+                                        with_pretest_row)
 from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 from hala_tpu_torch.scene.gpu.scene import from_numpy
 
@@ -165,17 +167,19 @@ def _run_wavefront(scene, k, m, any_hit):
 
 
 def _outside(scene, rays, tri, t):
-    """Per ray: True where the pair (ray, slot tri) lies in a span whose
-    padded box the ray does not enter below t (`span_boxes`,
-    `slab_entry`). Rays without a slot give False."""
-    blk = _t(scene[0])
+    """Per ray: True where the pair (ray, slot tri) at t is not
+    admissible by its boxes: the ray enters the padded box of the slot's
+    cluster or of its span (`span_boxes`) beyond t or not at all
+    (`admissible_limit`). Rays without a slot give False."""
+    blk, cmin, cmax = (_t(a) for a in scene[:3])
     o, d, _ = rays
     lo, hi = span_boxes(blk, real_slots(blk))
     has = tri >= 0
     slot = np.where(has, tri, 0)
-    c, s = _t(slot // 128), _t(slot % 128 // 16)
-    tn, enters = slab_entry(o, d, lo[c, s], hi[c, s])
-    return has & ~(enters & (tn < _t(t))).numpy()
+    c, s = _t(slot // 128).long(), _t(slot % 128 // 16).long()
+    limit = admissible_limit(o, d, cmin[c], cmax[c], lo[c], hi[c])
+    limit = torch.gather(limit, 1, s[:, None])[:, 0]
+    return has & ~(limit <= _t(t)).numpy()
 
 
 def _grazes(tri, u, v):
@@ -238,8 +242,10 @@ def test_wavefront_walk_matches_jax_but_for_the_span_mask(scenes, name, k, m):
             np.testing.assert_array_equal(ours[4].numpy(), ref[4])
 
 
-def _no_mask(o, d, tm, t_cur, lo, hi):
-    return (tm > k8.T_MIN)[..., None].expand(*tm.shape, 8)
+def _no_mask(o, d, tm, t_cur, lo, hi, cmin, cmax):
+    """Every pair of a live ray admissible: the JAX kernel's test."""
+    live = (tm > k8.T_MIN)[..., None].expand(*tm.shape, 8)
+    return torch.where(live, -torch.inf, torch.inf)
 
 
 @pytest.mark.parametrize("name", ["walls", "sah"])
@@ -333,22 +339,33 @@ def test_span_boxes_are_row_9_and_survive_odd_slots(scenes):
     lo2, hi2 = span_boxes(odd, real_slots(odd))
     assert torch.equal(lo2[0, 0], lo[0, 0]) and torch.equal(hi2[0, 0], hi[0, 0])
     assert bool((lo2[0, 2] == -WHOLE_BOX).all()) and bool((hi2[0, 2] == WHOLE_BOX).all())
-    mask = k8.mm_span_mask(torch.zeros(1, 1, 3), torch.tensor([[[0.0, 0.0, 1.0]]]),
-                           torch.ones(1, 1), torch.ones(1, 1), lo2[None, 0], hi2[None, 0])
-    assert mask[0, 0].tolist() == [False, False, True] + [False] * 5
+    whole = torch.tensor([[WHOLE_BOX] * 3])
+    limit = k8.mm_span_mask(torch.zeros(1, 1, 3), torch.tensor([[[0.0, 0.0, 1.0]]]),
+                            torch.ones(1, 1), torch.ones(1, 1), lo2[None, 0], hi2[None, 0],
+                            -whole, whole)
+    assert (limit[0, 0] < torch.inf).tolist() == [False, False, True] + [False] * 5
 
 
 def test_span_mask_uses_the_best_t_and_ignores_dead_rays():
-    """A span entered beyond the ray's best t (closest hit) or its t_max
-    is out; a dead (t_max 0) or resolved (t_max -inf) ray has none."""
+    """A span whose admissible limit (the later of the cluster's and the
+    span's entry distances) lies beyond the ray's best t (closest hit)
+    or its t_max is out; a dead (t_max 0) or resolved (t_max -inf) ray
+    has none. The limit takes the cluster box where the ray enters it
+    after the span box."""
     lo = torch.tensor([[[1.0, -1.0, -1.0]] * 8])
     hi = torch.tensor([[[2.0, 1.0, 1.0]] * 8])
     lo[0, 4:, 0], hi[0, 4:, 0] = 5.0, 6.0
+    cmin, cmax = torch.tensor([[1.5, -1.0, -1.0]]), torch.tensor([[6.0, 1.0, 1.0]])
     o = torch.zeros(1, 4, 3)
     d = torch.tensor([1.0, 0.0, 0.0]).repeat(1, 4, 1)
     tm = torch.tensor([[3.0e38, 3.0e38, 0.0, -float("inf")]])
     t_cur = torch.tensor([[3.0e38, 3.0, 3.0e38, 3.0e38]])
-    mask = k8.mm_span_mask(o, d, tm, t_cur, lo, hi)
+    limit = k8.mm_span_mask(o, d, tm, t_cur, lo, hi, cmin, cmax)
+    mask = limit < torch.inf
     assert mask[0, 0].all()
     assert mask[0, 1].tolist() == [True] * 4 + [False] * 4
     assert not mask[0, 2:].any()
+    tn_c = slab_entry(o[0, 0], d[0, 0], cmin[0], cmax[0])[0]
+    tn_s = slab_entry(o[0, 0], d[0, 0], lo[0, 4], hi[0, 4])[0]
+    assert 1.0 < float(tn_c) < 1.5 and float(tn_s) > 4.9
+    assert bool((limit[0, 0, :4] == tn_c).all()) and bool((limit[0, 0, 4:] == tn_s).all())

@@ -219,10 +219,10 @@ def test_renderer_error_probes():
     with pytest.raises(HalaRendererError, match="no camera"):
         r.set_scene(scene)
     r.set_scene(cornell_box())
-    for call in (lambda: r.push_general_kernel("miss", lambda *a: None),
-                 lambda: r.push_hit_kernels(lambda *a: None)):
-        with pytest.raises(HalaRendererError, match="not yet ported"):
-            call()
+    # pushed kernels are ported: only the stages push_general_shader
+    # takes are accepted
+    with pytest.raises(HalaRendererError, match="raygen/miss/callable"):
+        r.push_general_kernel("closest_hit", lambda *a: None)
 
 
 def test_cuda_error_marks_device_lost_and_restores(tmp_path):
@@ -255,8 +255,9 @@ def test_cuda_error_marks_device_lost_and_restores(tmp_path):
 @pytest.mark.parametrize("option", ["intersector", "env", "blue_noise", "hooks",
                                     "scene_axis"])
 def test_unported_integrator_options_raise(option):
-    """What is still unported raises; the environment map and the
-    blue-noise texture, ported since, render instead."""
+    """What is still unported raises; the environment map, the
+    blue-noise texture and pushed kernel hooks, ported since, render
+    instead."""
     dev = SceneUploader.upload(cornell_box(), device="cpu")
     kw = dict(width=8, height=8)
     args = dict(env=None, blue_noise=None, hooks=None)
@@ -273,6 +274,10 @@ def test_unported_integrator_options_raise(option):
             (16, 16, 4), generator=torch.Generator().manual_seed(1))
     elif option == "scene_axis":
         kw["scene_axis"] = "x"
+    elif option == "hooks":
+        from hala_tpu_torch.models.integrator import KernelHooks
+
+        args["hooks"] = KernelHooks(miss=lambda d, uniforms, default: default)
     else:
         args[option] = object()
 
@@ -283,7 +288,7 @@ def test_unported_integrator_options_raise(option):
                      hooks=args["hooks"])
         return film
 
-    if option in ("env", "blue_noise"):
+    if option in ("env", "blue_noise", "hooks"):
         film = render()
         assert bool(torch.isfinite(film.accum).all())
         assert float(film.accum[..., :3].mean()) > 0.0

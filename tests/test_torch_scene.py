@@ -137,12 +137,24 @@ def test_device_rule():
 
 
 def test_procedural_spheres_raise():
+    """Procedural spheres raised while unported; now the uploader's
+    sphere table equals the JAX package's, and `from_numpy` carries the
+    JAX table over."""
+    from hala_tpu.scene.cpu.prims import ProceduralSphere as JSphere
     from hala_tpu_torch.scene.cpu.prims import ProceduralSphere
 
+    spheres = [((0.0, 0.0, 0.0), 0.5, 0), ((0.25, -0.5, 0.1), 0.2, 3)]
     scene = tproc.cornell_box()
-    scene.procedurals = [ProceduralSphere((0.0, 0.0, 0.0), 0.5, 0)]
-    with pytest.raises(HalaRendererError, match="not yet ported"):
-        TUploader.upload(scene, device="cpu")
+    scene.procedurals = [ProceduralSphere(*s) for s in spheres]
+    jscene = jproc.cornell_box()
+    jscene.procedurals = [JSphere(*s) for s in spheres]
+    got = TUploader.upload(scene, device="cpu").procedural
+    ref = JUploader.upload(jscene, use_ray_tracing=False).procedural
+    carried = from_numpy(JUploader.upload(jscene, use_ray_tracing=False), "cpu").procedural
+    assert got.num_prims == ref.num_prims == carried.num_prims == 2
+    for name in ("center", "radius", "mat", "packed"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(ref, name)))
+        assert torch.equal(getattr(got, name), getattr(carried, name))
 
 
 def test_no_camera_raises():

@@ -40,6 +40,7 @@ from hala_tpu_torch.models import integrator as tint
 from hala_tpu_torch.ops import cluster as k6
 from hala_tpu_torch.ops import compaction, cull, morton
 from hala_tpu_torch.ops import traverse as k5
+from hala_tpu_torch.ops.cluster import with_pretest_row
 from hala_tpu_torch.ops.intersect import intersect_bruteforce
 from hala_tpu_torch.scene.gpu.scene import from_numpy
 
@@ -253,7 +254,8 @@ def test_k5_unresolved_rays_take_the_fallback(geoms):
     g = tdev.geometry
     o, d, tm = (_t(x) for x in _batch(tdev, 2048, 8))
     ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, 4)
-    hit, unres, runs = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.tri_packed)
+    hit, unres, runs = k5.traverse_candidates(o, d, tm, ids, tns, ovf, g.cluster_min,
+                                              g.cluster_max, g.tri_packed)
     assert torch.equal(unres.bool(), ovf & (hit.t > tns[:, 3]))
     assert bool((runs <= (ids != k5.BIG_CLUSTER).sum(1)).all())
     bf = intersect_bruteforce(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm, chunk=512)
@@ -289,8 +291,11 @@ def test_k5_keeps_the_lowest_slot_at_equal_t():
     tm = torch.tensor([3.0e38])
     ids = torch.tensor([[1, 0]], dtype=torch.int32)
     tns = torch.tensor([[1.5, 1.5]])
-    hit, unres, runs = k5.traverse_candidates(o, d, tm, ids, tns,
-                                              torch.tensor([False]), blk)
+    # the admissibility rule's boxes: the triangle's, and row 9
+    cmin = torch.tensor([[0.0, -1.0, -1.0]] * 2)
+    cmax = torch.tensor([[0.0, 2.0, 2.0]] * 2)
+    hit, unres, runs = k5.traverse_candidates(o, d, tm, ids, tns, torch.tensor([False]),
+                                              cmin, cmax, with_pretest_row(blk))
     assert int(hit.tri[0]) == 7 and float(hit.t[0]) == pytest.approx(2.0)
     assert int(runs[0]) == 2 and int(unres[0]) == 0
 

@@ -45,12 +45,12 @@ atrium_big frame through intersector="wavefront" (1920x1088, depth 4,
 1 spp, two frames after a warm-up). For this checkout it also prints
 the plain model's span counts on the 2^21 batch (chip_smoke
 `TestedPairs`: pairs in the spans each ray enters, and in the spans
-some lane of each warp enters) and both bounds. `--sass` compiles the
-two walks to cubins with `-Xptxas -v` (registers, shared memory,
-spills) and prints, from `cuobjdump -sass`, the instructions of each
-loop (a backward branch and its target) of each kernel with its opcode
-counts; the cubins and their SASS go to hala_tpu_torch/_build/sass/ of
-the checkout timed.
+some lane of each warp enters) and both bounds. `--sass` compiles K2,
+K5, K6 and the two walks to cubins with `-Xptxas -v` (registers,
+shared memory, spills) and prints, from `cuobjdump -sass`, the
+instructions of each loop (a backward branch and its target) of the
+two walks with its opcode counts; the cubins and their SASS go to
+hala_tpu_torch/_build/sass/ of the checkout timed.
 """
 
 from __future__ import annotations
@@ -214,8 +214,9 @@ def time_k7_k8(S, host, dev, reps: int, own: bool) -> dict:
 
 
 def sass_loops(root: str) -> dict:
-    """Registers, shared memory and spills (`-Xptxas -v`) of the two
-    walks, and the instructions of each loop of their SASS."""
+    """Registers, shared memory and spills (`-Xptxas -v`) of the cluster
+    walks (K2, K5, K6) and of the two chunk-test walks (K8, K7), and for
+    the latter the instructions of each loop of their SASS."""
     import collections
     import re
     import subprocess
@@ -226,7 +227,8 @@ def sass_loops(root: str) -> dict:
     os.makedirs(outdir, exist_ok=True)
     flags = [f for f in cuda_lib.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     out = {}
-    for name in ("grouped_walk", "wavefront_walk"):
+    for name in ("matrix_traverse", "traverse_candidates", "cluster_stream",
+                 "grouped_walk", "wavefront_walk"):
         src = os.path.join(root, "hala_tpu_torch", "csrc", f"{name}.cu")
         cubin = os.path.join(outdir, f"{name}.cubin")
         ptxas = subprocess.run([cuda_lib.nvcc_path(), *flags, "-cubin", "-Xptxas", "-v",
@@ -242,7 +244,7 @@ def sass_loops(root: str) -> dict:
             if m:
                 code.append((int(m.group(1), 16), m.group(2).strip()))
         loops = []
-        for addr, text in code:
+        for addr, text in code if name in ("grouped_walk", "wavefront_walk") else ():
             b = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", text)
             if b and int(b.group(1), 16) < addr:
                 lo = int(b.group(1), 16)
@@ -311,6 +313,8 @@ def main() -> int:
     # the parent's K4 builds nothing per launch; here the unions are
     # built once per geometry, as the traverse engine does
     with_unions = "unions" in inspect.signature(cull.cull_topk).parameters
+    # the parent's K5 takes no cluster boxes (the admissibility rule's)
+    k5_boxes = "cluster_min" in inspect.signature(k2.traverse_candidates).parameters
     out = dict(root=root, card=card, build_s=cuda_lib.build_seconds)
     batches = (("small", scene, S.mixed_batch(scene, 256, 128, 32768, 31)),
                ("big", scene, S.mixed_batch(scene, 1024, 1024, 1 << 20, 33)),
@@ -334,8 +338,9 @@ def main() -> int:
                         for j, sl in enumerate(slices)]
 
             ids, tns, ovf = k2.cull_candidates(o_, d_, tm_, cmin, cmax, k)
-            k5_hit, unres, runs = k2.traverse_candidates(o_, d_, tm_, ids, tns, ovf,
-                                                         g.tri_packed)
+            k5_args = (o_, d_, tm_, ids, tns, ovf) + (
+                (cmin, cmax, g.tri_packed) if k5_boxes else (g.tri_packed,))
+            k5_hit, unres, runs = k2.traverse_candidates(*k5_args)
             fb_tm = k2.fallback_t_max(k5_hit, unres)
             rec = dict(rays=o_.shape[0], clusters=c, k4_launches=len(slices),
                        unresolved=int((fb_tm > 1e-4).sum()))
@@ -358,8 +363,8 @@ def main() -> int:
                 rec["k2_anyhit_ms"] = S.cuda_ms(lambda: k2.intersect_matrix(
                     o_, d_, g, t_max=tm_, any_hit=True), args.reps)
             rec["k4_ms"] = S.cuda_ms(cull_query, args.reps)
-            rec["k5_ms"] = S.cuda_ms(lambda: k2.traverse_candidates(
-                o_, d_, tm_, ids, tns, ovf, g.tri_packed), args.reps)
+            rec["k5_ms"] = S.cuda_ms(lambda: k2.traverse_candidates(*k5_args),
+                                     args.reps)
             rec["k6_ms"] = S.cuda_ms(lambda: k6.intersect_clustered(
                 o_, d_, g, t_max=fb_tm), args.reps)
             if label != "small" and how == "sorted":
