@@ -99,7 +99,27 @@ Phases, in order; any failure raises and exits non-zero:
      512x512 through RayTracingProgram with identity kernels on every
      seam (the hookless film bit for bit), then with a constant miss
      kernel and a closest-hit kernel forcing the albedo (the film and
-     the albedo AOV change as set), timed with and without hooks;
+     the albedo AOV change as set), timed with and without hooks; then
+     the animation path (`animated_render`): examples/
+     torch_render_animated.py's Cornell box (the tall box on its own
+     node, 512x512, depth 4) unmoved and at its three poses, each through
+     set_node_transform, update_scene (timed with CUDA events),
+     reset_accumulation and 4 frames (K1 only, bench.py's cornell
+     invariants, frame 0 within relative RMSE 2e-3 of a fresh upload of
+     the moved host scene, K1's table packed from the moved soup by the
+     first query); two instances of atrium_big (3722 clusters, "auto" =
+     K2) and then five (9221, "auto" = "traverse"), the first copy (around
+     the camera) moved by ATRIUM_MOVE: the moved cluster boxes and row 9
+     equal to the uploader's rule over the moved soup bit for bit, no
+     union carried over, a frame before and two after the move (timed;
+     the "auto" kernels only; rays above 1.2x camera rays), frame 0
+     within 2e-3 of a fresh upload of the moved host scene; at two
+     copies K2 (closest and any-hit) equal to stream_plain on 65,536
+     mixed rays and the rasterizer moved the same way, its frame through
+     K3, K3 equal to its plain version on its moved tables; at five the
+     unions rebuilt from the moved boxes by the first query, K4 (both
+     superchunks), K5 and K6 equal to their plain versions on 65,536
+     mixed rays, frame 0 within 2e-3 of a "cluster" frame;
   6. bench.py's raster cells through RasterizationRenderer with the
      ACES post program: raster_atrium (atrium_big 1920x1088, binned,
      tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
@@ -2722,6 +2742,390 @@ def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# animation: node moves on the card, held through the kernels
+# ---------------------------------------------------------------------------
+
+# the translation of atrium_big's first copy (the one around the camera):
+# small, so the camera stays inside the moved atrium
+ATRIUM_MOVE = (0.2, 0.0, 0.1)
+ANIMATED_FRAMES = 4  # per pose of the animated Cornell box
+
+
+def animated_example():
+    """examples/torch_render_animated.py as a module (its scene, poses
+    and `translate`)."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import torch_render_animated
+
+    return torch_render_animated
+
+
+def rule_np(v0, e1, e2, real):
+    """The uploader's cluster boxes and row 9 of a slot soup (T, 3),
+    written out in numpy for finite corners: (cluster_min, cluster_max,
+    row 9 as (C, 128))."""
+    far = np.float32(3.0e37)
+    v1, v2 = v0 + e1, v0 + e2
+    lo = np.where(real[:, None], np.minimum(np.minimum(v0, v1), v2), np.inf)
+    hi = np.where(real[:, None], np.maximum(np.maximum(v0, v1), v2), -np.inf)
+    c = v0.shape[0] // 128
+    cmin, cmax = lo.reshape(c, 128, 3).min(1), hi.reshape(c, 128, 3).max(1)
+    empty = ~np.isfinite(cmin[:, 0])
+    cmin[empty] = far
+    cmax[empty] = far
+    slo, shi = lo.reshape(c, 8, 16, 3).min(2), hi.reshape(c, 8, 16, 3).max(2)
+    gone = ~real.reshape(c, 8, 16).any(2)
+    slo[gone] = far
+    shi[gone] = far
+    row9 = np.zeros((c, 128), np.float32)
+    row9[:, :48] = np.concatenate([slo, shi], axis=2).reshape(c, 48)
+    return cmin.astype(np.float32), cmax.astype(np.float32), row9
+
+
+def check_moved_tables(name: str, g) -> None:
+    """Raise unless the moved geometry's cluster boxes and row 9 of
+    tri_packed are the uploader's rule over its soup, bit for bit."""
+    soup = [x.cpu().numpy() for x in (g.tri_v0, g.tri_e1, g.tri_e2)]
+    if not all(np.isfinite(x).all() for x in soup):
+        raise AssertionError(f"{name}: non-finite moved soup")
+    want = rule_np(*soup, (g.tri_mat >= 0).cpu().numpy())
+    got = (g.cluster_min, g.cluster_max, g.tri_packed[:, 9])
+    for label, x, y in zip(("cluster_min", "cluster_max", "row 9"), got, want):
+        if not np.array_equal(x.cpu().numpy().view(np.int32), y.view(np.int32)):
+            raise AssertionError(f"{name}: moved {label} is not the uploader's rule")
+
+
+def timed_update(r):
+    """r.update_scene() on the card: (CUDA-event ms, host ms), both up
+    to the end of its device work."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    r.update_scene()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
+
+
+def timed_frames(r, frames: int) -> float:
+    """ms per frame of `frames` more frames of r, host clock to the end
+    of the device work."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r.render_loop(frames)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / frames * 1e3
+
+
+def fresh_frame0(host, settings, device):
+    """Frame 0 (RGB) of a fresh upload of host scene `host`."""
+    import torch
+
+    from hala_tpu_torch.models.integrator import Film, Uniforms, render_frame
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+
+    dev = SceneUploader.upload(host, device=device)
+    film = Film.create(settings.width, settings.height, device)
+    render_frame(dev, None, Uniforms.default(device), film, 0, settings)
+    torch.cuda.synchronize()
+    return film.accum[..., :3]
+
+
+def animated_cornell(card: str, size=(512, 512), device="cuda"):
+    """examples/torch_render_animated.py's scene (the tall box on a node
+    of its own), depth 4, rr 2: ANIMATED_FRAMES frames unmoved, then at
+    each of its poses set_node_transform, update_scene (timed; a move
+    and a move back before them load PyTorch's kernels, timed apart),
+    reset_accumulation and ANIMATED_FRAMES frames. Gates per pose: only
+    K1 launches; bench.py's cornell invariants (rays above 1.2x camera
+    rays, the film mean in its band); frame 0 against a fresh upload of
+    the moved host scene (relative RMSE 2e-3); K1's packed table is the
+    moved soup's, packed by the first query after the move."""
+    import torch
+
+    from hala_tpu_torch.models.integrator import _num_real
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops.pallas import intersect_kernel as k1
+
+    ex = animated_example()
+    POSES_DX, tall_box_scene, translate = ex.POSES_DX, ex.tall_box_scene, ex.translate
+    scene, node, w0 = tall_box_scene()
+    r = RayTracingRenderer("animated", *size, max_depth=4, rr_depth=2, device=device)
+    r.set_scene(scene)
+    r.commit()
+    warm_up(r)
+    # the process's first moves load PyTorch's kernels of the update: a
+    # move and a move back, timed apart from the poses
+    cold = []
+    for world in (translate(POSES_DX[-1], 0.0, 0.0) @ w0, w0):
+        r.set_node_transform(node, world)
+        cold.append(timed_update(r)[0])
+    out = dict(unmoved=run_render(r, ANIMATED_FRAMES, ANIMATED_FRAMES,
+                                  "animated cornell, unmoved", card, cell="cornell"),
+               update_cold_ms=cold, poses=[])
+    for dx in POSES_DX:
+        world = translate(dx, 0.0, 0.0) @ w0
+        r.set_node_transform(node, world)
+        upd_ms, upd_host_ms = timed_update(r)
+        g = r.scene.geometry
+        r.reset_accumulation()
+        r.total_rays = 0.0
+        cuda_lib.reset_launches()
+        rec = run_render(r, ANIMATED_FRAMES, ANIMATED_FRAMES,
+                         f"animated cornell dx={dx:+.2f}", card, cell="cornell")
+        counts = cuda_lib.launches()
+        if not (counts["intersect_bruteforce"] > 0
+                and sum(counts.values()) == counts["intersect_bruteforce"]):
+            raise AssertionError(f"animated cornell dx={dx} launches {counts}")
+        # the table K1's wrapper keeps for these three tensors: packed
+        # by the first query after the move, from the moved soup
+        soup = (g.tri_v0, g.tri_e1, g.tri_e2)
+        packed = k1._PACKED.get((*map(id, soup), _num_real(g)))
+        if packed is None or not all(w() is t for w, t in zip(packed[0], soup)) \
+                or not torch.equal(packed[2], k1.pack_triangles(*soup, _num_real(g))):
+            raise AssertionError("K1 did not pack the moved soup")
+        host2, _, _ = tall_box_scene()
+        host2.nodes[node].world_transform = world
+        rec.update(dx=dx, update_ms=upd_ms, update_host_ms=upd_host_ms,
+                   k1_launches=counts["intersect_bruteforce"],
+                   frame0_rel_rmse_vs_fresh=rel_rmse(
+                       frame0(r), fresh_frame0(host2, r.settings, device)))
+        if not rec["frame0_rel_rmse_vs_fresh"] < REL_RMSE_TOL:
+            raise AssertionError(f"animated cornell dx={dx}: {rec}")
+        out["poses"].append(rec)
+    log("  animated cornell " + ", ".join(
+        f"dx={p['dx']:+.2f}: update_scene {p['update_ms']:.3f} ms (host "
+        f"{p['update_host_ms']:.3f}), {p['ms_per_frame']:.1f} ms/frame, frame 0 vs "
+        f"a fresh upload {p['frame0_rel_rmse_vs_fresh']:.3g}" for p in out["poses"])
+        + f"; unmoved {out['unmoved']['ms_per_frame']:.1f} ms/frame; the process's "
+        f"first two update_scene calls {cold[0]:.3f} and {cold[1]:.3f} ms [{card}]")
+    return out
+
+
+def moved_k2_k3(r, name: str, host, nodes, worlds, device, seed: int = 51):
+    """On r's moved tables (two atrium_big copies, "auto" = K2): K2
+    closest and its any-hit mask against stream_plain on a 65,536-ray
+    mixed batch, bit for bit; then the rasterizer: a
+    RasterizationRenderer of the same host scene, moved by the same
+    set_node_transform / update_scene, renders a frame through K3, its
+    moved soup equals r's, and K3 on its tables equals the plain version
+    bit for bit (r's image size, tile 64)."""
+    import torch
+
+    from hala_tpu_torch.models.rz_renderer import RasterizationRenderer
+    from hala_tpu_torch.ops import cluster as k6
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import raster_kernel as k3
+    from hala_tpu_torch.ops import traverse as k2
+
+    g = r.scene.geometry
+    o, d, tm = mixed_batch(r.scene, 256, 128, 32768, seed)
+    ref = k6.stream_plain(o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed)
+    got = k2.intersect_matrix(o, d, g, t_max=tm)
+    occ = k2.intersect_matrix(o, d, g, t_max=tm, any_hit=True).tri >= 0
+    torch.cuda.synchronize()
+    equal_tensors(f"{name}: K2 vs stream_plain", got, ref, ("t", "tri", "u", "v"))
+    if not torch.equal(occ, ref.tri >= 0):
+        raise AssertionError(f"{name}: K2 any-hit mask differs from stream_plain")
+    w, h = r.info.width, r.info.height
+    ra = RasterizationRenderer(f"{name}_raster", w, h, binned=True, tile=64,
+                               device=device)
+    ra.set_scene(host)
+    for ni in nodes:
+        ra.set_node_transform(ni, worlds[ni])
+    ra.update_scene()
+    cuda_lib.reset_launches()
+    ra.update()
+    img = ra.get_final_image()
+    counts = cuda_lib.launches()
+    if counts["raster_tiled"] != 1 or not np.isfinite(img).all():
+        raise AssertionError(f"{name} raster launches {counts}")
+    for f in ("tri_v0", "tri_e1", "tri_e2", "tri_packed"):
+        if not torch.equal(getattr(ra.scene.geometry, f), getattr(g, f)):
+            raise AssertionError(f"{name}: the rasterizer's moved {f} differs")
+    seg = k3.build_segments(*raster_inputs(ra.scene, w, h, 64), w, h, 64)
+    args = (seg.starts, seg.data, seg.tw, seg.tile)
+    pk, pp = k3.raster_segments(*args), k3.raster_segments_plain(*args)
+    torch.cuda.synchronize()
+    equal_planes(f"{name}: K3 vs plain on the moved tables", pk, pp)
+    log(f"  {name}: on the moved tables K2 ({o.shape[0]} mixed rays, closest and any-hit) "
+        f"equals stream_plain and K3 ({w}x{h}, tile 64, {int(seg.n_real)} pairs) "
+        f"its plain version, bit for bit; raster image mean {float(img.mean()):.4f}")
+    return dict(k2_rays=o.shape[0], k2_hits=int((got.tri >= 0).sum()),
+                k3_pairs=int(seg.n_real), raster_mean=float(img.mean()))
+
+
+def moved_k4_k5_k6(g, dev_scene, name: str, seed: int = 53):
+    """On moved tables above 8191 clusters: K4 (each superchunk), K5
+    and K6 (on the fallback's inputs) against their plain versions on a
+    65,536-ray mixed batch, bit for bit."""
+    import torch
+
+    from hala_tpu_torch.ops import cluster as k6
+    from hala_tpu_torch.ops import cull
+    from hala_tpu_torch.ops import traverse as k5
+
+    cmin, cmax, sc, k = g.cluster_min, g.cluster_max, cull.CULL_MAX_CLUSTERS, TRAVERSE_K
+    o, d, tm = mixed_batch(dev_scene, 256, 128, 32768, seed)
+    unions = cull.geometry_unions(g)
+    for j, lo in enumerate(range(0, cmin.shape[0], sc)):
+        sl = slice(lo, lo + sc)
+        got = cull.cull_topk(o, d, tm, cmin[sl], cmax[sl], k=k, unions=unions[j])
+        ref = cull.cull_topk_plain(o, d, tm, cmin[sl], cmax[sl], k=k)
+        torch.cuda.synchronize()
+        equal_tensors(f"{name}: K4 clusters {lo}..", got, ref, ("pk", "cnt"))
+    ids, tns, ovf = k5.cull_candidates(o, d, tm, cmin, cmax, k, unions=unions)
+    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, cmin, cmax, g.tri_packed)
+    ref = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, cmin, cmax, g.tri_packed)
+    torch.cuda.synchronize()
+    equal_tensors(f"{name}: K5", (*got[0], got[1], got[2]), (*ref[0], ref[1], ref[2]),
+                  ("t", "tri", "u", "v", "unres", "runs"))
+    fb_tm = k5.fallback_t_max(got[0], got[1])
+    fk = k6.intersect_clustered(o, d, g, t_max=fb_tm)
+    fp = k6.intersect_clustered_plain(o, d, g, t_max=fb_tm)
+    torch.cuda.synchronize()
+    equal_tensors(f"{name}: K6 fallback", fk, fp, ("t", "tri", "u", "v"))
+    log(f"  {name}: on the moved tables K4 ({-(-cmin.shape[0] // sc)} superchunks), "
+        f"K5 and K6 ({int(got[1].sum())} unresolved of {o.shape[0]} mixed rays) equal "
+        "their plain versions bit for bit")
+    return dict(rays=o.shape[0], unresolved=int(got[1].sum()))
+
+
+def check_rebuilt_unions(name: str, g) -> None:
+    """Raise unless the moved geometry now carries K4's and K6's unions,
+    built by the first query after the move from the moved boxes."""
+    import torch
+
+    from hala_tpu_torch.ops import cluster as k6
+    from hala_tpu_torch.ops import cull
+
+    sc = cull.CULL_MAX_CLUSTERS
+    cmin, cmax = g.cluster_min, g.cluster_max
+    key = (cmin.data_ptr(), cmax.data_ptr(), cmin._version, cmax._version)
+    k4 = getattr(g, f"_cull_unions_{sc}", None)
+    k6u = getattr(g, "_stream_unions", None)
+    if k4 is None or k6u is None or k4[0] != key or k6u[0] != key:
+        raise AssertionError(f"{name}: the first query did not build the unions")
+    want = [cull.group_unions(cmin[lo:lo + sc], cmax[lo:lo + sc])
+            for lo in range(0, cmin.shape[0], sc)]
+    bits = lambda x: x.view(torch.int32)  # noqa: E731  (NaN boxes of empty groups)
+    if not (len(k4[1]) == len(want)
+            and all(torch.equal(bits(a), bits(b)) for a, b in zip(k4[1], want))
+            and torch.equal(bits(k6u[1]), bits(k6.stream_unions(cmin, cmax)))):
+        raise AssertionError(f"{name}: the unions are not the moved boxes'")
+
+
+def animated_instances(big_host, copies: int, card: str, size=(1920, 1088),
+                       device="cuda"):
+    """`copies` instances of atrium_big (`instanced_scene`) through
+    RayTracingRenderer "auto" (K2 at 2 copies, "traverse" at 5), depth 4,
+    1 spp: a warm-up frame, one timed frame, then the first copy (the
+    host's own mesh nodes, around the camera) moved by ATRIUM_MOVE with
+    set_node_transform / update_scene (timed), two timed frames (the
+    first query rebuilds what a geometry caches). Gates: the moved boxes
+    and row 9 are the uploader's rule over the moved soup; the renderer
+    sends its queries through the kernels "auto" picks; rays above 1.2x
+    camera rays (the film mean is logged: bench.py's sponza band was
+    set for one instance); frame 0 after the move against a fresh upload
+    of the moved host scene (relative RMSE 2e-3); then at 2 copies K2
+    and K3 (`moved_k2_k3`), at 5 the unions rebuilt from the moved
+    boxes, K4, K5 and K6 (`moved_k4_k5_k6`) and frame 0 against one
+    "cluster" frame."""
+    import torch
+
+    from bench import check_invariants
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import cuda_lib
+
+    translate = animated_example().translate
+    name = f"atrium_big x{copies}"
+    host, _ = instanced_scene(big_host, copies)
+    nodes = [i for i, n in enumerate(big_host.nodes) if n.mesh_index is not None]
+    worlds = {ni: translate(*ATRIUM_MOVE) @ np.asarray(host.nodes[ni].world_transform,
+                                                        np.float32) for ni in nodes}
+    r = RayTracingRenderer(f"atrium_big_x{copies}_moved", *size, max_depth=4,
+                           rr_depth=2, spp=1, device=device)
+    r.set_scene(host)
+    r.commit()
+    c = r.scene.geometry.cluster_min.shape[0]
+    warm_up(r)
+    out = dict(clusters=c, move=ATRIUM_MOVE, nodes_moved=len(nodes),
+               ms_before=timed_frames(r, 1))
+    for ni in nodes:
+        r.set_node_transform(ni, worlds[ni])
+    out["update_ms"], out["update_host_ms"] = timed_update(r)
+    g = r.scene.geometry
+    check_moved_tables(name, g)
+    if [a for a in vars(g) if a.startswith(("_stream_unions", "_cull_unions"))]:
+        raise AssertionError(f"{name}: unions survived the move")
+    r.reset_accumulation()
+    r.total_rays = 0.0
+    cuda_lib.reset_launches()
+    out["ms_first_after"] = timed_frames(r, 1)
+    counts = cuda_lib.launches()
+    first = r.film.accum[..., :3].clone()
+    out["mean_frame0"] = float(first.mean())
+    check_invariants(f"atrium_big_x{copies}", out["mean_frame0"], r.total_rays,
+                     size[0] * size[1])
+    out["rays_per_primary"] = r.total_rays / (size[0] * size[1])
+    if copies == 2:
+        ok = counts["matrix_traverse"] > 0 and not any(
+            counts[k] for k in ("cull_topk", "traverse_candidates", "cluster_stream",
+                                "intersect_bruteforce"))
+    else:
+        q = counts["traverse_candidates"]
+        ok = (q > 0 and counts["cull_topk"] == 2 * q and counts["cluster_stream"] == q
+              and counts["matrix_traverse"] == 0 and counts["intersect_bruteforce"] == 0)
+        check_rebuilt_unions(name, g)
+    if not ok:
+        raise AssertionError(f"{name} moved: launches {counts}")
+    out["launches_first_after"] = counts
+    out["ms_after"] = timed_frames(r, 1)
+    moved_host = dataclasses.replace(host, nodes=list(host.nodes))
+    for ni in nodes:  # new Node objects: big_host's own stay where they are
+        moved_host.nodes[ni] = dataclasses.replace(host.nodes[ni],
+                                                   world_transform=worlds[ni])
+    out["frame0_rel_rmse_vs_fresh"] = rel_rmse(first, fresh_frame0(moved_host, r.settings,
+                                                                    device))
+    if copies == 2:
+        out.update(moved_k2_k3(r, name, host, nodes, worlds, device))
+    else:
+        out.update(moved_k4_k5_k6(g, r.scene, name))
+        out["frame0_rel_rmse_vs_cluster"] = rel_rmse(first, frame0(r, "cluster"))
+    for key in ("frame0_rel_rmse_vs_fresh", "frame0_rel_rmse_vs_cluster"):
+        if not out.get(key, 0.0) < REL_RMSE_TOL:
+            raise AssertionError(f"{name} moved: {key} {out[key]}")
+    log(f"  {name} ({c} clusters), first copy ({len(nodes)} nodes) moved by "
+        f"{ATRIUM_MOVE}: update_scene {out['update_ms']:.3f} ms (host "
+        f"{out['update_host_ms']:.3f}); ms/frame before {out['ms_before']:.1f}, first "
+        f"after {out['ms_first_after']:.1f}, next {out['ms_after']:.1f}; frame 0 film "
+        f"mean {out['mean_frame0']:.4f} (not gated), rays/primary "
+        f"{out['rays_per_primary']:.2f}, relative RMSE to a fresh upload "
+        f"{out['frame0_rel_rmse_vs_fresh']:.3g}"
+        + (f", to the cluster frame {out['frame0_rel_rmse_vs_cluster']:.3g}"
+           if copies != 2 else "") + f"; launches {counts} [{card}]")
+    del r
+    torch.cuda.empty_cache()
+    return out
+
+
+def animated_render(big_host, card: str):
+    """The animation path on the card: the animated Cornell box (K1),
+    two atrium_big instances (K2, K3) and five (K4, K5, K6), each moved
+    through set_node_transform / update_scene."""
+    return dict(cornell=animated_cornell(card),
+                atrium_big_x2=animated_instances(big_host, 2, card),
+                atrium_big_x5=animated_instances(big_host, INSTANCES, card))
+
+
 def main() -> int:
     import torch
 
@@ -2961,6 +3365,9 @@ def main() -> int:
     proc_out = procedural_render(card)
     spheres_out = spheres_render(big_host, card)
     hooks_out = hooks_render(card)
+    # node moves on the card: K1 (Cornell), K2 and K3 (two atrium_big
+    # copies), K4-K6 (five) on the moved tables
+    anim_out = animated_render(big_host, card)
 
     post = post_program()
     ra = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=64,
@@ -3099,7 +3506,7 @@ def main() -> int:
                    atrium_big_matrix_wavefront_routes=x_out,
                    envmap=e_out, cornell_blue_noise=bn_out,
                    procedural=proc_out, atrium_big_spheres=spheres_out,
-                   hooks=hooks_out,
+                   hooks=hooks_out, animated=anim_out,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

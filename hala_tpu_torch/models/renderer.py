@@ -9,7 +9,9 @@ Parity: reference src/renderer.rs, as in the JAX package's
 * `BaseRenderer` — the HalaRendererTrait analog (renderer.rs:210-324):
   update() dispatches a frame on the device, render() waits for it and
   feeds the statistics, and a CUDA error there marks the device lost
-  (check_and_restore_device() re-creates the device state).
+  (check_and_restore_device() re-creates the device state);
+* the animation API `set_node_transform` / `update_scene` (ops/animate.py),
+  inherited by both renderers.
 """
 
 from __future__ import annotations
@@ -18,7 +20,10 @@ import dataclasses
 import logging
 import time
 
+import numpy as np
 import torch
+
+from ..error import HalaRendererError
 
 logger = logging.getLogger("hala_tpu_torch.renderer")
 
@@ -93,6 +98,62 @@ class BaseRenderer:
         self._pending = False  # a dispatched frame not yet waited for
         self._last_cpu_time = 0.0
         self._last_rays = None  # 0-d device tensor of the last frame
+        # the animation path: staged node -> new world 4x4, and the world
+        # each moved node's device geometry is baked at
+        self._staged_transforms: dict[int, np.ndarray] = {}
+        self._node_world: dict[int, np.ndarray] = {}
+
+    # -- animation / per-frame transforms --------------------------------
+    # (the reference's per-mesh object uniforms rewritten every frame,
+    # rz_renderer.rs:38-53, 690-716, plus the BLAS refit)
+
+    def set_node_transform(self, node_index: int, world) -> None:
+        """Stage a new WORLD transform (4x4) for a mesh node; the next
+        update_scene() applies it on the device."""
+        self._staged_transforms[int(node_index)] = np.asarray(
+            world, np.float32).reshape(4, 4)
+
+    def update_scene(self) -> None:
+        """Apply the staged node transforms on the device: each moved
+        node's triangles get the delta new_world @ inv(current world),
+        their shading columns are re-derived, and the cluster boxes and
+        slot blocks are rebuilt by the uploader's rule
+        (ops/animate.py `retransform_geometry`). The current world is
+        the one the last update gave the node, else the host node's.
+        Nothing staged: nothing happens."""
+        if not self._staged_transforms:
+            return
+        from ..ops.animate import build_deltas, retransform_geometry
+
+        scene = getattr(self, "scene", None)
+        host = getattr(self, "_host_scene", None)
+        if scene is None or host is None:
+            raise HalaRendererError("update_scene() before set_scene().")
+        node_deltas = {}
+        for ni, new_w in self._staged_transforms.items():
+            cur = self._node_world.get(ni)
+            if cur is None:
+                cur = np.asarray(host.nodes[ni].world_transform, np.float32)
+            node_deltas[ni] = new_w @ np.linalg.inv(cur)
+            self._node_world[ni] = new_w
+        deltas, ndeltas = build_deltas(scene.prim_node, node_deltas,
+                                       len(host.nodes), self.device)
+        geom = retransform_geometry(scene.geometry, deltas, ndeltas)
+        self.scene = dataclasses.replace(scene, geometry=geom)
+        self._staged_transforms.clear()
+
+    def _upload_moved(self) -> None:
+        """Upload the host scene again (set_scene) and re-apply the node
+        moves recorded in _node_world, which the host scene does not
+        hold: the device-lost restore of both renderers. Staged moves
+        stay staged."""
+        moved = dict(self._node_world)
+        self.set_scene(self._host_scene)
+        staged, self._staged_transforms = self._staged_transforms, moved
+        try:
+            self.update_scene()
+        finally:
+            self._staged_transforms = staged
 
     # -- trait surface ---------------------------------------------------
 

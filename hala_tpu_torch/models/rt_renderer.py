@@ -118,9 +118,11 @@ class RayTracingRenderer(BaseRenderer):
     # -- scene / environment API ----------------------------------------
 
     def set_scene(self, scene: Scene) -> None:
-        """rt_renderer.rs:1161-1178."""
+        """rt_renderer.rs:1161-1178. The upload puts every node at its
+        host transform, so no earlier node move stays recorded."""
         self._host_scene = scene
         self.scene = SceneUploader.upload(scene, device=self.device)
+        self._node_world.clear()
 
     def set_envmap(self, env: "EnvMap | str", rotation: float = 0.0) -> None:
         """rt_renderer.rs:1184-1192; rotation in degrees, normalized by
@@ -351,8 +353,11 @@ class RayTracingRenderer(BaseRenderer):
     # -- device restore ---------------------------------------------------
 
     def _restore_device_state(self) -> None:
-        """rt_renderer.rs:508-563: recreate storage images + re-upload."""
+        """rt_renderer.rs:508-563: recreate storage images, re-upload and
+        re-apply the node moves (the JAX package re-uploads only, so its
+        moved nodes fall back to their host transforms while it keeps
+        recording the moved ones)."""
         self.film = Film.create(self.info.width, self.info.height, self.device)
         self._frame_index = 0
         if self._host_scene is not None:
-            self.set_scene(self._host_scene)
+            self._upload_moved()

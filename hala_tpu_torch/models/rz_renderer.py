@@ -541,6 +541,7 @@ class RasterizationRenderer(BaseRenderer):
             use_mesh_shader=self.use_mesh_shader,
             device=self.device,
         )
+        self._node_world.clear()  # every node at its host transform again
 
     def commit(self) -> None:
         if self.scene is None:
@@ -664,8 +665,9 @@ class RasterizationRenderer(BaseRenderer):
         write_pfm(path, self.get_final_image())
 
     def _restore_device_state(self) -> None:
-        """Re-upload the scene after a device error."""
+        """Re-upload the scene after a device error and re-apply the node
+        moves (see RayTracingRenderer._restore_device_state)."""
         self._frag = None
         self._peel = None
         if self._host_scene is not None:
-            self.set_scene(self._host_scene)
+            self._upload_moved()

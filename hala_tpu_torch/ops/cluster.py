@@ -39,9 +39,12 @@ hits outside the triangle's box (and outside the padded boxes). The
 brute force K1 has no boxes and accepts them: it differs from the
 cluster walks only on pairs the rule rejects.
 
-The JAX module's `subchunk_aabb_row`, `cull_clusters`,
-`build_cluster_tables_device` and `refit_clusters` are not ported: no
-path of the port calls them yet.
+The boxes are a function of the slot soup alone: `cluster_boxes` is
+the one rule, which the uploader, `refit_clusters` (the animation path,
+ops/animate.py) and `build_cluster_tables_device` all call, and
+`pack_slots` the one layout of the slot blocks with their row 9. The
+JAX module's `subchunk_aabb_row` and `cull_clusters` are not ported: no
+path of the port calls them.
 
 The wrappers run the kernel for CUDA tensors and the plain PyTorch
 version for CPU tensors; there is no other fallback.
@@ -149,14 +152,96 @@ def span_boxes(tri_packed, real):
     return lo.contiguous(), hi.contiguous()
 
 
+def _fill_pretest_row(tri_packed, real) -> None:
+    """Write row 9 (lanes 0-47) of slot blocks (C, 16, 128) in place: the
+    [lo.xyz | hi.xyz] `span_boxes` of the slots `real` (C, 128) marks,
+    span by span."""
+    lo, hi = span_boxes(tri_packed, real)
+    tri_packed[:, 9, :6 * PRETEST_PER_CHUNK] = torch.cat([lo, hi], dim=2).reshape(
+        lo.shape[0], -1)
+
+
 def with_pretest_row(tri_packed):
-    """A copy of hand-built slot blocks (C, 16, 128) with row 9 (lanes
-    0-47) filled as the uploader fills it: the [lo.xyz | hi.xyz]
-    `span_boxes` of the real slots, span by span."""
-    lo, hi = span_boxes(tri_packed, real_slots(tri_packed))
+    """A copy of hand-built slot blocks (C, 16, 128) with row 9 filled
+    as the uploader fills it, over the slots with a nonzero edge."""
     out = tri_packed.clone()
-    out[:, 9, :6 * PRETEST_PER_CHUNK] = torch.cat([lo, hi], dim=2).reshape(lo.shape[0], -1)
+    _fill_pretest_row(out, real_slots(tri_packed))
     return out
+
+
+def pack_slots(v0, e1, e2, real):
+    """The slot blocks (C, 16, 128) of a slot soup v0, e1, e2 (T, 3) in
+    cluster-slot order, T = 128 C: rows 0-8 the components of v0, e1, e2
+    slot by slot, row 9 the span boxes of the slots `real` (T,) marks
+    (the uploader's mask, tri_mat >= 0), every other entry zero."""
+    c = v0.shape[0] // TRI_CHUNK
+    packed = torch.zeros((c, 16, TRI_CHUNK), dtype=torch.float32, device=v0.device)
+    for row, a in ((0, v0), (3, e1), (6, e2)):
+        packed[:, row:row + 3] = a.reshape(c, TRI_CHUNK, 3).transpose(1, 2)
+    _fill_pretest_row(packed, real.reshape(c, TRI_CHUNK))
+    return packed
+
+
+def cluster_boxes(v0, e1, e2, real):
+    """The cluster boxes (cluster_min, cluster_max), each (C, 3), of a
+    slot soup v0, e1, e2 (T, 3) in cluster-slot order: per slot that
+    `real` (T,) marks the min and max of v0, v0 + e1, v0 + e2, +inf and
+    -inf on the others, reduced over each cluster of 128 slots; a
+    cluster whose x min is not finite (no real slot) gets the far point
+    box 3e37 on both sides. This is the uploader's rule, and the only
+    one: the uploader, `refit_clusters` and `build_cluster_tables_device`
+    build their boxes here, so a soup has the same boxes whether it was
+    uploaded, refit or rebuilt."""
+    v1, v2 = v0 + e1, v0 + e2
+    lo = torch.where(real[:, None], torch.minimum(torch.minimum(v0, v1), v2), torch.inf)
+    hi = torch.where(real[:, None], torch.maximum(torch.maximum(v0, v1), v2), -torch.inf)
+    c = v0.shape[0] // TRI_CHUNK
+    cmin = lo.reshape(c, TRI_CHUNK, 3).amin(dim=1)
+    cmax = hi.reshape(c, TRI_CHUNK, 3).amax(dim=1)
+    empty = ~torch.isfinite(cmin[:, :1])
+    return torch.where(empty, FAR_BOX, cmin), torch.where(empty, FAR_BOX, cmax)
+
+
+def refit_clusters(tri_v0, tri_e1, tri_e2, tri_mat):
+    """The cluster boxes of a moved soup in its unchanged slot order (the
+    refit of the animation path): `cluster_boxes` over the slots with
+    tri_mat >= 0. The JAX package's `refit_clusters` writes 3e37 into
+    both the min and the max of every padding slot, so there a partly
+    padded cluster gets cluster_max = 3e37 (a box that reaches to the far
+    point, which the SAH layout's ragged leaves give nearly every
+    cluster); this one gives the uploader's box, so the admissibility
+    rule and the walks' box skips see the same boxes after a move as
+    after a fresh upload of the moved scene."""
+    return cluster_boxes(tri_v0, tri_e1, tri_e2, tri_mat >= 0)
+
+
+def build_cluster_tables_device(tri_v0, tri_e1, tri_e2, num_real: int):
+    """The cluster tables rebuilt on the soup's device in Morton order
+    (the JAX package's on-device LBVH-style build): Morton codes of the
+    triangle centroids over the bounds of the first `num_real` slots,
+    the others keyed 0xFFFFFFFF so they sort last, a stable argsort
+    (the order of jnp.argsort, bit for bit), the permuted soup, its
+    `cluster_boxes` and `pack_slots` over the slots that hold one of the
+    first `num_real` triangles. Inputs are (T, 3) with T a multiple of
+    128. Returns (order int32, v0, e1, e2, cluster_min, cluster_max,
+    tri_packed). Unlike the JAX build's, a partly padded cluster's
+    cluster_max is the box of its real slots (see `refit_clusters`)."""
+    from .morton import morton3d
+
+    t = tri_v0.shape[0]
+    centroid = tri_v0 + (tri_e1 + tri_e2) / 3.0
+    real = torch.arange(t, device=tri_v0.device) < num_real
+    keep = real[:, None]
+    cmin = torch.where(keep, centroid, torch.inf).amin(dim=0)
+    cmax = torch.where(keep, centroid, -torch.inf).amax(dim=0)
+    codes = morton3d(torch.where(keep, centroid, 0.0), cmin, cmax)
+    codes = torch.where(real, codes, 0xFFFFFFFF)
+    order = torch.argsort(codes, stable=True)
+    v0, e1, e2 = tri_v0[order], tri_e1[order], tri_e2[order]
+    real_s = real[order]
+    cluster_min, cluster_max = cluster_boxes(v0, e1, e2, real_s)
+    return (order.to(torch.int32), v0, e1, e2, cluster_min, cluster_max,
+            pack_slots(v0, e1, e2, real_s))
 
 
 def _slot_table(tri_packed):

@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ...error import HalaRendererError
-from ...ops.cluster import span_boxes
+from ...ops.cluster import cluster_boxes, pack_slots
 from ..cpu.scene import Scene
 from ..cpu.camera import PerspectiveCamera, OrthographicCamera
 from ..cpu.material import Material, MaterialType
@@ -54,12 +54,6 @@ from ..gpu.scene import (
 )
 
 logger = logging.getLogger("hala_tpu_torch.scene")
-
-# Cluster-table geometry shared with the intersectors: AABBs per
-# SUB_CLUSTER slots, row-9 pretest boxes per PRETEST_TRIS slots.
-SUB_CLUSTER = TRI_PAD
-PRETEST_TRIS = 16
-PRETEST_PER_CHUNK = TRI_PAD // PRETEST_TRIS
 
 
 def _t(arr, device: torch.device) -> torch.Tensor:
@@ -528,48 +522,26 @@ class SceneUploader:
         # in (node, primitive) order (e.g. meshlet ids).
         shade[:, 30] = np.arange(n_tris, dtype=np.float32)
 
-        # Cluster AABBs + packed geometry blocks over the slotted soup.
+        # Cluster AABBs + packed geometry blocks over the slotted soup:
+        # ops/cluster's `cluster_boxes` (all-padding clusters get an
+        # empty far point box that never intersects) and `pack_slots`
+        # (rows 0-8 v0/e1/e2, row 9 the 16-slot span boxes of K2's and
+        # K5's pretest, equal to the JAX package's row wherever the
+        # corners are finite), the same functions the animation refit
+        # calls (ops/animate.py).
         v0p = take(v0, far)
         e1p = take(e1, 0)
         e2p = take(e2, 0)
-        n_clusters = total // TRI_PAD
-        t_min = np.minimum(np.minimum(v0p, v0p + e1p), v0p + e2p)
-        t_max = np.maximum(np.maximum(v0p, v0p + e1p), v0p + e2p)
-        t_min = np.where(real[:, None], t_min, np.float32(np.inf))
-        t_max = np.where(real[:, None], t_max, np.float32(-np.inf))
-        # AABBs at sub-cluster granularity (SUB_CLUSTER triangles): finer
-        # boxes -> fewer leaf visits, while DMA stays at TRI_PAD blocks.
-        n_sub = total // SUB_CLUSTER
-        cluster_min = t_min.reshape(n_sub, SUB_CLUSTER, 3).min(axis=1)
-        cluster_max = t_max.reshape(n_sub, SUB_CLUSTER, 3).max(axis=1)
-        # all-padding clusters: empty AABB that never intersects
-        empty = ~np.isfinite(cluster_min[:, 0])
-        cluster_min[empty] = far
-        cluster_max[empty] = far
-        # Lane-aligned layout (C, 16, TRI_PAD): components on sublanes
-        # (12 used + 4 pad), triangles on lanes — DMA slices must be
-        # 128-aligned in the last dim (Mosaic tiling constraint).
-        tri_packed = np.zeros((n_clusters, 16, TRI_PAD), np.float32)
-        tri_packed[:, 0:3] = v0p.reshape(n_clusters, TRI_PAD, 3).transpose(0, 2, 1)
-        tri_packed[:, 3:6] = e1p.reshape(n_clusters, TRI_PAD, 3).transpose(0, 2, 1)
-        tri_packed[:, 6:9] = e2p.reshape(n_clusters, TRI_PAD, 3).transpose(0, 2, 1)
-        # row 9: 8 x 16-triangle sub-chunk AABBs (lanes 0-47) for the
-        # matrix kernel's in-chunk Moller-Trumbore pretest: ops/cluster
-        # `span_boxes` over the real slots, equal to the JAX package's
-        # row wherever the corners are finite
-        pre_lo, pre_hi = span_boxes(
-            torch.from_numpy(tri_packed),
-            torch.from_numpy(real.reshape(n_clusters, TRI_PAD)),
-        )
-        tri_packed[:, 9, : PRETEST_PER_CHUNK * 6] = (
-            torch.cat([pre_lo, pre_hi], dim=2).reshape(n_clusters, -1).numpy()
-        )
+        v0t, e1t, e2t = (torch.from_numpy(a) for a in (v0p, e1p, e2p))
+        real_t = torch.from_numpy(real)
+        cluster_min, cluster_max = cluster_boxes(v0t, e1t, e2t, real_t)
+        tri_packed = pack_slots(v0t, e1t, e2t, real_t)
 
         return DeviceGeometry(
             shade_table=_t(take(shade, 0), device),
-            cluster_min=_t(cluster_min.astype(np.float32), device),
-            cluster_max=_t(cluster_max.astype(np.float32), device),
-            tri_packed=_t(tri_packed, device),
+            cluster_min=cluster_min.to(device),
+            cluster_max=cluster_max.to(device),
+            tri_packed=tri_packed.to(device),
             tri_v0=_t(v0p, device),
             tri_e1=_t(e1p, device),
             tri_e2=_t(e2p, device),

@@ -1,1 +1,1 @@
-"""Utility subsystems: image I/O."""
+"""Utility subsystems: image I/O, configuration, checkpoints, profiling."""

@@ -824,3 +824,100 @@ def test_wrappers_of_the_walks_check_before_launch(atrium_batch):
     with pytest.raises(ValueError):
         k7.wavefront_walk(*args[:3], w.tnb.cpu(), *args[4:])
     assert cuda_lib.WAVEFRONT_WALK.launches == before
+
+
+# --- the animation path: kernels on moved tables ------------------------------
+
+
+@pytest.fixture(scope="module")
+def moved_atrium():
+    """atrium.glb and a copy of it beside it (`instanced_scene`, 738
+    clusters) in a RayTracingRenderer on the card, the copy moved by
+    set_node_transform / update_scene to overlap the first one, 0.5 off
+    along x; 4096 rays around the first one's centre. Returns
+    (renderer, the geometry before the move, o, d, t_max)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+
+    dev = torch.device("cuda", 0)
+    host, spacing = chip_smoke.instanced_scene(
+        Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb")), copies=2)
+    r = RayTracingRenderer("moved", 64, 64, device=dev)
+    r.set_scene(host)
+    before = r.scene.geometry
+    real = before.tri_v0[before.tri_mat >= 0]
+    center = ((real.amin(0) + real.amax(0)) / 2).cpu().numpy()
+    copy = len(host.nodes) - 1
+    shift = chip_smoke.animated_example().translate(0.5 - spacing, 0.3, 0.2)
+    r.set_node_transform(copy, shift @ host.nodes[copy].world_transform)
+    r.update_scene()
+    o, d = (x.to(dev) for x in _rays(4096, 9, center, 4.0))
+    tm = torch.full((o.shape[0],), 3.0e38, device=dev)
+    tm[1::4] = 3.0
+    return r, before, o, d, tm
+
+
+def test_moved_tables_are_the_uploaders_rule(moved_atrium):
+    r, before, *_ = moved_atrium
+    g = r.scene.geometry
+    chip_smoke.check_moved_tables("moved atrium", g)
+    assert not torch.equal(g.cluster_min, before.cluster_min)
+
+
+def test_moved_mesh_kernels_match_plain(moved_atrium):
+    """K1, K2 (closest, any-hit), K4, K5 and K6 on the moved tables, each
+    equal to its plain version bit for bit, and the moved copy hit."""
+    r, _, o, d, tm = moved_atrium
+    g = r.scene.geometry
+    cmin, cmax = g.cluster_min, g.cluster_max
+    ref = k6.stream_plain(o, d, tm, cmin, cmax, g.tri_packed)
+    _equal_bits(k2.intersect_matrix(o, d, g, t_max=tm), ref)
+    assert torch.equal(k2.occluded_matrix(o, d, tm, g), ref.tri >= 0)
+    tris = (g.tri_v0, g.tri_e1, g.tri_e2)
+    _equal_bits(k1.intersect_pallas(o[:2048], d[:2048], *tris, t_max=tm[:2048]),
+                k1.intersect_pallas_plain(o[:2048], d[:2048], *tris, t_max=tm[:2048]))
+    _equal_bits(k4.cull_topk(o, d, tm, cmin, cmax, k=12),
+                k4.cull_topk_plain(o, d, tm, cmin, cmax, k=12))
+    ids, tns, ovf = k5.cull_candidates(o, d, tm, cmin, cmax, 12)
+    got = k5.traverse_candidates(o, d, tm, ids, tns, ovf, cmin, cmax, g.tri_packed)
+    want = k5.traverse_candidates_plain(o, d, tm, ids, tns, ovf, cmin, cmax, g.tri_packed)
+    _equal_bits((*got[0], got[1], got[2]), (*want[0], want[1], want[2]))
+    fb = k5.fallback_t_max(got[0], got[1])
+    _equal_bits(k6.intersect_clustered(o, d, g, t_max=fb),
+                k6.intersect_clustered_plain(o, d, g, t_max=fb))
+    moved = [i for i, n in enumerate(r.scene.prim_node) if n == len(r._host_scene.nodes) - 1]
+    prim = g.tri_prim[ref.tri[ref.tri >= 0].long()]
+    assert int(torch.isin(prim, torch.tensor(moved, device=prim.device)).sum()) > 50
+
+
+def test_move_then_query_reads_rebuilt_caches(cuda_device):
+    """After a move, the first K1 query packs the moved soup and the
+    first traverse / cluster queries build K4's and K6's unions from the
+    moved boxes (the old geometry's stay with it)."""
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+
+    ex = chip_smoke.animated_example()
+    scene, node, w0 = ex.tall_box_scene()
+    r = RayTracingRenderer("caches", 32, 32, device=cuda_device)
+    r.set_scene(scene)
+    o, d = (x.to(cuda_device) for x in _rays(2048, 11))
+    g0 = r.scene.geometry
+    k1.intersect_pallas(o, d, g0.tri_v0, g0.tri_e1, g0.tri_e2)
+    k5.intersect_traversed(o, d, g0)
+    k6.intersect_clustered(o, d, g0)
+    r.set_node_transform(node, ex.translate(0.3, 0.0, 0.1) @ w0)
+    r.update_scene()
+    g = r.scene.geometry
+    assert not [a for a in vars(g) if a.startswith(("_stream_unions", "_cull_unions"))]
+    soup = (g.tri_v0, g.tri_e1, g.tri_e2)
+    hit = k1.intersect_pallas(o, d, *soup)
+    _equal_bits(hit, k1.intersect_pallas_plain(o, d, *soup))
+    assert torch.equal(k1.packed_triangles(*soup, g.tri_v0.shape[0]),
+                       k1.pack_triangles(*soup, g.tri_v0.shape[0]))
+    _equal_bits(k5.intersect_traversed(o, d, g),
+                tuple(x.to(cuda_device) for x in k5.intersect_traversed(
+                    o.cpu(), d.cpu(), g.to("cpu"))))
+    _equal_bits(k6.intersect_clustered(o, d, g), k6.intersect_clustered_plain(o, d, g))
+    chip_smoke.check_rebuilt_unions("moved Cornell", g)
+    assert g0._stream_unions[0] != g._stream_unions[0]
