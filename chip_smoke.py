@@ -119,7 +119,26 @@ Phases, in order; any failure raises and exits non-zero:
      K3, K3 equal to its plain version on its moved tables; at five the
      unions rebuilt from the moved boxes by the first query, K4 (both
      superchunks), K5 and K6 equal to their plain versions on 65,536
-     mixed rays, frame 0 within 2e-3 of a "cluster" frame;
+     mixed rays, frame 0 within 2e-3 of a "cluster" frame; then
+     multi-device rendering (`parallel_render`): two gloo ranks spawned
+     on the one card (a file rendezvous, every rank on cuda:0, the
+     collectives staged through the host: a check of the sharded
+     paths, not a multi-GPU scaling number) run film tiling of the
+     Cornell box (512x512, 2 frames, K1) and of atrium_big (1920x1088,
+     1 frame, K2) through render_frame_multichip, and geometry sharding
+     through render_frame_scene_sharded of atrium_big ("matrix": K2 on
+     each rank's 931 clusters) and of the five instances ("traverse":
+     K4, K5, K6 on 4611 clusters a rank; "auto": K2 there), depth 4,
+     1 spp; each film gathered and held against this process's
+     one-device render bit for bit with equal ray counts, except the
+     five instances through "auto": one device cannot run K2 past 8191
+     clusters, and its "auto" film (traverse) batches the shadow rays
+     the matrix family splits off, so that film is held bit for bit
+     against the same job on four ranks (another partition), with rays
+     above 1.2x camera rays, and its distance to the one-device film is
+     printed beside atrium_big's one-device K2-to-traverse gap; each
+     rank's launches must show the kernels named, and each rank prints
+     its frame ms and its collectives' calls, bytes and wall time;
   6. bench.py's raster cells through RasterizationRenderer with the
      ACES post program: raster_atrium (atrium_big 1920x1088, binned,
      tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
@@ -3126,6 +3145,270 @@ def animated_render(big_host, card: str):
                 atrium_big_x5=animated_instances(big_host, INSTANCES, card))
 
 
+# ---------------------------------------------------------------------------
+# multi-device: film tiling and geometry sharding over torch.distributed
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2  # gloo ranks of `parallel_render`, every one on cuda:0
+PARALLEL_LABEL = "two ranks on one card, collectives staged through the host"
+# name: (scene, mode, intersector, frames, size); every job at depth 4,
+# rr 2, 1 spp, against the one-device render of the same settings
+PARALLEL_JOBS = {
+    "cornell_tiled": ("cornell", "tiled", "auto", 2, (512, 512)),
+    "atrium_big_tiled": ("atrium_big", "tiled", "auto", 1, (1920, 1088)),
+    "atrium_big_sharded_matrix": ("atrium_big", "sharded", "matrix", 1, (1920, 1088)),
+    f"x{INSTANCES}_sharded_traverse": ("x5", "sharded", "traverse", 1, (1920, 1088)),
+    f"x{INSTANCES}_sharded_auto": ("x5", "sharded", "auto", 1, (1920, 1088)),
+}
+# The five instances through "auto" take K2 on every shard (4611
+# clusters). One device cannot run K2 past 8191 clusters: its "auto"
+# film traverses, with the shadow rays in the batched closest-hit query,
+# where the matrix family asks a split any-hit query that ends them
+# 1e-4 earlier (ROADMAP Queue 3): another estimator. So that job is held
+# bit for bit against itself on PARTITION_RANKS ranks (2306 clusters a
+# rank: another partition, the same estimator), and its distance to the
+# one-device film is printed beside the same gap on atrium_big (its
+# one-device K2 and traverse films).
+PARTITION_RANKS = 4
+PARTITION_JOB = f"x{INSTANCES}_sharded_auto"
+# the launches each job's ranks must show: kernels that must run, and
+# kernels that must not
+_K1, _K2 = "intersect_bruteforce", "matrix_traverse"
+_K4_K6 = ("cull_topk", "traverse_candidates", "cluster_stream")
+PARALLEL_LAUNCHES = {
+    "cornell_tiled": ((_K1,), (_K2, *_K4_K6)),
+    "atrium_big_tiled": ((_K2,), (_K1, *_K4_K6)),
+    "atrium_big_sharded_matrix": ((_K2,), (_K1, *_K4_K6)),
+    f"x{INSTANCES}_sharded_traverse": (_K4_K6, (_K1, _K2)),
+    f"x{INSTANCES}_sharded_auto": ((_K2,), (_K1, *_K4_K6)),
+}
+
+
+def _parallel_settings(spec, intersector=None):
+    from hala_tpu_torch.models.integrator import RenderSettings
+
+    _, _, job_intersector, _, (w, h) = spec
+    return RenderSettings(width=w, height=h, max_depth=4, rr_depth=2, spp=1,
+                          intersector=intersector or job_intersector)
+
+
+def _sync(device) -> None:
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _parallel_rank(rank: int, world: int, root: str, device: str, jobs: dict) -> None:
+    """One gloo rank of `parallel_render` on `device` (a file rendezvous
+    in `root`): every job of `jobs` through render_frame_multichip
+    (the scene replicated) or render_frame_scene_sharded (this rank's
+    shard_scene), each frame timed on the host clock after a
+    synchronize, with the launch counts and the collectives' calls,
+    bytes and wall time around the frames. Reads the scenes from `root`;
+    writes root/w{world}/rank{rank}.pt and, rank 0, the gathered films
+    to root/w{world}/films.pt."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    from hala_tpu_torch.models.integrator import Uniforms
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.parallel import (TiledFilm, make_mesh, render_frame_multichip,
+                                         render_frame_scene_sharded, shard_scene)
+    from hala_tpu_torch.parallel.tiling import comm_stats
+
+    dist.init_process_group("gloo", init_method=f"file://{root}/rendezvous{world}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_mesh(device)
+        if mesh.device.type == "cuda":
+            cuda_lib.lib()
+        stats, films, loaded = {}, {}, {}
+        for job, spec in jobs.items():
+            key, mode, _, frames, _ = spec
+            if key not in loaded:
+                loaded = {key: torch.load(os.path.join(root, f"{key}.pt"),
+                                          weights_only=False)}
+            if mode == "sharded":
+                scene, step = shard_scene(loaded[key], mesh), render_frame_scene_sharded
+            else:
+                scene, step = loaded[key].to(mesh.device), render_frame_multichip
+            settings = _parallel_settings(spec)
+            tiled = TiledFilm.create(mesh, settings.width, settings.height)
+            uni = Uniforms.default(mesh.device)
+            _sync(device)
+            cuda_lib.reset_launches()
+            comm_stats.reset()
+            comm_stats.enabled = True
+            ms, rays = [], []
+            for f in range(frames):
+                t0 = time.perf_counter()
+                _, r = step(scene, None, uni, tiled, f, settings)
+                rays.append(float(r))
+                ms.append((time.perf_counter() - t0) * 1e3)
+            comm_stats.enabled = False
+            stats[job] = dict(launches=cuda_lib.launches(), frame_ms=ms, rays=rays,
+                              comm_calls=comm_stats.calls, comm_bytes=comm_stats.nbytes,
+                              comm_ms=comm_stats.seconds * 1e3)
+            film = tiled.gather()
+            if rank == 0:
+                films[job] = {k: getattr(film, k).cpu()
+                              for k in ("accum", "albedo", "normal")}
+            del scene, tiled, film
+        out = os.path.join(root, f"w{world}")
+        torch.save(stats, os.path.join(out, f"rank{rank}.pt"))
+        if rank == 0:
+            torch.save(films, os.path.join(out, "films.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(root: str, world: int, device: str, jobs: dict):
+    """`world` spawned ranks of `_parallel_rank` over `jobs`. Returns
+    (each rank's stats, rank 0's gathered films)."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out = os.path.join(root, f"w{world}")
+    os.makedirs(out)
+    mp.spawn(_parallel_rank, args=(world, root, device, jobs), nprocs=world, join=True)
+    ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+             for r in range(world)]
+    return ranks, torch.load(os.path.join(out, "films.pt"), weights_only=False)
+
+
+def _check_launches(job: str, ranks) -> None:
+    must, must_not = PARALLEL_LAUNCHES[job]
+    for r, rank in enumerate(ranks):
+        counts = rank[job]["launches"]
+        if not (all(counts[k] > 0 for k in must) and not any(counts[k] for k in must_not)):
+            raise AssertionError(f"{job}: rank {r} of {len(ranks)} launches {counts}")
+
+
+def _ranks_line(job: str, ranks) -> str:
+    return "; ".join(
+        f"rank {r}: " + ", ".join(f"{x:.1f}" for x in rank[job]["frame_ms"])
+        + f" ms/frame, {rank[job]['comm_calls']} collectives, "
+        f"{rank[job]['comm_bytes'] / 1e9:.3f} GB, {rank[job]['comm_ms']:.1f} ms in them"
+        for r, rank in enumerate(ranks))
+
+
+def parallel_render(big_host, card: str, device="cuda", jobs=None):
+    """Multi-device rendering on the one card: PARALLEL_RANKS gloo ranks
+    (spawned, every rank on cuda:0, collectives staged through the host)
+    run PARALLEL_JOBS: film tiling of the Cornell box (K1) and of
+    atrium_big (K2), geometry sharding of atrium_big through "matrix"
+    (K2 on each rank's clusters) and of five atrium_big instances
+    through "traverse" (K4, K5, K6) and "auto" (K2: each shard holds
+    fewer than 8192 clusters); then PARTITION_RANKS ranks run
+    PARTITION_JOB again. The scenes are uploaded here once and written
+    with torch.save for the ranks to load. Gates: every film but
+    PARTITION_JOB's equals this process's one-device render of the same
+    settings bit for bit (accum, albedo, normal), with equal ray counts;
+    PARTITION_JOB's equals its film on PARTITION_RANKS ranks bit for bit,
+    rays equal and above 1.2x camera rays; each rank's launches follow
+    PARALLEL_LAUNCHES. Returns the record: per job the one-device and
+    the ranks' frame ms, the collectives' calls, bytes and wall ms, and
+    the launches. `jobs` replaces PARALLEL_JOBS (a CPU rehearsal at small
+    sizes)."""
+    import torch
+
+    from hala_tpu_torch.models.integrator import Film, Uniforms, render_frame
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+    from hala_tpu_torch.scene.procedural import cornell_box
+
+    hosts = dict(cornell=cornell_box(), atrium_big=big_host,
+                 x5=instanced_scene(big_host)[0])
+    jobs = PARALLEL_JOBS if jobs is None else jobs
+    out = dict(label=PARALLEL_LABEL, card=card, ranks=PARALLEL_RANKS,
+               partition_ranks=PARTITION_RANKS, jobs={})
+    refs = {}
+
+    def one_device(dev_scene, spec, intersector=None):
+        _, _, _, frames, (w, h) = spec
+        film = Film.create(w, h, device)
+        uni = Uniforms.default(device)
+        ms, rays = [], []
+        for f in range(frames):
+            _sync(device)
+            t1 = time.perf_counter()
+            _, r = render_frame(dev_scene, None, uni, film, f,
+                                _parallel_settings(spec, intersector))
+            rays.append(float(r))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        return film, rays, ms
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        for key, host in hosts.items():
+            dev_scene = SceneUploader.upload(host, device=device)
+            torch.save(dev_scene.to("cpu"), os.path.join(root, f"{key}.pt"))
+            for job, spec in jobs.items():
+                if spec[0] == key:
+                    refs[job] = one_device(dev_scene, spec)
+            if key == "atrium_big":  # the estimators' gap, K2 against traverse
+                refs["atrium_big_traverse"] = one_device(
+                    dev_scene, jobs["atrium_big_tiled"], "traverse")
+            del dev_scene
+        out["one_device_s"] = time.perf_counter() - t0
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        rank_device = "cuda:0" if torch.device(device).type == "cuda" else "cpu"
+        t0 = time.perf_counter()
+        ranks, films = _spawn_ranks(root, PARALLEL_RANKS, rank_device, jobs)
+        out["ranks_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ranks4, films4 = _spawn_ranks(root, PARTITION_RANKS, rank_device,
+                                      {PARTITION_JOB: jobs[PARTITION_JOB]})
+        out["partition_ranks_s"] = time.perf_counter() - t0
+    for job, (key, mode, intersector, frames, (w, h)) in jobs.items():
+        ref, ref_rays, ref_ms = refs[job]
+        got = films[job]
+        rays = ranks[0][job]["rays"]
+        rec = dict(mode=mode, intersector=intersector, frames=frames, size=[w, h],
+                   one_device_ms=ref_ms, one_device_rays=ref_rays, rays=rays,
+                   ranks=[r[job] for r in ranks])
+        if job == PARTITION_JOB:
+            want, want_rays = films4[job], ranks4[0][job]["rays"]
+            _check_launches(job, ranks4)
+            rec["partition"] = [r[job] for r in ranks4]
+            rec["rel_rmse_vs_one_device"] = rel_rmse(
+                got["accum"][..., :3].to(ref.accum.device), ref.accum[..., :3])
+            k2_film, trav_film = refs["atrium_big_tiled"][0], refs["atrium_big_traverse"][0]
+            rec["atrium_big_k2_vs_traverse"] = rel_rmse(k2_film.accum[..., :3],
+                                                        trav_film.accum[..., :3])
+            if not sum(rays) > 1.2 * w * h * frames:
+                raise AssertionError(f"{job}: {sum(rays)} rays for {w * h * frames} "
+                                     "camera rays")
+            what = (f"bit for bit its film on {PARTITION_RANKS} ranks "
+                    f"({_ranks_line(job, ranks4)}), rays equal; relative RMSE "
+                    f"{rec['rel_rmse_vs_one_device']:.4g} to the one-device \"auto\" "
+                    f"(traverse) film, where atrium_big's one-device K2 and traverse "
+                    f"films lie {rec['atrium_big_k2_vs_traverse']:.4g} apart")
+        else:
+            want, want_rays = {k: getattr(ref, k).cpu() for k in got}, ref_rays
+            what = "bit for bit the one-device film, rays equal"
+        for k in ("accum", "albedo", "normal"):
+            if not torch.equal(got[k], want[k]):
+                raise AssertionError(f"{job}: the {k} film differs")
+        if rays != want_rays:
+            raise AssertionError(f"{job}: rays {rays} against {want_rays}")
+        _check_launches(job, ranks)
+        out["jobs"][job] = rec
+        log(f"  {job} ({mode}, \"{intersector}\", {w}x{h}, {frames} frame(s)): {what}; "
+            f"one device {', '.join(f'{x:.1f}' for x in ref_ms)} ms/frame; "
+            f"{_ranks_line(job, ranks)}; launches {ranks[0][job]['launches']} "
+            f"[{PARALLEL_LABEL}] [{card}]")
+    log(f"  parallel_render: one-device renders and uploads {out['one_device_s']:.1f} s, "
+        f"{PARALLEL_RANKS} ranks {out['ranks_s']:.1f} s, {PARTITION_RANKS} ranks "
+        f"{out['partition_ranks_s']:.1f} s [{card}]")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3368,6 +3651,8 @@ def main() -> int:
     # node moves on the card: K1 (Cornell), K2 and K3 (two atrium_big
     # copies), K4-K6 (five) on the moved tables
     anim_out = animated_render(big_host, card)
+    # film tiling and geometry sharding: two gloo ranks on the card
+    par_out = parallel_render(big_host, card)
 
     post = post_program()
     ra = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=64,
@@ -3468,6 +3753,10 @@ def main() -> int:
              old_bound_ms=k8_rec["old_bound_ms"], anyhit_ms=k8_rec["anyhit_ms"],
              warp_span_fill=k8_rec["warp_span_fill"]),
     ]
+    for k in kernels:  # launches of the ranks of parallel_render, job by job
+        name = k["name"].split(" ")[0]
+        k["parallel_launches"] = {job: [rank["launches"][name] for rank in rec["ranks"]]
+                                  for job, rec in par_out["jobs"].items()}
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
                    atrium_big_peak_bytes=peak, atrium_big_profile=s_prof,
                    raster_atrium=ra_out,
@@ -3506,7 +3795,7 @@ def main() -> int:
                    atrium_big_matrix_wavefront_routes=x_out,
                    envmap=e_out, cornell_blue_noise=bn_out,
                    procedural=proc_out, atrium_big_spheres=spheres_out,
-                   hooks=hooks_out, animated=anim_out,
+                   hooks=hooks_out, animated=anim_out, parallel=par_out,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -18,9 +18,13 @@ pixel id, so results do not depend on tiling.
 
 Procedural spheres (ops/prims.py) join every closest-hit and any-hit
 query after the triangle backend. Pushed kernels (`KernelHooks`) override
-the integrator's seams. Not ported yet (each raises HalaRendererError
-when requested): the geometry-sharded `scene_axis` mode and the "bvh"
-engine.
+the integrator's seams. With `settings.scene_axis` set (a mesh of
+parallel/tiling.py), the scene is this rank's geometry shard
+(parallel/scene_shard.py): each query all-gathers the rays, runs on the
+rank's clusters and merges the ranks' hits by (t, global tri)
+(`merge_shard_hits`), and shade rows come back from their owners
+(`_rows_sharded`). Not ported yet (raises HalaRendererError when
+requested): the "bvh" engine.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from ..ops.camera import generate_rays
 from ..ops.cluster import intersect_clustered
 from ..ops.compaction import order_by, permute
 from ..ops.env import env_eval, env_sample, sky_radiance
+from ..ops.gathers import take_rows
 from ..ops.intersect import (
     T_MAX,
     Hit,
@@ -128,8 +133,13 @@ class RenderSettings:
     # Samples per progressive frame, sample-adjacent; sample s of frame
     # f uses virtual RNG frame f*spp+s.
     spp: int = 1
-    # Geometry-sharded rendering: not ported yet (must stay None).
-    scene_axis: str | None = None
+    # Geometry-sharded rendering: the mesh (parallel/tiling.py `Mesh`)
+    # whose ranks each hold a block of the scene's clusters and shade
+    # rows (parallel/scene_shard.py). Every query all-gathers the rays
+    # over it, runs on the local clusters and merges the per-rank hits
+    # by the lexicographic (t, global tri) minimum: the one-device
+    # result bit for bit. None = the whole scene on this device.
+    scene_axis: object = None
     sort_rays: bool = True
     traverse_k: int = 12
     wavefront_k: int = 16
@@ -233,7 +243,13 @@ def _backend(settings: RenderSettings, scene) -> str:
     kernel, larger ones of at most MATRIX_MAX_CLUSTERS clusters to the
     cluster traversal, and larger still (the 13-bit key width of K2) to
     the candidate traversal. The same rule holds on every device: for
-    CPU tensors the kernels' wrappers run their plain versions."""
+    CPU tensors the kernels' wrappers run their plain versions.
+
+    On a geometry shard (`scene_axis`) the brute-force kernel's prefix
+    trim does not apply: "pallas", and "auto" on the prefix layout or
+    at most 4096 triangles, give the plain brute force over the local
+    slots; above that the shard's own cluster count picks "matrix" or
+    "traverse"."""
     sel = settings.intersector
     if sel in _NOT_PORTED:
         raise HalaRendererError(f"intersector {sel!r} is not yet ported")
@@ -241,9 +257,12 @@ def _backend(settings: RenderSettings, scene) -> str:
         raise ValueError(
             f"Unknown intersector {sel!r}; expected one of {_BACKENDS}"
         )
+    sharded = settings.scene_axis is not None
     if sel != "auto":
-        return sel
+        return "bruteforce" if sharded and sel == "pallas" else sel
     g = scene.geometry
+    if sharded and (g.prefix_layout or g.num_triangles <= 4096):
+        return "bruteforce"
     if g.num_triangles <= 4096 and g.prefix_layout:
         return "pallas"
     if g.tri_packed.shape[0] <= MATRIX_MAX_CLUSTERS:
@@ -319,13 +338,74 @@ def _merge_proc(scene, o, d, hit: Hit, t_max) -> Hit:
     return merge_procedural(scene.procedural, o, d, hit, t_max)
 
 
+_IMAX = 2**31 - 1
+
+
+def _lex_merge(hits, slot_offsets, reduce_min, sum_to_owner, own) -> Hit:
+    """The lexicographic (t, global tri) minimum of per-shard hits over
+    the same rays, written once over the reductions it needs:
+    `reduce_min` and `sum_to_owner` reduce a list of per-shard tensors
+    (the latter to the caller's rays), `own` cuts a reduced tensor to
+    them. t is reduced first, then the global tri among the shards at
+    that t; u and v come from the one winning shard as int32 bit
+    patterns summed with zeros elsewhere, so their bits (-0.0 included)
+    are the winner's."""
+    tri_g = [torch.where(h.tri >= 0, h.tri + off, -1) for h, off in zip(hits, slot_offsets)]
+    t_min = reduce_min([h.t for h in hits])
+    cand = [(h.t == t_min) & (g >= 0) for h, g in zip(hits, tri_g)]
+    tri_w = reduce_min([torch.where(c, g, _IMAX) for c, g in zip(cand, tri_g)])
+    uv = sum_to_owner([
+        torch.where((c & (g == tri_w))[:, None],
+                    torch.stack([h.u, h.v], dim=1).view(torch.int32), 0)
+        for h, c, g in zip(hits, cand, tri_g)]).view(torch.float32)
+    tri = own(torch.where(tri_w == _IMAX, -1, tri_w))
+    return Hit(t=own(t_min), tri=tri, u=uv[:, 0], v=uv[:, 1])
+
+
+def merge_shard_hits(hits, slot_offsets) -> Hit:
+    """The merge of the geometry-sharded query in one process: `hits`
+    holds one Hit per shard over the same rays (shard-local tri ids),
+    `slot_offsets` each shard's first global slot. Returns the Hit of
+    the smallest (t, global tri): the one-device query's hit wherever
+    every engine breaks exact-t ties to the smaller slot. The sharded
+    `_intersect` runs the same merge over the ranks' collectives."""
+    return _lex_merge(
+        hits, slot_offsets,
+        lambda xs: torch.stack(xs).amin(dim=0),
+        lambda xs: torch.stack(xs).sum(dim=0, dtype=torch.int32),
+        lambda x: x,
+    )
+
+
+def _gather_rays(mesh, o, d, t):
+    """The rays of every rank, in rank order: one all-gather of (N, 7)."""
+    n = o.shape[0]
+    rays = mesh.all_gather(torch.cat([o, d, full_t_max(t, n, o.device)[:, None]], dim=1))
+    return rays[:, 0:3], rays[:, 3:6], rays[:, 6].contiguous()
+
+
 def _intersect(scene, o, d, settings: RenderSettings, t_max=None,
                extend: bool = False) -> Hit:
     """Closest-hit dispatch: the triangle backend's query, then the
     procedural spheres. `extend` marks a bounce rays' query, which
-    `extend_intersector` may send to the wavefront."""
-    return _merge_proc(scene, o, d, _intersect_local(scene, o, d, settings, t_max,
-                                                     extend), t_max)
+    `extend_intersector` may send to the wavefront. On a geometry shard
+    the query runs on every rank's rays and the ranks' hits are merged
+    (`merge_shard_hits`' rule); the spheres are replicated and join
+    after, on this rank's rays."""
+    mesh = settings.scene_axis
+    if mesh is None:
+        hit = _intersect_local(scene, o, d, settings, t_max, extend)
+        return _merge_proc(scene, o, d, hit, t_max)
+    n = o.shape[0]
+    og, dg, tg = _gather_rays(mesh, o, d, t_max)
+    hit = _intersect_local(scene, og, dg, settings, tg, extend)
+    own = slice(mesh.rank * n, (mesh.rank + 1) * n)
+    merged = _lex_merge(
+        [hit], [mesh.rank * scene.geometry.tri_v0.shape[0]],
+        lambda xs: mesh.all_min(xs[0]), lambda xs: mesh.sum_scatter(xs[0]),
+        lambda x: x[own],
+    )
+    return _merge_proc(scene, o, d, merged, t_max)
 
 
 def _intersect_local(scene, o, d, settings: RenderSettings, t_max=None,
@@ -364,8 +444,16 @@ def _intersect_local(scene, o, d, settings: RenderSettings, t_max=None,
 
 def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
     """Any-hit dispatch: True where a triangle lies in
-    (1e-4, t_far * (1 - 1e-4)) or a procedural sphere in (1e-4, t_far)."""
-    occ = _occluded_local(scene, o, d, t_far, settings)
+    (1e-4, t_far * (1 - 1e-4)) or a procedural sphere in (1e-4, t_far).
+    On a geometry shard every rank answers every rank's rays for its
+    own triangles, and the masks are OR'd by an int32 reduce-scatter."""
+    mesh = settings.scene_axis
+    if mesh is None:
+        occ = _occluded_local(scene, o, d, t_far, settings)
+    else:
+        og, dg, tg = _gather_rays(mesh, o, d, t_far)
+        occ_g = _occluded_local(scene, og, dg, tg, settings)
+        occ = mesh.sum_scatter(occ_g.to(torch.int32)) > 0
     if scene.procedural is not None:
         occ = occ | occluded_spheres(scene.procedural, o, d, t_far)
     return occ
@@ -399,9 +487,32 @@ def _occluded_local(scene, o, d, t_far, settings: RenderSettings) -> torch.Tenso
     )
 
 
-def _check_ported(settings: RenderSettings) -> None:
-    if settings.scene_axis is not None:
-        raise HalaRendererError("geometry-sharded rendering is not yet ported")
+def _rows_sharded(table, idx, mesh):
+    """Owner-masked fetch of rows `idx` (global ids, clamped to the
+    global table) from the rank's block of a table sharded by rows:
+    every rank's ids are all-gathered, each rank serves those it owns
+    and zeros elsewhere, and a reduce-scatter returns this rank's rows.
+    Float rows travel as their int32 bit patterns, so the sum is the
+    owner's bits exactly (-0.0 included)."""
+    idx_g = mesh.all_gather(idx.to(torch.int32))
+    rows = table.shape[0]
+    lid = torch.clamp(idx_g - mesh.rank * rows, 0, rows - 1)
+    got = take_rows(table, lid)
+    bits = got.view(torch.int32) if got.is_floating_point() else got
+    mine = ((idx_g // rows) == mesh.rank).reshape(-1, *([1] * (got.dim() - 1)))
+    return mesh.sum_scatter(torch.where(mine, bits, 0)).view(table.dtype)
+
+
+def _fetch_rows(table, tri, settings: RenderSettings):
+    """Rows of a per-slot table at hit ids `tri`, clamped to the (global)
+    table: procedural ids and misses take the last row, which callers
+    override (on the card an out-of-range gather is a device assert)."""
+    mesh = settings.scene_axis
+    rows = table.shape[0] * (1 if mesh is None else mesh.size)
+    idx = torch.clamp(tri, 0, rows - 1)
+    if mesh is None:
+        return take_rows(table, idx)
+    return _rows_sharded(table, idx, mesh)
 
 
 def _path_context(
@@ -549,12 +660,9 @@ def _path_context(
         on_surface = active & ~scatter
 
         # --- shading point ----------------------------------------------
-        # procedural ids clip to the last row (overridden below): on the
-        # card an out-of-range gather is a device assert
-        tid = torch.clamp(hit.tri, 0, geom.shade_table.shape[0] - 1).long()
         u, v = hit.u, hit.v
         w0 = 1.0 - u - v
-        rows = geom.shade_table[tid]
+        rows = _fetch_rows(geom.shade_table, hit.tri, settings)
         ns = normalize(
             w0[:, None] * rows[:, 0:3]
             + u[:, None] * rows[:, 3:6]
@@ -919,7 +1027,7 @@ def _path_context(
         )
 
     def opacity_of(tri):
-        m = geom.tri_mat[torch.clamp(tri, 0, geom.tri_mat.shape[0] - 1).long()]
+        m = _fetch_rows(geom.tri_mat, tri, settings)
         if scene.procedural is not None:
             # procedural blockers take their own material row
             pid = torch.clamp(tri - PROC_BASE, 0, scene.procedural.center.shape[0] - 1)
@@ -1082,8 +1190,12 @@ def _render_frame_impl(
     hooks=None,
 ) -> torch.Tensor:
     """One progressive frame (settings.spp samples per pixel) added to
-    `film` in place; returns the traced-ray count (0-d f32 tensor)."""
-    _check_ported(settings)
+    `film` in place; returns the traced-ray count (0-d f32 tensor).
+
+    Every tile runs the same sequence of queries whatever its rays (a
+    fixed count of bounces and shadow surfaces, no early exit), and the
+    ranks of a mesh render bands of equal height, so the collectives of
+    a geometry-sharded render stay in step across the ranks."""
     h, w = settings.height, settings.width
     dev = film.accum.device
     cam_h = full_height if full_height is not None else h
@@ -1151,7 +1263,9 @@ def _render_frame_impl(
         for buf, val in ((accum, L), (albedo, alb), (normal, nrm)):
             old = buf[sl]
             buf[sl] = old + (torch.cat([val, ones], dim=-1) - old) * inv_n1
-        rays_total = rays_total + torch.sum(rays)
+        # the last tile's padding pixels lie outside the film: their rays
+        # are traced (the tile's shape is fixed) but not counted
+        rays_total = rays_total + torch.sum(rays[:min(tile, (n_pix - start) * spp)])
 
     for buf, dst in ((accum, film.accum), (albedo, film.albedo),
                      (normal, film.normal)):

@@ -269,11 +269,10 @@ def _inside_rays(g, n, seed):
 
 
 @pytest.fixture(scope="module")
-def instances():
+def instances_scene():
     """Five instances of atrium_big side by side along x (the scene
     "auto" sends to K4-K6: above 8191 clusters, two cull superchunks),
-    uploaded through the SAH build, and 16,384 rays from inside their
-    bounds."""
+    uploaded through the SAH build."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
     from hala_tpu_torch.scene.cpu.node import Node
@@ -292,8 +291,16 @@ def instances():
             m[0, 3] += j * spacing
             host.nodes.append(Node(name=f"{n.name}_{j}", local_transform=m,
                                    world_transform=m.copy(), mesh_index=n.mesh_index))
-    g = SceneUploader.upload(host, device=dev).geometry
-    assert g.cluster_min.shape[0] > k4.CULL_MAX_CLUSTERS
+    scene = SceneUploader.upload(host, device=dev)
+    assert scene.geometry.cluster_min.shape[0] > k4.CULL_MAX_CLUSTERS
+    return scene
+
+
+@pytest.fixture(scope="module")
+def instances(instances_scene):
+    """The five instances' geometry and 16,384 rays from inside their
+    bounds."""
+    g = instances_scene.geometry
     return (g, *_inside_rays(g, 16384, 13))
 
 
@@ -921,3 +928,96 @@ def test_move_then_query_reads_rebuilt_caches(cuda_device):
     _equal_bits(k6.intersect_clustered(o, d, g), k6.intersect_clustered_plain(o, d, g))
     chip_smoke.check_rebuilt_unions("moved Cornell", g)
     assert g0._stream_unions[0] != g._stream_unions[0]
+
+
+# ---------------------------------------------------------------------------
+# geometry sharding: per-shard queries merged in one process
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def atrium_big_scene():
+    """atrium_big (1861 clusters) on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
+    scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
+    return SceneUploader.upload(scene, device=torch.device("cuda", 0))
+
+
+def _shards(scene, n):
+    from hala_tpu_torch.parallel import shard_scene
+    from hala_tpu_torch.parallel.tiling import Mesh
+
+    dev = scene.geometry.tri_v0.device
+    return [shard_scene(scene, Mesh(None, r, n, dev)) for r in range(n)]
+
+
+def _sharded_against_whole(scene, n, intersector, seed, ran, idle, whole_by=None):
+    """chip_smoke's 65,536 mixed rays through `intersector` on `n` shards
+    merged by `merge_shard_hits`, and through `whole_by` (default the
+    same) on the whole scene: equal bits, closest hit and any-hit (the
+    shards' masks OR'd); the shards launch each kernel of `ran` and none
+    of `idle`."""
+    from hala_tpu_torch.models import integrator as tint
+
+    o, d, tm = chip_smoke.mixed_batch(scene, 256, 128, 32768, seed)
+    s = RenderSettings(width=8, height=8, intersector=intersector)
+    sw = RenderSettings(width=8, height=8, intersector=whole_by or intersector)
+    whole = tint._intersect_local(scene, o, d, sw, tm)
+    whole_occ = tint._occluded_local(scene, o, d, tm, sw)
+    shards = _shards(scene, n)
+    slots = shards[0].geometry.tri_v0.shape[0]
+    torch.cuda.synchronize()
+    cuda_lib.reset_launches()
+    got = tint.merge_shard_hits([tint._intersect_local(sh, o, d, s, tm) for sh in shards],
+                                [r * slots for r in range(n)])
+    occ = torch.stack([tint._occluded_local(sh, o, d, tm, s) for sh in shards]).any(0)
+    torch.cuda.synchronize()
+    counts = cuda_lib.launches()
+    _equal_bits(got, whole)
+    assert torch.equal(occ, whole_occ)
+    assert int((whole.tri >= 0).sum()) > 30000
+    assert all(counts[k] >= n for k in ran), counts
+    assert not any(counts[k] for k in idle), counts
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_k2_merge_equals_unsharded(atrium_big_scene, n):
+    """K2 on each of n shards of atrium_big, merged by (t, global tri),
+    equals the unsharded K2 query bit for bit."""
+    _sharded_against_whole(atrium_big_scene, n, "matrix", 61, ("matrix_traverse",),
+                           ("intersect_bruteforce", "cull_topk", "traverse_candidates",
+                            "cluster_stream"))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_traverse_merge_equals_unsharded(instances_scene, n):
+    """"traverse" (K4, K5, K6) on each of n shards of the five instances
+    (one cull superchunk a shard, two unsharded), merged, equals the
+    unsharded query bit for bit."""
+    _sharded_against_whole(instances_scene, n, "traverse", 63,
+                           ("cull_topk", "traverse_candidates", "cluster_stream"),
+                           ("intersect_bruteforce", "matrix_traverse"))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_k2_on_instances_equals_unsharded_traverse(instances_scene, n):
+    """K2 on each shard of the five instances (4611 or 2306 clusters, the
+    sharded "auto"), merged, equals the unsharded "traverse" query (the
+    one-device "auto") bit for bit, closest hit and any-hit."""
+    _sharded_against_whole(instances_scene, n, "matrix", 65, ("matrix_traverse",),
+                           ("intersect_bruteforce", "cull_topk", "traverse_candidates",
+                            "cluster_stream"), whole_by="traverse")
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_shard_tables_are_the_uploaders_rule(atrium_big_scene, instances_scene, n):
+    """Each shard's cluster boxes and slot blocks (row 9 included) are
+    `cluster_boxes` and `pack_slots` over its own slots."""
+    for scene in (atrium_big_scene, instances_scene):
+        for sh in _shards(scene, n):
+            g = sh.geometry
+            real = g.tri_mat >= 0
+            cmin, cmax = k6.cluster_boxes(g.tri_v0, g.tri_e1, g.tri_e2, real)
+            assert torch.equal(g.cluster_min, cmin) and torch.equal(g.cluster_max, cmax)
+            assert torch.equal(g.tri_packed, k6.pack_slots(g.tri_v0, g.tri_e1, g.tri_e2, real))

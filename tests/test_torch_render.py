@@ -256,8 +256,8 @@ def test_cuda_error_marks_device_lost_and_restores(tmp_path):
                                     "scene_axis"])
 def test_unported_integrator_options_raise(option):
     """What is still unported raises; the environment map, the
-    blue-noise texture and pushed kernel hooks, ported since, render
-    instead."""
+    blue-noise texture, pushed kernel hooks and the geometry-sharded
+    `scene_axis` (a one-rank mesh here), ported since, render instead."""
     dev = SceneUploader.upload(cornell_box(), device="cpu")
     kw = dict(width=8, height=8)
     args = dict(env=None, blue_noise=None, hooks=None)
@@ -273,7 +273,9 @@ def test_unported_integrator_options_raise(option):
         args["blue_noise"] = torch.rand(
             (16, 16, 4), generator=torch.Generator().manual_seed(1))
     elif option == "scene_axis":
-        kw["scene_axis"] = "x"
+        from hala_tpu_torch.parallel import make_mesh
+
+        kw["scene_axis"] = make_mesh("cpu")
     elif option == "hooks":
         from hala_tpu_torch.models.integrator import KernelHooks
 
@@ -288,7 +290,7 @@ def test_unported_integrator_options_raise(option):
                      hooks=args["hooks"])
         return film
 
-    if option in ("env", "blue_noise", "hooks"):
+    if option in ("env", "blue_noise", "hooks", "scene_axis"):
         film = render()
         assert bool(torch.isfinite(film.accum).all())
         assert float(film.accum[..., :3].mean()) > 0.0
