@@ -139,6 +139,28 @@ Phases, in order; any failure raises and exits non-zero:
      printed beside atrium_big's one-device K2-to-traverse gap; each
      rank's launches must show the kernels named, and each rank prints
      its frame ms and its collectives' calls, bytes and wall time;
+     then the modules that close the port (`closeout_render`): the
+     Cornell box 512x512, depth 4, 16 frames through intersector="bvh"
+     (the skip-link BVH in plain PyTorch: no kernel may launch; bench.py's
+     cornell invariants; frame 0 within relative RMSE 2e-3 of K1's) and
+     frame 0 through "legacy" (the same bits); the upload of atrium_big
+     and of the five instances with the BVH build (timed beside the
+     uploads without it), 65,536 of atrium_big's camera rays through
+     intersect_bvh against K1 over all slots (ids equal but at exact-t
+     ties and grazes, each counted; loop steps and wall time), and the
+     animated Cornell box moved (no BVH: "bvh" gives the "bruteforce"
+     frame bit for bit); atrium_big 1920x1088, depth 4, 2 frames through
+     "matrix" with shadow_dense_k 8 (K4 and K2 must launch), its film bit
+     for bit the "matrix" film of the same frames with equal rays (a
+     differing pixel must trace to a K4 slab miss, counted); then on
+     atrium_big's 2^21-ray mixed batch the dense engine at K 8 and 2
+     against K2 (closest, canonical, ids differing only inside the
+     key's granule; the any-hit mask; cull misses counted), timed with
+     its peak memory, traverse_query and matrix_query(sort_key=
+     "signature") bit for bit against intersect_traversed and the
+     Morton sort, and intersect_traversed(exact=False) and
+     intersect_wavefront(fallback=False) bit for bit against the same
+     queries through their kernels' plain versions;
   6. bench.py's raster cells through RasterizationRenderer with the
      ACES post program: raster_atrium (atrium_big 1920x1088, binned,
      tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
@@ -1678,7 +1700,7 @@ def upload_instances(host, dev):
 
     scene, spacing = instanced_scene(host)
     t0 = time.perf_counter()
-    dev_scene = SceneUploader.upload(scene, device=dev)
+    dev_scene = SceneUploader.upload(scene, use_ray_tracing=False, device=dev)
     seconds = time.perf_counter() - t0
     c = dev_scene.geometry.cluster_min.shape[0]
     tris = int((dev_scene.geometry.tri_mat >= 0).sum())
@@ -2107,7 +2129,7 @@ def golden_renders(device) -> None:
          ("accum",), golden_envmap_array()),
     )
     for name, host, settings, frames, keys, env_rgb in cases:
-        ds = SceneUploader.upload(host, device=device)
+        ds = SceneUploader.upload(host, use_ray_tracing=False, device=device)
         film = Film.create(settings.width, settings.height, device)
         uni = Uniforms.default(device)
         env = None if env_rgb is None else EnvMap.from_array(env_rgb, device=device)
@@ -2252,7 +2274,7 @@ def family_render(name: str, host_scene, frames: int, k2_film, card: str,
     from hala_tpu_torch.ops import traverse as k8
 
     r = RayTracingRenderer(name.replace(" ", "_"), *size, max_depth=4,
-                           rr_depth=2, spp=1, device=device, **kw)
+                           rr_depth=2, spp=1, use_bvh=False, device=device, **kw)
     r.set_scene(host_scene)
     r.commit()
     warm_up(r)
@@ -2303,7 +2325,7 @@ def instances_render(host_scene, frames: int, card: str, size=(1920, 1088),
     from hala_tpu_torch.ops import cuda_lib
 
     r = RayTracingRenderer("atrium_big_x5", *size, max_depth=4, rr_depth=2,
-                           spp=1, intersector="auto", device=device)
+                           spp=1, intersector="auto", use_bvh=False, device=device)
     t0 = time.perf_counter()
     r.set_scene(host_scene)  # the upload
     upload_s = time.perf_counter() - t0
@@ -2333,7 +2355,7 @@ def instances_render(host_scene, frames: int, card: str, size=(1920, 1088),
                                     out["ms_per_frame"], card)
     clus = RayTracingRenderer("atrium_big_x5_cluster", *size, max_depth=4,
                               rr_depth=2, spp=1, intersector="cluster",
-                              device=device)
+                              use_bvh=False, device=device)
     clus.set_scene(host_scene)
     clus.commit()
     cuda_lib.reset_launches()
@@ -2473,25 +2495,13 @@ def profile_frames(label: str, step, frames: int, wall_ms: float, card: str):
 
 
 def procedural_scene():
-    """examples/render_procedural.py's scene on the port: the Cornell box
-    and three spheres (diffuse, Disney metal, emissive)."""
-    from hala_tpu_torch import Material, MaterialType, ProceduralSphere
-    from hala_tpu_torch.scene.procedural import cornell_box
+    """examples/torch_render_procedural.py's scene (the twin of
+    examples/render_procedural.py's): the Cornell box and three spheres
+    (diffuse, Disney metal, emissive)."""
+    sys.path.insert(0, os.path.join(HERE, "examples"))
+    import torch_render_procedural
 
-    scene = cornell_box()
-    blue = Material(base_color=np.array([0.2, 0.4, 0.9], np.float32))
-    metal = Material(type=MaterialType.DISNEY,
-                     base_color=np.array([0.95, 0.85, 0.6], np.float32),
-                     metallic=1.0, roughness=0.15)
-    glow = Material(base_color=np.array([1.0, 1.0, 1.0], np.float32),
-                    emission=np.array([6.0, 3.0, 1.5], np.float32))
-    for mat, center, radius in ((blue, (-0.45, -0.65, 0.1), 0.35),
-                                (metal, (0.45, -0.7, -0.2), 0.30),
-                                (glow, (0.0, 0.35, -0.4), 0.15)):
-        scene.materials.append(mat)
-        scene.procedurals.append(ProceduralSphere(center=center, radius=radius,
-                                                  material=len(scene.materials) - 1))
-    return scene
+    return torch_render_procedural.procedural_scene()
 
 
 def frame0(r, intersector: str | None = None):
@@ -2613,13 +2623,13 @@ def spheres_render(host, card: str, frames: int = 2, size=(1920, 1088), device="
     from hala_tpu_torch.ops.prims import PROC_BASE
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
 
-    base = SceneUploader.upload(host, device=device)
+    base = SceneUploader.upload(host, use_ray_tracing=False, device=device)
     scene, t0 = with_spheres_on_view_axis(host, base)
     del base
     out = dict(view_axis_t0=t0)
     for label, sel in (("auto", "auto"), ("traverse", "traverse")):
         r = RayTracingRenderer(f"atrium_big_spheres_{label}", *size, max_depth=4,
-                               rr_depth=2, spp=1, intersector=sel, device=device)
+                               rr_depth=2, spp=1, intersector=sel, use_bvh=False, device=device)
         r.set_scene(scene)
         r.commit()
         if label == "auto":
@@ -2698,7 +2708,7 @@ def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
             mp.base_color))
     for name, fn in kernels.items():
         cache.from_memory(name, fn)
-    scene = SceneUploader.upload(cornell_box(), device=device)
+    scene = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device=device)
     uni = Uniforms.default(device)
     ident = [k for k in kernels if "identity" in k]
     descs = {
@@ -2850,7 +2860,7 @@ def fresh_frame0(host, settings, device):
     from hala_tpu_torch.models.integrator import Film, Uniforms, render_frame
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
 
-    dev = SceneUploader.upload(host, device=device)
+    dev = SceneUploader.upload(host, use_ray_tracing=False, device=device)
     film = Film.create(settings.width, settings.height, device)
     render_frame(dev, None, Uniforms.default(device), film, 0, settings)
     torch.cuda.synchronize()
@@ -3071,7 +3081,7 @@ def animated_instances(big_host, copies: int, card: str, size=(1920, 1088),
     worlds = {ni: translate(*ATRIUM_MOVE) @ np.asarray(host.nodes[ni].world_transform,
                                                         np.float32) for ni in nodes}
     r = RayTracingRenderer(f"atrium_big_x{copies}_moved", *size, max_depth=4,
-                           rr_depth=2, spp=1, device=device)
+                           rr_depth=2, spp=1, use_bvh=False, device=device)
     r.set_scene(host)
     r.commit()
     c = r.scene.geometry.cluster_min.shape[0]
@@ -3345,7 +3355,7 @@ def parallel_render(big_host, card: str, device="cuda", jobs=None):
     with tempfile.TemporaryDirectory() as root:
         t0 = time.perf_counter()
         for key, host in hosts.items():
-            dev_scene = SceneUploader.upload(host, device=device)
+            dev_scene = SceneUploader.upload(host, use_ray_tracing=False, device=device)
             torch.save(dev_scene.to("cpu"), os.path.join(root, f"{key}.pt"))
             for job, spec in jobs.items():
                 if spec[0] == key:
@@ -3409,6 +3419,413 @@ def parallel_render(big_host, card: str, device="cuda", jobs=None):
     return out
 
 
+# ---------------------------------------------------------------------------
+# closing the port: the "bvh" engine, dense shadows, the query options
+# ---------------------------------------------------------------------------
+
+BVH_CAMERA = (256, 256)  # atrium_big camera rays through intersect_bvh
+DENSE_K = (8, 2)         # the dense queries' K on the 2^21-ray batch
+
+
+def plain_versions(*patches):
+    """A context in which module attributes (the wrappers of K4, K5, K7)
+    are replaced by plain versions, (module, name, replacement) each, so
+    a query runs on the card through its kernels' plain PyTorch
+    versions."""
+    import contextlib
+    from unittest import mock
+
+    stack = contextlib.ExitStack()
+    for module, name, fn in patches:
+        stack.enter_context(mock.patch.object(module, name, fn))
+    return stack
+
+
+def cull_plain(o, d, t_max, cluster_min, cluster_max, k=16, unions=None):
+    """K4's plain version with the wrapper's signature."""
+    from hala_tpu_torch.ops import cull
+
+    return cull.cull_topk_plain(o, d, t_max, cluster_min, cluster_max, k)
+
+
+def bvh_vs_k1(name: str, a, b, o, d, g):
+    """Raise unless the "bvh" hits a equal K1's b: both run classic
+    Moller-Trumbore with no boxes around the triangles but the BVH's own
+    unpadded node boxes, so the ids differ only at exact-t ties (K1
+    keeps the lower slot, the BVH the first it meets) and at grazes
+    (`grazes`: a hit Moller-Trumbore accepts just outside its leaf's
+    box), at most GRAZE_EXCUSED_MAX of those; t/u/v within rtol T_TOL
+    where the ids agree. Returns (ties, grazes, max |dt,du,dv|)."""
+    import torch
+
+    from hala_tpu_torch.ops.intersect import canonical_hit
+
+    ca = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2, a)
+    cb = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2, b)
+    diff = a.tri != b.tri
+    tie = diff & (a.tri >= 0) & (b.tri >= 0) & (ca.t == cb.t)
+    graze = diff & ~tie & (grazes(ca) | grazes(cb))
+    bad = diff & ~tie & ~graze
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} rays differ from K1 beyond "
+                             "exact-t ties and grazes")
+    n_graze = int(graze.sum())
+    if n_graze > GRAZE_EXCUSED_MAX:
+        raise AssertionError(f"{name}: {n_graze} grazing rays differ from K1")
+    same = ~diff & (a.tri >= 0)
+    err = max_abs_diff([a.t[same], a.u[same], a.v[same]],
+                       [b.t[same], b.u[same], b.v[same]])
+    if not torch.allclose(a.t[same], b.t[same], rtol=T_TOL, atol=0.0):
+        raise AssertionError(f"{name}: t differs from K1 beyond rtol {T_TOL}")
+    return int(tie.sum()), n_graze, err
+
+
+def dense_vs_k2(name: str, dh, k2c, o, d, tm, g, k: int) -> dict:
+    """Raise unless the dense closest hits dh equal K2's canonical hits
+    k2c: where K4's unpadded slab test misses the cluster of K2's winner
+    (`cull_misses`) the ray is counted and left out; elsewhere the ids
+    differ only between hits whose t share the dense key's granule (the
+    packed key (t bits & ~slot_mask) | slot drops slot_bits bits of t, as
+    the JAX engine does), and where they agree t, u, v are equal bit for
+    bit."""
+    import torch
+
+    slot_bits = max((k * 128 - 1).bit_length(), 1)
+    keep = ~((1 << slot_bits) - 1)
+    miss = cull_misses(dh, k2c, o, d, tm, g)
+    diff = (dh.tri != k2c.tri) & ~miss
+    granule = (dh.t.view(torch.int32) & keep) == (k2c.t.view(torch.int32) & keep)
+    bad = diff & ~((dh.tri >= 0) & (k2c.tri >= 0) & granule)
+    if bool(bad.any()):
+        raise AssertionError(f"{name}: {int(bad.sum())} rays differ from K2 beyond the "
+                             "key's granule and the cull's misses")
+    same = dh.tri == k2c.tri
+    equal_tensors(name, [x[same] for x in dh], [x[same] for x in k2c],
+                  ("t", "tri", "u", "v"))
+    return dict(cull_misses=int(miss.sum()), granule_flips=int(diff.sum()))
+
+
+def dense_anyhit_vs_k2(name: str, occ, o, d, tf, g) -> int:
+    """Raise unless the dense any-hit mask occ equals K2's, but on rays
+    whose closest blocker lies in a cluster K4's unpadded slab test
+    misses (`cull_misses`). Returns the number of such rays."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k2
+    from hala_tpu_torch.ops.intersect import Hit
+
+    ref = k2.matrix_query(o, d, g, t_max=tf, any_hit=True).tri >= 0
+    if bool((occ & ~ref).any()):
+        raise AssertionError(f"{name}: the dense engine blocks {int((occ & ~ref).sum())} "
+                             "rays K2 does not")
+    rows = torch.nonzero(occ != ref).squeeze(1)
+    if rows.numel():
+        o_r, d_r, t_r = o[rows], d[rows], tf[rows]
+        closest = k2.matrix_query(o_r, d_r, g, t_max=t_r)
+        none = torch.full_like(closest.tri, -1)
+        miss = cull_misses(Hit(closest.t, none, closest.u, closest.v), closest,
+                           o_r, d_r, t_r, g)
+        if not bool(miss.all()):
+            raise AssertionError(f"{name}: {int((~miss).sum())} unblocked rays are no "
+                                 "cull miss")
+    return int(rows.numel())
+
+
+def bvh_checks(cornell_k1, big_host, x5_host, card: str, device="cuda",
+               size=(512, 512), frames: int = 16) -> dict:
+    """The "bvh" engine: the Cornell box 512x512, depth 4, 16 frames
+    through intersector="bvh" and one frame through "legacy" (use_bvh):
+    no kernel launched, bench.py's cornell invariants, frame 0 within
+    relative RMSE 2e-3 of K1's (`cornell_k1`'s settings) and "legacy"'s
+    frame 0 equal to it bit for bit; the upload seconds of atrium_big and
+    of the five instances with the BVH build; 65,536 of atrium_big's
+    camera rays through intersect_bvh against K1 over all slots
+    (`bvh_vs_k1`), with the loop's steps and wall time; then the animated
+    Cornell box moved by set_node_transform and update_scene: the scene
+    keeps no BVH, "bvh" resolves to "bruteforce" and its frame 0 equals
+    the "bruteforce" frame 0 bit for bit."""
+    import torch
+
+    from hala_tpu_torch.models.integrator import _backend
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import bvh, cuda_lib
+    from hala_tpu_torch.ops.pallas import intersect_kernel as k1
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+    from hala_tpu_torch.scene.procedural import cornell_box
+
+    out = {}
+    r = RayTracingRenderer("cornell_bvh", *size, max_depth=4, rr_depth=2,
+                           intersector="bvh", device=device)
+    r.set_scene(cornell_box())
+    r.commit()
+    if _backend(r.settings, r.scene) != "bvh":
+        raise AssertionError("cornell: intersector=\"bvh\" does not resolve to \"bvh\"")
+    f0 = warm_up(r)
+    cuda_lib.reset_launches()
+    out["cornell"] = run_render(r, frames, frames, "cornell bvh", card, cell="cornell")
+    counts = cuda_lib.launches()
+    if any(counts.values()):
+        raise AssertionError(f"cornell bvh launches {counts}")
+    out["cornell"]["frame0_rel_rmse_vs_k1"] = rel_rmse(f0, frame0(cornell_k1))
+    leg = RayTracingRenderer("cornell_legacy", *size, max_depth=4, rr_depth=2,
+                             intersector="legacy", use_bvh=True, device=device)
+    leg.set_scene(cornell_box())
+    leg.commit()
+    cuda_lib.reset_launches()
+    legacy_equal = bool(torch.equal(frame0(leg), f0))
+    if _backend(leg.settings, leg.scene) != "bvh" or any(cuda_lib.launches().values()) \
+            or not legacy_equal:
+        raise AssertionError("cornell legacy: not the bvh frame 0")
+    if not out["cornell"]["frame0_rel_rmse_vs_k1"] < REL_RMSE_TOL:
+        raise AssertionError(f"cornell bvh frame 0 vs K1: {out['cornell']}")
+    log(f"  cornell bvh: frame 0 vs K1's relative RMSE "
+        f"{out['cornell']['frame0_rel_rmse_vs_k1']:.3g}; \"legacy\" frame 0 equal to "
+        f"it; no kernel launched [{card}]")
+    del r, leg
+
+    # what the reference's default (a BVH at every upload) costs: each
+    # scene uploaded without and with the build, warm (the native
+    # builders and the glTF decode were loaded by earlier phases)
+    for key, host in (("atrium_big", big_host), ("x5", x5_host)):
+        for label, rt in (("without", False), ("with", True)):
+            t0 = time.perf_counter()
+            dev_scene = SceneUploader.upload(host, use_ray_tracing=rt, device=device)
+            out[f"{key}_upload_s_{label}_bvh"] = time.perf_counter() - t0
+        out[f"{key}_bvh_nodes"] = dev_scene.bvh.num_nodes
+        if key == "atrium_big":
+            big_dev = dev_scene
+    del dev_scene
+    g = big_dev.geometry
+    o, d = camera_rays(big_dev, *BVH_CAMERA, 61)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hb = bvh.intersect_bvh(big_dev.bvh, g, o, d)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    steps = bvh.walk_stats.steps
+    hk = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2)
+    ties, n_graze, err = bvh_vs_k1("atrium_big intersect_bvh vs K1", hb, hk, o, d, g)
+    out["atrium_big_query"] = dict(
+        rays=o.shape[0], nodes=big_dev.bvh.num_nodes, steps=steps, wall_ms=wall,
+        exact_t_ties=ties, grazes=n_graze, max_abs_err=err,
+        hits=int((hb.tri >= 0).sum()))
+    log(f"  atrium_big intersect_bvh: {o.shape[0]} camera rays, {big_dev.bvh.num_nodes} "
+        f"nodes, {steps} loop steps, {wall:.1f} ms wall; vs K1 over all slots: "
+        f"{ties} exact-t ties, {n_graze} grazes, max |dt,du,dv| {err:.3g} elsewhere; "
+        f"upload without / with the BVH build: atrium_big "
+        f"{out['atrium_big_upload_s_without_bvh']:.2f} / "
+        f"{out['atrium_big_upload_s_with_bvh']:.2f} s, five instances "
+        f"{out['x5_upload_s_without_bvh']:.2f} / {out['x5_upload_s_with_bvh']:.2f} s "
+        f"({out['x5_bvh_nodes']} nodes) [{card}]")
+    del big_dev
+
+    ex = animated_example()
+    scene, node, w0 = ex.tall_box_scene()
+    r = RayTracingRenderer("animated_bvh", *size, max_depth=4, rr_depth=2,
+                           intersector="bvh", device=device)
+    r.set_scene(scene)
+    r.commit()
+    r.set_node_transform(node, ex.translate(ex.POSES_DX[0], 0.0, 0.0) @ w0)
+    r.update_scene()
+    if r.scene.bvh is not None or _backend(r.settings, r.scene) != "bruteforce":
+        raise AssertionError("a moved scene kept its BVH")
+    if not torch.equal(frame0(r), frame0(r, "bruteforce")):
+        raise AssertionError("moved bvh frame 0 is not the bruteforce frame 0")
+    out["moved_equals_bruteforce"] = True
+    log("  animated cornell moved: no BVH, \"bvh\" resolves to \"bruteforce\", "
+        "frame 0 equal bit for bit")
+    return out
+
+
+def dense_render(big_host, k2_film, k2_rays: float, card: str, device="cuda",
+                 size=(1920, 1088), frames: int = 2):
+    """atrium_big through intersector="matrix" with shadow_dense_k 8:
+    a warm-up frame, `frames` timed frames (K4 and K2 must launch,
+    bench.py's sponza invariants), the film against the "matrix" film of
+    the same frames (`k2_film`, `k2_rays` rays) bit for bit. Where a
+    pixel differs, the frames run again with every dense shadow query
+    held against K2's any-hit mask (`dense_anyhit_vs_k2`): each differing
+    ray must be a cull miss, and they are counted. Returns (record,
+    launches)."""
+    import torch
+
+    from hala_tpu_torch.models import integrator
+    from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+    from hala_tpu_torch.ops import cuda_lib
+
+    r = RayTracingRenderer("atrium_big_dense", *size, max_depth=4, rr_depth=2, spp=1,
+                           intersector="matrix", use_bvh=False, device=device)
+    r.set_scene(big_host)
+    r.commit()
+    r.settings = dataclasses.replace(r.settings, shadow_dense_k=DENSE_K[0])
+    warm_up(r)
+    torch.cuda.reset_peak_memory_stats()
+    cuda_lib.reset_launches()
+    out = run_render(r, frames, frames, "atrium_big dense shadows", card, cell="sponza")
+    counts = cuda_lib.launches()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    if not (counts["cull_topk"] > 0 and counts["matrix_traverse"] > 0):
+        raise AssertionError(f"atrium_big dense launches {counts}")
+    film = r.film.accum[..., :3]
+    out["pixels_differ"] = int((film != k2_film).any(dim=-1).sum())
+    out["rays_equal"] = r.total_rays == k2_rays
+    out["traced_cull_misses"] = 0
+    if out["pixels_differ"]:
+        seen = []
+        dense_q = integrator.occluded_dense
+
+        def checked(o, d, tf, g, k):
+            occ = dense_q(o, d, tf, g, k=k)
+            seen.append(dense_anyhit_vs_k2("dense shadow query", occ, o, d, tf, g))
+            return occ
+
+        integrator.occluded_dense = checked
+        try:
+            r.reset_accumulation()
+            r.render_loop(frames)
+            torch.cuda.synchronize()
+        finally:
+            integrator.occluded_dense = dense_q
+        out["traced_cull_misses"] = sum(seen)
+        if not out["traced_cull_misses"]:
+            raise AssertionError(f"dense film: {out['pixels_differ']} pixels differ from "
+                                 "the matrix film with no cull miss to explain them")
+    if not out["rays_equal"]:
+        raise AssertionError(f"dense film: {r.total_rays} rays, matrix {k2_rays}")
+    log(f"  atrium_big dense shadows (K {DENSE_K[0]}): {out['pixels_differ']} pixels "
+        f"differ from the matrix film of the same {frames} frames "
+        f"({out['traced_cull_misses']} shadow rays traced to cull misses), rays equal; "
+        f"launches {counts}; peak memory {out['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    return out, counts
+
+
+def query_checks(dev_scene, batch, card: str) -> dict:
+    """On atrium_big's 2^21-ray mixed batch: the dense engine at K 8 and
+    2 (closest: `dense_vs_k2` against K2's canonical hits; any hit:
+    `dense_anyhit_vs_k2`), timed, with the peak memory of each query;
+    `traverse_query` and `matrix_query(sort_key="signature")` bit for
+    bit against `intersect_traversed` and the Morton-sorted query (each
+    pair timed); `intersect_traversed(exact=False)` and
+    `intersect_wavefront(fallback=False)` bit for bit against the same
+    queries run through their kernels' plain versions (K4 and K5; K4 and
+    K7), with the share of live rays each leaves unresolved."""
+    import torch
+
+    from hala_tpu_torch.ops import dense
+    from hala_tpu_torch.ops import traverse as k5
+    from hala_tpu_torch.ops import wavefront as k7
+    from hala_tpu_torch.ops.intersect import canonical_hit
+
+    g = dev_scene.geometry
+    o, d, tm = batch
+    labels = ("t", "tri", "u", "v")
+    out = dict(rays=o.shape[0], dense={})
+    k2 = k5.matrix_query(o, d, g, t_max=tm)
+    k2c = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2, k2)
+    tf = tm * (1.0 - 1e-4)
+    for k in DENSE_K:
+        rec = {}
+        for label, fn in (
+                ("closest", lambda: dense.intersect_dense(o, d, g, t_max=tm, k=k)),
+                ("any_hit", lambda: dense.occluded_dense(o, d, tf, g, k=k))):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            res = fn()
+            torch.cuda.synchronize()
+            rec[f"{label}_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            rec[f"{label}_ms"] = cuda_ms(fn, 2)
+            if label == "closest":
+                rec.update(dense_vs_k2(f"dense K {k} vs K2", res, k2c, o, d, tm, g, k))
+            else:
+                rec["anyhit_cull_misses"] = dense_anyhit_vs_k2(
+                    f"dense any-hit K {k} vs K2", res, o, d, tf, g)
+        out["dense"][k] = rec
+        log(f"  dense K {k} on {o.shape[0]} rays: closest {rec['closest_ms']:.1f} ms "
+            f"(peak {rec['closest_peak_bytes'] / 2**30:.2f} GiB above the batch; "
+            f"{rec['granule_flips']} winners flip inside the key's granule, "
+            f"{rec['cull_misses']} cull misses), any-hit {rec['any_hit_ms']:.1f} ms "
+            f"(peak {rec['any_hit_peak_bytes'] / 2**30:.2f} GiB; "
+            f"{rec['anyhit_cull_misses']} cull misses) [{card}]")
+    out["k2_ms"] = cuda_ms(lambda: k5.matrix_query(o, d, g, t_max=tm), 2)
+    out["k2_anyhit_ms"] = cuda_ms(
+        lambda: k5.matrix_query(o, d, g, t_max=tf, any_hit=True), 2)
+
+    tq = k5.traverse_query(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K)
+    it = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K)
+    equal_tensors("traverse_query vs intersect_traversed", tq, it, labels)
+    out["traverse_query_ms"] = cuda_ms(
+        lambda: k5.traverse_query(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K), 2)
+    out["intersect_traversed_ms"] = cuda_ms(
+        lambda: k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K), 2)
+    sig = k5.matrix_query(o, d, g, t_max=tm, sort_key="signature")
+    equal_tensors("matrix_query signature vs morton", sig, k2, labels)
+    occ_sig = k5.matrix_query(o, d, g, t_max=tf, any_hit=True, sort_key="signature")
+    occ_k2 = k5.matrix_query(o, d, g, t_max=tf, any_hit=True)
+    equal_tensors("matrix_query signature any-hit mask", [occ_sig.tri >= 0],
+                  [occ_k2.tri >= 0], ("mask",))
+    out["signature_ms"] = cuda_ms(
+        lambda: k5.matrix_query(o, d, g, t_max=tm, sort_key="signature"), 2)
+
+    k5.stats.reset()
+    k5.stats.enabled = True
+    rough = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K, exact=False)
+    torch.cuda.synchronize()
+    k5.stats.enabled = False
+    out["traverse_inexact_unresolved_share"] = k5.stats.summary()["unresolved_share"]
+    with plain_versions((k5, "cull_topk", cull_plain),
+                        (k5, "traverse_candidates", k5.traverse_candidates_plain)):
+        ref = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K, exact=False)
+    equal_tensors("intersect_traversed(exact=False) vs K4, K5 plain", rough, ref, labels)
+    out["traverse_inexact_ms"] = cuda_ms(lambda: k5.intersect_traversed(
+        o, d, g, t_max=tm, k_per_ray=TRAVERSE_K, exact=False), 2)
+
+    k5.walk_stats.reset()
+    k5.walk_stats.enabled = True
+    wf = k7.intersect_wavefront(o, d, g, t_max=tm, fallback=False)
+    torch.cuda.synchronize()
+    k5.walk_stats.enabled = False
+    out["wavefront_nofallback_unresolved_share"] = k5.walk_stats.summary()["need_share"]
+    with plain_versions((k7, "cull_topk", cull_plain),
+                        (k7, "wavefront_walk", k7.wavefront_walk_plain)):
+        ref = k7.intersect_wavefront(o, d, g, t_max=tm, fallback=False)
+    equal_tensors("intersect_wavefront(fallback=False) vs K4, K7 plain", wf, ref, labels)
+    out["wavefront_nofallback_ms"] = cuda_ms(
+        lambda: k7.intersect_wavefront(o, d, g, t_max=tm, fallback=False), 2)
+    log(f"  on {o.shape[0]} rays: traverse_query {out['traverse_query_ms']:.1f} ms = "
+        f"intersect_traversed ({out['intersect_traversed_ms']:.1f} ms) bit for bit; "
+        f"signature-sorted K2 {out['signature_ms']:.1f} ms = Morton-sorted "
+        f"({out['k2_ms']:.1f} ms, any-hit {out['k2_anyhit_ms']:.1f}) bit for bit; "
+        f"intersect_traversed(exact=False) {out['traverse_inexact_ms']:.1f} ms, "
+        f"{out['traverse_inexact_unresolved_share']:.4f} of live rays unresolved; "
+        f"intersect_wavefront(fallback=False) {out['wavefront_nofallback_ms']:.1f} ms, "
+        f"{out['wavefront_nofallback_unresolved_share']:.4f} unresolved; both equal "
+        f"their plain versions [{card}]")
+    return out
+
+
+def closeout_render(cornell_k1, big_host, x5_host, k2_film, k2_rays: float,
+                    card: str, device="cuda"):
+    """The modules that close the port, after `parallel_render`:
+    `bvh_checks`, `dense_render` and `query_checks` (on a fresh upload of
+    atrium_big and its 2^21-ray mixed batch). Returns (record, the dense
+    render's launches)."""
+    import torch
+
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+
+    t0 = time.perf_counter()
+    out = dict(bvh=bvh_checks(cornell_k1, big_host, x5_host, card, device))
+    out["dense_film"], counts = dense_render(big_host, k2_film, k2_rays, card, device)
+    big_dev = SceneUploader.upload(big_host, use_ray_tracing=False, device=device)
+    out["queries"] = query_checks(big_dev, mixed_batch(big_dev, 1024, 1024, 1 << 20, 33),
+                                  card)
+    torch.cuda.synchronize()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"  closeout_render: {out['seconds']:.1f} s")
+    return out, counts
+
+
 def main() -> int:
     import torch
 
@@ -3445,11 +3862,11 @@ def main() -> int:
     log(f"  built {cuda_lib.LIB_PATH} in {cuda_lib.build_seconds:.1f} s")
 
     log("== phase 3: kernels against their plain versions")
-    cornell_dev = SceneUploader.upload(cornell_box(), device=dev)
-    soup_dev = SceneUploader.upload(random_triangle_soup(300, seed=3), device=dev)
-    soup4k_dev = SceneUploader.upload(random_triangle_soup(4096, seed=4), device=dev)
+    cornell_dev = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device=dev)
+    soup_dev = SceneUploader.upload(random_triangle_soup(300, seed=3), use_ray_tracing=False, device=dev)
+    soup4k_dev = SceneUploader.upload(random_triangle_soup(4096, seed=4), use_ray_tracing=False, device=dev)
     big_host = Scene.load(os.path.join(HERE, "assets", "atrium_big.glb"))
-    big_dev = SceneUploader.upload(big_host, device=dev)
+    big_dev = SceneUploader.upload(big_host, use_ray_tracing=False, device=dev)
     k1_rec = check_k1(cornell_dev, soup_dev, soup4k_dev, 2 * 512 * 512, 77, reps=20)
     small = mixed_batch(big_dev, 256, 128, 32768, 31)
     big = mixed_batch(big_dev, 1024, 1024, 1 << 20, 33)
@@ -3475,7 +3892,7 @@ def main() -> int:
     cornell.set_scene(cornell_box())
     cornell.commit()
     sponza = RayTracingRenderer("sponza", 1920, 1088, max_depth=4, rr_depth=2,
-                                spp=1, device="cuda")
+                                spp=1, use_bvh=False, device="cuda")
     sponza.set_scene(big_host)
     sponza.commit()
     warm_up(cornell)
@@ -3500,7 +3917,7 @@ def main() -> int:
 
     trav = RayTracingRenderer("atrium_big_traverse", 1920, 1088, max_depth=4,
                               rr_depth=2, spp=1, intersector="traverse",
-                              device="cuda")
+                              use_bvh=False, device="cuda")
     trav.set_scene(big_host)
     trav.commit()
     trav_frame0 = warm_up(trav)
@@ -3546,7 +3963,7 @@ def main() -> int:
     del trav
     clus = RayTracingRenderer("atrium_big_cluster", 1920, 1088, max_depth=4,
                               rr_depth=2, spp=1, intersector="cluster",
-                              device="cuda")
+                              use_bvh=False, device="cuda")
     clus.set_scene(big_host)
     clus.commit()
     cuda_lib.reset_launches()
@@ -3571,13 +3988,14 @@ def main() -> int:
     # and after a second sorted window: K2 is exact under any order, so
     # the films must be equal bit for bit.
     unsorted = RayTracingRenderer("sponza_unsorted", 1920, 1088, max_depth=4,
-                                  rr_depth=2, spp=1, device="cuda")
+                                  rr_depth=2, spp=1, use_bvh=False, device="cuda")
     unsorted.set_scene(big_host)
     unsorted.commit()
     unsorted.settings = dataclasses.replace(unsorted.settings, sort_rays=False)
     warm_up(unsorted)
     u_out = run_render(unsorted, 2, 2, "atrium_big K2 unsorted", card, cell="sponza")
     k2_two = unsorted.film.accum[..., :3].clone()
+    k2_two_rays = unsorted.total_rays
     sponza.reset_accumulation()
     sponza.total_rays = 0.0
     s2_out = run_render(sponza, 2, 2, "atrium_big K2 sorted", card, cell="sponza")
@@ -3653,6 +4071,9 @@ def main() -> int:
     anim_out = animated_render(big_host, card)
     # film tiling and geometry sharding: two gloo ranks on the card
     par_out = parallel_render(big_host, card)
+    # the "bvh" engine, dense shadows (K4, K2) and the query options
+    close_out, after_close = closeout_render(cornell, big_host, x5_host, k2_two,
+                                             k2_two_rays, card)
 
     post = post_program()
     ra = RasterizationRenderer("raster_atrium", 1920, 1088, binned=True, tile=64,
@@ -3755,6 +4176,9 @@ def main() -> int:
     ]
     for k in kernels:  # launches of the ranks of parallel_render, job by job
         name = k["name"].split(" ")[0]
+        # closeout_render: the "bvh" renders launch nothing (gated), the
+        # dense-shadow render K4 and K2
+        k["closeout_launches"] = after_close[name]
         k["parallel_launches"] = {job: [rank["launches"][name] for rank in rec["ranks"]]
                                   for job, rec in par_out["jobs"].items()}
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
@@ -3796,6 +4220,7 @@ def main() -> int:
                    envmap=e_out, cornell_blue_noise=bn_out,
                    procedural=proc_out, atrium_big_spheres=spheres_out,
                    hooks=hooks_out, animated=anim_out, parallel=par_out,
+                   closeout=close_out,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

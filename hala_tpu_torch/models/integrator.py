@@ -23,8 +23,7 @@ parallel/tiling.py), the scene is this rank's geometry shard
 (parallel/scene_shard.py): each query all-gathers the rays, runs on the
 rank's clusters and merges the ranks' hits by (t, global tri)
 (`merge_shard_hits`), and shade rows come back from their owners
-(`_rows_sharded`). Not ported yet (raises HalaRendererError when
-requested): the "bvh" engine.
+(`_rows_sharded`).
 """
 
 from __future__ import annotations
@@ -34,12 +33,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..error import HalaRendererError
 from ..ops import rng
 from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_materials
+from ..ops.bvh import intersect_bvh, occluded_bvh
 from ..ops.camera import generate_rays
 from ..ops.cluster import intersect_clustered
 from ..ops.compaction import order_by, permute
+from ..ops.dense import DENSE_MAX_CLUSTERS, occluded_dense
 from ..ops.env import env_eval, env_sample, sky_radiance
 from ..ops.gathers import take_rows
 from ..ops.intersect import (
@@ -95,10 +95,13 @@ class RenderSettings:
     csrc/wavefront_walk.cu; both fall back to the matrix kernel for
     rays their lists truncate), "traverse" (the cull, the candidate
     walk csrc/traverse_candidates.cu and the exact fallback
-    csrc/cluster_stream.cu), "cluster" (csrc/cluster_stream.cu alone)
-    and "bruteforce" (the chunked plain PyTorch scan, the ground truth).
-    "auto" never picks "grouped" or "wavefront". "bvh" is not ported
-    yet and raises.
+    csrc/cluster_stream.cu), "cluster" (csrc/cluster_stream.cu alone),
+    "bruteforce" (the chunked plain PyTorch scan, the ground truth),
+    "bvh" (the skip-link BVH of ops/bvh.py in plain PyTorch, a debugging
+    path; the brute force where the scene has no BVH) and "legacy" (the
+    JAX package's `use_bvh` flag: "bvh" when it is set and the scene has
+    a BVH, else "bruteforce"). "auto" never picks "grouped",
+    "wavefront" or "bvh".
 
     `sort_rays` runs every large-scene query under a coherence sort
     (`matrix_query` for the matrix family, ops/compaction.py for
@@ -115,6 +118,12 @@ class RenderSettings:
     their own, that is without alpha materials); "auto" and "matrix"
     leave both with the backend.
 
+    `shadow_dense_k` > 0 sends a matrix-family backend's split shadow
+    query to the dense engine (ops/dense.py: K4's K nearest clusters per
+    ray, tested in plain PyTorch, K2 for truncated lists) where the scene
+    has at most DENSE_MAX_CLUSTERS clusters; it takes precedence over
+    `shadow_intersector`. K is at most 16 (K4's register list).
+
     `tile_size` defaults to 2^20 rays (the JAX package: 65536): on the
     GPU a tile's time is dominated by per-operation launch cost well
     below that size, and 2^20 rays keep peak memory near 1 GB.
@@ -126,6 +135,7 @@ class RenderSettings:
     rr_depth: int = 2
     env_type: int = ENV_SKY
     tile_size: int = 1 << 20
+    use_bvh: bool = True
     chunk: int = 2048  # brute-force triangle chunk
     intersector: str = "auto"
     # Max alpha-tested surfaces a shadow ray may stochastically pass.
@@ -144,6 +154,7 @@ class RenderSettings:
     traverse_k: int = 12
     wavefront_k: int = 16
     wavefront_m: int = 32
+    shadow_dense_k: int = 0
     shadow_intersector: str = "auto"
     shadow_wavefront_k: int = 8
     extend_intersector: str = "auto"
@@ -232,9 +243,8 @@ class KernelHooks:
 
 
 _BACKENDS = ("auto", "pallas", "matrix", "grouped", "wavefront", "traverse",
-             "cluster", "bruteforce")
+             "cluster", "bruteforce", "bvh", "legacy")
 _MATRIX_FAMILY = ("wavefront", "matrix", "grouped")
-_NOT_PORTED = ("bvh", "legacy")
 
 
 def _backend(settings: RenderSettings, scene) -> str:
@@ -249,17 +259,24 @@ def _backend(settings: RenderSettings, scene) -> str:
     trim does not apply: "pallas", and "auto" on the prefix layout or
     at most 4096 triangles, give the plain brute force over the local
     slots; above that the shard's own cluster count picks "matrix" or
-    "traverse"."""
+    "traverse". "bvh" is the brute force there too: the node table
+    addresses global slots while the shard holds its own.
+
+    "legacy" is "bvh" where `use_bvh` is set and the scene has a BVH,
+    else "bruteforce"; "bvh" on a scene without one (never uploaded with
+    it, or moved since) is "bruteforce", as in the JAX package."""
     sel = settings.intersector
-    if sel in _NOT_PORTED:
-        raise HalaRendererError(f"intersector {sel!r} is not yet ported")
     if sel not in _BACKENDS:
         raise ValueError(
             f"Unknown intersector {sel!r}; expected one of {_BACKENDS}"
         )
     sharded = settings.scene_axis is not None
+    if sel == "legacy":
+        sel = "bvh" if settings.use_bvh and scene.bvh is not None else "bruteforce"
+    if sel == "bvh" and scene.bvh is None:
+        return "bruteforce"
     if sel != "auto":
-        return "bruteforce" if sharded and sel == "pallas" else sel
+        return "bruteforce" if sharded and sel in ("pallas", "bvh") else sel
     g = scene.geometry
     if sharded and (g.prefix_layout or g.num_triangles <= 4096):
         return "bruteforce"
@@ -298,9 +315,22 @@ def _wavefront_route(settings: RenderSettings, scene, choice: str) -> bool:
     )
 
 
+def _shadow_dense_route(settings: RenderSettings, scene) -> bool:
+    """True iff shadow-class queries route to the dense engine: a
+    matrix-family backend, `shadow_dense_k` > 0 and at most
+    DENSE_MAX_CLUSTERS clusters."""
+    return (
+        settings.shadow_dense_k > 0
+        and _backend(settings, scene) in _MATRIX_FAMILY
+        and scene.geometry.tri_packed.shape[0] <= DENSE_MAX_CLUSTERS
+    )
+
+
 def _shadow_wavefront_route(settings: RenderSettings, scene) -> bool:
-    """True iff shadow-class queries route to the any-hit wavefront."""
-    return _wavefront_route(settings, scene, settings.shadow_intersector)
+    """True iff shadow-class queries route to the any-hit wavefront; the
+    dense engine takes precedence."""
+    return (not _shadow_dense_route(settings, scene)
+            and _wavefront_route(settings, scene, settings.shadow_intersector))
 
 
 def _extend_wavefront_route(settings: RenderSettings, scene) -> bool:
@@ -437,6 +467,8 @@ def _intersect_local(scene, o, d, settings: RenderSettings, t_max=None,
             o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=t_max,
             num_real=_num_real(g),
         )
+    if backend == "bvh":
+        return intersect_bvh(scene.bvh, g, o, d, t_max=t_max)
     return intersect_bruteforce(
         o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=t_max, chunk=settings.chunk
     )
@@ -466,6 +498,8 @@ def _occluded_local(scene, o, d, t_far, settings: RenderSettings) -> torch.Tenso
     o, d = o.contiguous(), d.contiguous()
     if backend in _MATRIX_FAMILY:
         tf = t_far * (1.0 - 1e-4)
+        if _shadow_dense_route(settings, scene):
+            return occluded_dense(o, d, tf, g, k=settings.shadow_dense_k)
         if _shadow_wavefront_route(settings, scene) or (
                 backend == "wavefront" and not settings.sort_rays):
             # shadow segments are short: their own, smaller K
@@ -482,6 +516,8 @@ def _occluded_local(scene, o, d, t_far, settings: RenderSettings) -> torch.Tenso
         return occluded_pallas(
             o, d, t_far, g.tri_v0, g.tri_e1, g.tri_e2, num_real=_num_real(g)
         )
+    if backend == "bvh":
+        return occluded_bvh(scene.bvh, g, o, d, t_far)
     return occluded_bruteforce(
         o, d, t_far, g.tri_v0, g.tri_e1, g.tri_e2, chunk=settings.chunk
     )

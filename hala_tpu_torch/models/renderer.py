@@ -120,7 +120,9 @@ class BaseRenderer:
         slot blocks are rebuilt by the uploader's rule
         (ops/animate.py `retransform_geometry`). The current world is
         the one the last update gave the node, else the host node's.
-        Nothing staged: nothing happens."""
+        The moved scene keeps no BVH (the JAX package drops it too), so
+        "bvh" renders it through the brute force. Nothing staged: nothing
+        happens."""
         if not self._staged_transforms:
             return
         from ..ops.animate import build_deltas, retransform_geometry
@@ -139,7 +141,7 @@ class BaseRenderer:
         deltas, ndeltas = build_deltas(scene.prim_node, node_deltas,
                                        len(host.nodes), self.device)
         geom = retransform_geometry(scene.geometry, deltas, ndeltas)
-        self.scene = dataclasses.replace(scene, geometry=geom)
+        self.scene = dataclasses.replace(scene, geometry=geom, bvh=None)
         self._staged_transforms.clear()
 
     def _upload_moved(self) -> None:

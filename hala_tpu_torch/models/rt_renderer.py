@@ -81,6 +81,7 @@ class RayTracingRenderer(BaseRenderer):
         use_simple_aces: bool = False,
         max_frames: int = 0,
         tile_size: int = 1 << 20,
+        use_bvh: bool = True,
         intersector: str = "auto",
         spp: int = 1,
         staged: bool = False,
@@ -97,6 +98,7 @@ class RayTracingRenderer(BaseRenderer):
         self.use_simple_aces = use_simple_aces
         self.max_frames = max_frames if max_frames > 0 else (1 << 62)
         self._tile_size = tile_size
+        self._use_bvh = use_bvh
         self._spp = spp
         self._intersector = intersector
         self._shadow_intersector = shadow_intersector
@@ -119,9 +121,17 @@ class RayTracingRenderer(BaseRenderer):
 
     def set_scene(self, scene: Scene) -> None:
         """rt_renderer.rs:1161-1178. The upload puts every node at its
-        host transform, so no earlier node move stays recorded."""
+        host transform, so no earlier node move stays recorded; with
+        `use_bvh` it also builds the "bvh" engine's node table on the
+        host, as the JAX package does."""
         self._host_scene = scene
-        self.scene = SceneUploader.upload(scene, device=self.device)
+        self.scene = SceneUploader.upload(
+            scene,
+            use_mesh_shader=False,
+            use_global_meshlets=False,
+            use_ray_tracing=self._use_bvh,
+            device=self.device,
+        )
         self._node_world.clear()
 
     def set_envmap(self, env: "EnvMap | str", rotation: float = 0.0) -> None:
@@ -201,6 +211,7 @@ class RayTracingRenderer(BaseRenderer):
             rr_depth=self.rr_depth,
             env_type=int(self.env_type),
             tile_size=self._tile_size,
+            use_bvh=self._use_bvh and self.scene.bvh is not None,
             intersector=self._intersector,
             spp=self._spp,
             shadow_intersector=self._shadow_intersector,

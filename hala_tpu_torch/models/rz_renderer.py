@@ -539,6 +539,8 @@ class RasterizationRenderer(BaseRenderer):
         self.scene = SceneUploader.upload(
             scene,
             use_mesh_shader=self.use_mesh_shader,
+            use_global_meshlets=False,
+            use_ray_tracing=False,
             device=self.device,
         )
         self._node_world.clear()  # every node at its host transform again

@@ -114,8 +114,11 @@ def build_meshlets(
     )
 
 
-def build_scene_meshlets(scene) -> None:
-    """Fill primitive meshlet fields across the scene (uploader hook)."""
+def build_scene_meshlets(scene, global_meshlets: bool = False) -> None:
+    """Fill primitive meshlet fields across the scene (uploader hook).
+    `global_meshlets` is accepted as the JAX package accepts it; it has
+    no effect there either."""
+    del global_meshlets
     draw_index = 0
     for mesh in scene.meshes:
         for prim in mesh.primitives:

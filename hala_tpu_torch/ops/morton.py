@@ -4,8 +4,8 @@ The uploader orders small scenes' triangles into spatially coherent
 clusters with the host codes (scene/loader/uploader.py); the ray
 coherence sort (ops/compaction.py) keys rays on the device codes. Both
 give the JAX package's 30-bit codes (10 bits per axis) bit for bit.
-`sort_by_morton` (the device LBVH build) belongs to the "bvh" engine,
-which this package has not ported yet.
+`sort_by_morton` sorts codes and payloads on the device, in the order
+of the JAX package's stable `jnp.argsort`.
 """
 
 from __future__ import annotations
@@ -57,3 +57,11 @@ def morton3d(points: torch.Tensor, bounds_min, bounds_max) -> torch.Tensor:
         | (_expand_bits(cells[:, 1]) << 1)
         | _expand_bits(cells[:, 2])
     )
+
+
+def sort_by_morton(codes: torch.Tensor, *payloads):
+    """(sorted codes, the payloads permuted alike): a stable ascending
+    sort, so equal codes keep their input order as jnp.argsort keeps
+    it."""
+    order = torch.argsort(codes, stable=True)
+    return (codes[order],) + tuple(p[order] for p in payloads)

@@ -33,7 +33,8 @@ clusters of 128 triangle slots with per-cluster AABBs
   whose hit lies beyond the K-th entry distance are "unresolved" and
   rerun through K6 (ops/cluster.py) with t_max just above their best
   (`fallback_t_max`), while resolved rays get t_max = -inf and cost K6
-  nothing. No cap on C.
+  nothing (`exact=False` skips K6). No cap on C. `traverse_query` runs
+  it on the rays sorted by their nearest candidate cluster.
 
 Results are the lexicographic (t, slot) minimum over the admissible
 pairs (ops/cluster.py), the brute force over all slots but where the
@@ -514,13 +515,16 @@ def fallback_t_max(hit: Hit, unres) -> torch.Tensor:
     return torch.where(unres != 0, t_hit, -torch.inf)
 
 
-def _traverse_core(o, d, geometry, tm, ids, tns, ovf) -> Hit:
+def _traverse_core(o, d, geometry, tm, ids, tns, ovf, exact: bool = True) -> Hit:
     """K5 over the candidate lists, then K6 for the unresolved rays,
-    launched for every query without a host sync."""
+    launched for every query without a host sync. `exact=False` returns
+    K5's hits as they stand (unresolved rays may miss a closer hit)."""
     hit, unres, runs = traverse_candidates(o, d, tm, ids, tns, ovf,
                                            geometry.cluster_min,
                                            geometry.cluster_max, geometry.tri_packed)
     stats.record(tm, unres, runs)
+    if not exact:
+        return hit
     fb = intersect_clustered(o, d, geometry, t_max=fallback_t_max(hit, unres))
     # the lexicographic (t, slot) minimum of the two
     better = (fb.tri >= 0) & (
@@ -541,20 +545,48 @@ def intersect_traversed(
     t_max=None,
     k_per_ray: int = 12,
     superchunk: int | None = None,
+    exact: bool = True,
 ) -> Hit:
-    """Exact closest hit via per-ray ordered candidate traversal (K4,
-    K5) and the K6 fallback for unresolved rays. `k_per_ray` bounds the
-    candidate list (capped at C)."""
+    """Closest hit via per-ray ordered candidate traversal (K4, K5) and,
+    with `exact` (the default), the K6 fallback for unresolved rays, so
+    the result does not depend on K. `k_per_ray` bounds the candidate
+    list (capped at C)."""
     n = o.shape[0]
-    c = geometry.cluster_min.shape[0]
-    k = min(k_per_ray, c)
     tm = full_t_max(t_max, n, o.device)
+    ids, tns, ovf = _candidates(o, d, geometry, tm, k_per_ray, superchunk)
+    return _traverse_core(o, d, geometry, tm, ids, tns, ovf, exact=exact)
+
+
+def _candidates(o, d, geometry, tm, k_per_ray: int, superchunk: int | None):
+    """`cull_candidates` at K = min(k_per_ray, C) with the geometry's
+    union boxes."""
+    k = min(k_per_ray, geometry.cluster_min.shape[0])
     sc = CULL_MAX_CLUSTERS if superchunk is None else superchunk
-    ids, tns, ovf = cull_candidates(
+    return cull_candidates(
         o, d, tm, geometry.cluster_min, geometry.cluster_max, k,
         superchunk=sc, unions=geometry_unions(geometry, sc),
     )
-    return _traverse_core(o, d, geometry, tm, ids, tns, ovf)
+
+
+def traverse_query(o, d, geometry, t_max=None, k_per_ray: int = 12,
+                   exact: bool = True) -> Hit:
+    """`intersect_traversed` on the rays sorted by their nearest
+    candidate cluster and direction octant, key (ids[:, 0] << 3) |
+    octant as the JAX package's uint32 (rays without a candidate last),
+    under a stable sort, so rays that fetch the same slot blocks sit
+    side by side; the sort is undone. The cull runs once, in the input
+    order."""
+    n = o.shape[0]
+    tm = full_t_max(t_max, n, o.device)
+    ids, tns, ovf = _candidates(o, d, geometry, tm, k_per_ray, None)
+    octant = ((d[:, 0] >= 0).to(torch.int64)
+              | ((d[:, 1] >= 0).to(torch.int64) << 1)
+              | ((d[:, 2] >= 0).to(torch.int64) << 2))
+    key = ((ids[:, 0].to(torch.int64) << 3) | octant) & 0xFFFFFFFF
+    order, inverse = order_by(key)
+    hit = _traverse_core(o[order], d[order], geometry, tm[order], ids[order],
+                         tns[order], ovf[order], exact=exact)
+    return Hit(*(x[inverse] for x in hit))
 
 
 
@@ -911,12 +943,12 @@ def pad_to_groups(o, d, tm):
     return o.contiguous(), d.contiguous(), tm.contiguous()
 
 
-def merge_fallback(o, d, geometry, kern: Hit, fb: Hit, need, any_hit: bool) -> Hit:
-    """Merge a walk's hits with the exact fallback's on the `need` rays.
-    Unless any_hit, both are first re-evaluated with `canonical_hit`, so
-    the reported bits depend on (ray, winning triangle) alone, and exact
-    ties go to the lower triangle id."""
-    if not any_hit:
+def merge_fallback(o, d, geometry, kern: Hit, fb: Hit, need, canonical: bool) -> Hit:
+    """Merge a walk's hits with the exact fallback's on the `need` rays;
+    exact ties go to the lower triangle id. With `canonical` both are
+    first re-evaluated with `canonical_hit`, so the reported bits depend
+    on (ray, winning triangle) alone."""
+    if canonical:
         g = geometry
         kern = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2, kern)
         fbc = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2, fb)
@@ -963,7 +995,7 @@ def intersect_grouped(
     walk_stats.record(tm_p, walked, walked, need)
     fb = intersect_matrix(o_p, d_p, g, t_max=torch.where(need, t_fin, 0.0),
                           any_hit=any_hit)
-    hit = merge_fallback(o_p, d_p, g, Hit(t_fin, tri, u, v), fb, need, any_hit)
+    hit = merge_fallback(o_p, d_p, g, Hit(t_fin, tri, u, v), fb, need, not any_hit)
     return Hit(*(x[:n] for x in hit))
 
 
@@ -986,17 +1018,24 @@ def _coherence_key(o, d, t_max, cluster_min, cluster_max) -> torch.Tensor:
 def matrix_query(
     o, d, geometry, t_max=None, any_hit: bool = False,
     kernel: str = "matrix", wavefront_k: int = 16, wavefront_m: int = 32,
+    sort_key: str = "morton",
 ) -> Hit:
     """The integrator's entry to the matrix family: the query runs on
-    the rays sorted by octant and origin Morton cell and the sort is
-    undone.
+    the rays sorted by a coherence key and the sort is undone.
 
     `kernel` picks the walker: "matrix" (K2), "grouped" (K8: the sort is
     what makes its 128-ray groups tight) or "wavefront" (K4 + K7,
     ops/wavefront.py, which sorts by candidate signature itself and is
-    handed the whole query). The sort is stable, as the JAX package's."""
+    handed the whole query). `sort_key` "morton" keys rays by octant and
+    origin Morton cell; "signature" by their candidate signature
+    (`wavefront.signature_key` of K4's four nearest clusters, one more
+    cull launch), so rays that want the same clusters sit side by side.
+    The sort is stable, as the JAX package's; every walker is exact
+    under any order, so the key changes the time, not the hits."""
     if kernel not in ("matrix", "grouped", "wavefront"):
         raise ValueError(f"matrix_query: unknown kernel {kernel!r}")
+    if sort_key not in ("morton", "signature"):
+        raise ValueError(f"matrix_query: unknown sort_key {sort_key!r}")
     n = o.shape[0]
     g = geometry
     tm = full_t_max(t_max, n, o.device)
@@ -1005,7 +1044,15 @@ def matrix_query(
 
         return intersect_wavefront(o, d, g, t_max=tm, any_hit=any_hit,
                                    k_per_ray=wavefront_k, m_group=wavefront_m)
-    order, inverse = order_by(_coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+    if sort_key == "signature":
+        from .wavefront import signature_key
+
+        pk, _ = cull_topk(o, d, tm, g.cluster_min, g.cluster_max, k=4,
+                          unions=geometry_unions(g)[0])
+        key = signature_key(pk)
+    else:
+        key = _coherence_key(o, d, tm, g.cluster_min, g.cluster_max)
+    order, inverse = order_by(key)
     o_s, d_s, tm_s = o[order], d[order], tm[order]
     if kernel == "grouped":
         hit = intersect_grouped(o_s, d_s, g, t_max=tm_s, any_hit=any_hit)

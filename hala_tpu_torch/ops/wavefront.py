@@ -41,7 +41,7 @@ from .compaction import order_by
 from .cull import (
     _ID_BITS, _ID_MASK, CULL_MAX_CLUSTERS, CULL_MAX_K, INF_KEY, cull_topk, geometry_unions,
 )
-from .intersect import Hit, full_t_max
+from .intersect import Hit, canonical_hit, full_t_max
 from .traverse import (
     _INF,
     GROUP,
@@ -255,12 +255,18 @@ def intersect_wavefront(
     k_per_ray: int = 16,
     m_group: int = M_GROUP,
     any_hit: bool = False,
+    canonical: bool = True,
+    fallback: bool = True,
 ) -> Hit:
     """Exact closest (or any) hit via the rank-iteration wavefront.
 
     `k_per_ray` bounds each ray's candidate list (at most 16, the cull's
     register list), `m_group` each group's merged list (rounded up to a
-    multiple of 8 as in the JAX package, at most 32)."""
+    multiple of 8 as in the JAX package, at most 32). `fallback=False`
+    skips the K2 pass: unresolved rays keep K7's hit, which is not exact
+    (the JAX package keeps the option to bisect its compile wall and for
+    callers that tolerate misses on truncated lists). `canonical=False`
+    skips the closest-hit re-evaluation, so t/u/v are the walk's own."""
     n = o.shape[0]
     g = geometry
     c = g.tri_packed.shape[0]
@@ -283,11 +289,17 @@ def intersect_wavefront(
     bound = fallback_bound(w.pk, w.cnt, w.grp_bound, k)
     need = torch.clamp(t_fin, min=0.0).view(torch.int32) > bound
     walk_stats.record(w.t_max, stats[:, 0], stats[:, 1], need)
-    # the sorted query: this batch is in signature order, and the
-    # coherence sort sinks the t_max = 0 rays to the tail
-    fb = matrix_query(w.o, w.d, g, t_max=torch.where(need, t_fin, 0.0),
-                      any_hit=any_hit)
-    hit = merge_fallback(w.o, w.d, g, Hit(t_fin, tri, u, v), fb, need, any_hit)
+    kern = Hit(t_fin, tri, u, v)
+    if fallback:
+        # the sorted query: this batch is in signature order, and the
+        # coherence sort sinks the t_max = 0 rays to the tail
+        fb = matrix_query(w.o, w.d, g, t_max=torch.where(need, t_fin, 0.0),
+                          any_hit=any_hit)
+        hit = merge_fallback(w.o, w.d, g, kern, fb, need, canonical and not any_hit)
+    elif canonical and not any_hit:
+        hit = canonical_hit(w.o, w.d, g.tri_v0, g.tri_e1, g.tri_e2, kern)
+    else:
+        hit = kern
     return Hit(*(x[w.inverse[:n]] for x in hit))
 
 

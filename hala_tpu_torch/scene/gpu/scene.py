@@ -232,6 +232,9 @@ class DeviceScene(TensorTables):
     cameras: DeviceCameras
     textures: TextureStack | None = None
     meshlets: DeviceMeshlets | None = None
+    # the skip-link node table of the "bvh" engine (ops/bvh.py `BVH`);
+    # None until built, and dropped by a node move
+    bvh: object = None
     procedural: DeviceProcedural | None = None
     name: str = "scene"
     # flattened primitive id -> scene node index (host metadata)
@@ -257,7 +260,11 @@ def _carry(cls, src, device: torch.device):
     kw = {}
     for f in dataclasses.fields(cls):
         v = getattr(src, f.name)
-        if f.name in _NESTED:
+        if f.name == "bvh":
+            from ...ops.bvh import BVH  # ops/bvh.py builds on this module
+
+            kw[f.name] = None if v is None else _carry(BVH, v, device)
+        elif f.name in _NESTED:
             kw[f.name] = None if v is None else _carry(_NESTED[f.name], v, device)
         elif v is None or isinstance(v, (bool, int, float, str, tuple)):
             kw[f.name] = v
@@ -280,7 +287,6 @@ _NESTED = {
 def from_numpy(tables, device) -> DeviceScene:
     """Build a DeviceScene on `device` from any object with the same
     field names whose array fields convert with `np.asarray` (a JAX
-    DeviceScene, or this package's own), procedural spheres included.
-    Dtypes are kept as they are. Tables the port does not read (the
-    BVH) are dropped."""
+    DeviceScene, or this package's own), procedural spheres and the BVH
+    node table included. Dtypes are kept as they are."""
     return _carry(DeviceScene, tables, resolve_device(device))

@@ -18,11 +18,13 @@ Parity: reference src/scene/loader/gpu_uploader.rs
 
 The tables are built in numpy exactly as the JAX package builds them
 (same slot order, padding and packing) and only the final wraps become
-tensors on the requested `device`. No BVH is built: the cluster tables
-are the acceleration structure the ported intersectors read (the
-skip-link "bvh" engine is not ported yet). `use_mesh_shader` builds the
-per-primitive meshlet tables (gpu_uploader.rs:555-765). Procedural
-spheres raise until they are ported.
+tensors on the requested `device`. `use_ray_tracing` (the default, as
+in the JAX package) also builds the skip-link BVH of the "bvh" engine
+on the host (ops/bvh.py; the cluster tables serve every other engine).
+`use_mesh_shader` builds the per-primitive meshlet tables
+(gpu_uploader.rs:555-765); `use_global_meshlets` is accepted as the JAX
+package accepts it, with no effect there either. Procedural spheres
+upload as their own table (`_upload_procedural`).
 """
 
 from __future__ import annotations
@@ -81,6 +83,8 @@ class SceneUploader:
     def upload(
         scene: Scene,
         use_mesh_shader: bool = False,
+        use_global_meshlets: bool = False,
+        use_ray_tracing: bool = True,
         device="cuda",
     ) -> DeviceScene:
         dev = resolve_device(device)
@@ -102,8 +106,13 @@ class SceneUploader:
         if use_mesh_shader:
             from ...ops.meshlets import build_scene_meshlets
 
-            build_scene_meshlets(scene)
+            build_scene_meshlets(scene, global_meshlets=use_global_meshlets)
             meshlets = SceneUploader._upload_meshlets(scene, geometry, dev)
+        bvh = None
+        if use_ray_tracing:
+            from ...ops.bvh import build_bvh
+
+            bvh = build_bvh(geometry)
         return DeviceScene(
             geometry=geometry,
             materials=materials,
@@ -111,6 +120,7 @@ class SceneUploader:
             cameras=cameras,
             textures=textures,
             meshlets=meshlets,
+            bvh=bvh,
             procedural=SceneUploader._upload_procedural(scene, dev),
             prim_node=prim_node,
         )

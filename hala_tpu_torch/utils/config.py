@@ -39,8 +39,6 @@ class RenderConfig:
     output_path: str = "./out/render.png"
     # tracer knobs. tile_size is the port renderer's default: the film
     # does not depend on it (RNG streams are keyed on the global pixel).
-    # use_bvh is kept so that a JAX package's JSON loads; the port has
-    # no "bvh" engine and does not pass it on.
     tile_size: int = 1 << 20
     use_bvh: bool = True
     intersector: str = "auto"
@@ -74,9 +72,7 @@ class RenderConfig:
 
     def build_renderer(self, device="cuda"):
         """The port's RayTracingRenderer for this config on `device`, with
-        the scene and the environment map loaded when paths are given.
-        intersector="bvh" raises "not yet ported" when the renderer
-        resolves its backend."""
+        the scene and the environment map loaded when paths are given."""
         from ..models.rt_renderer import RayTracingRenderer
         from ..scene.cpu.scene import Scene
 
@@ -87,7 +83,7 @@ class RenderConfig:
             enable_aces=self.enable_aces,
             use_simple_aces=self.use_simple_aces,
             max_frames=self.max_frames,
-            tile_size=self.tile_size,
+            tile_size=self.tile_size, use_bvh=self.use_bvh,
             intersector=self.intersector,
             shadow_intersector=self.shadow_intersector,
             spp=self.spp, staged=self.staged,

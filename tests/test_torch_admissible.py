@@ -184,7 +184,7 @@ def test_no_admissible_pair_is_lost_on_a_sah_scene(monkeypatch):
     from hala_tpu_torch.scene.procedural import sponza_like
 
     scene = sponza_like(rooms=(4, 4), columns_per_room=4, boxes_per_room=16)
-    g = SceneUploader.upload(scene, device="cpu").geometry
+    g = SceneUploader.upload(scene, use_ray_tracing=False, device="cpu").geometry
     assert not g.prefix_layout
     rs = np.random.RandomState(11)
     n = 512

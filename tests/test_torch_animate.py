@@ -194,7 +194,7 @@ def test_refit_of_the_upload_is_the_upload(scenes, name):
 
 def test_refit_tracks_motion():
     g = SceneUploader.upload(sponza_like(rooms=(2, 2), boxes_per_room=1),
-                             device="cpu").geometry
+                             use_ray_tracing=False, device="cpu").geometry
     shift = torch.tensor([10.0, 0.0, 0.0])
     cmin, cmax = cluster.refit_clusters(g.tri_v0 + shift, g.tri_e1, g.tri_e2, g.tri_mat)
     real = g.cluster_min[:, 0] < 1e30
@@ -287,7 +287,7 @@ def _settings(r):
 
 
 def _fresh_frame(host, settings):
-    dev = SceneUploader.upload(host, device="cpu")
+    dev = SceneUploader.upload(host, use_ray_tracing=False, device="cpu")
     film = Film.create(settings.width, settings.height, "cpu")
     render_frame(dev, None, Uniforms.default("cpu"), film, 0, settings)
     return film.accum
@@ -332,7 +332,7 @@ def test_two_updates_compose():
     r.update_scene()
     host2 = cornell_box()
     host2.nodes[node].world_transform = translate(0.1, 0.2, 0) @ w0
-    ref = SceneUploader.upload(host2, device="cpu")
+    ref = SceneUploader.upload(host2, use_ray_tracing=False, device="cpu")
     np.testing.assert_allclose(r.scene.geometry.tri_v0.numpy(),
                                ref.geometry.tri_v0.numpy(), atol=1e-4)
 

@@ -56,7 +56,7 @@ def _rays(n, seed, center=(0.0, 0.0, 0.0), spread=0.9):
 
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_k1_kernel_matches_plain(cuda_device, any_hit):
-    g = SceneUploader.upload(random_triangle_soup(300, seed=5), device=cuda_device).geometry
+    g = SceneUploader.upload(random_triangle_soup(300, seed=5), use_ray_tracing=False, device=cuda_device).geometry
     o, d = (x.to(cuda_device) for x in _rays(5000 + 13, 3))
     tm = torch.full((o.shape[0],), 2.0, device=cuda_device)
     tris = (g.tri_v0, g.tri_e1, g.tri_e2)
@@ -75,7 +75,7 @@ def test_k1_kernel_matches_plain(cuda_device, any_hit):
 
 def test_k2_kernel_matches_plain(cuda_device):
     scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb"))
-    g = SceneUploader.upload(scene, device=cuda_device).geometry
+    g = SceneUploader.upload(scene, use_ray_tracing=False, device=cuda_device).geometry
     real = g.tri_v0[g.tri_mat >= 0]
     center = ((real.amin(0) + real.amax(0)) / 2).cpu().numpy()
     o, d = (x.to(cuda_device) for x in _rays(4096, 4, center, 2.0))
@@ -92,7 +92,7 @@ def test_k2_kernel_matches_plain(cuda_device):
 
 
 def test_wrapper_checks_before_launch(cuda_device):
-    g = SceneUploader.upload(cornell_box(), device=cuda_device).geometry
+    g = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device=cuda_device).geometry
     o, d = (x.to(cuda_device) for x in _rays(64, 5))
     with pytest.raises(ValueError):
         k1.intersect_pallas(o.double(), d, g.tri_v0, g.tri_e1, g.tri_e2)
@@ -101,7 +101,7 @@ def test_wrapper_checks_before_launch(cuda_device):
 
 
 def test_cornell_golden_on_card(cuda_device):
-    dev = SceneUploader.upload(cornell_box(), device=cuda_device)
+    dev = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device=cuda_device)
     film = Film.create(32, 32, cuda_device)
     uni = Uniforms.default(cuda_device)
     before = cuda_lib.INTERSECT_BRUTEFORCE.launches
@@ -122,7 +122,7 @@ def test_k3_kernel_matches_plain(cuda_device, tile):
     from hala_tpu_torch.models.rz_renderer import RasterSettings, _raster_setup
 
     scene = SceneUploader.upload(
-        Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb")), device=cuda_device)
+        Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb")), use_ray_tracing=False, device=cuda_device)
     w, h = 320, 192
     tris = _raster_setup(scene, 0, RasterSettings(w, h, binned=True, tile=tile))[:4]
     seg = k3.build_segments(*tris, w, h, tile)
@@ -232,7 +232,7 @@ def atrium_batch():
         pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
     scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb"))
-    g = SceneUploader.upload(scene, device=dev).geometry
+    g = SceneUploader.upload(scene, use_ray_tracing=False, device=dev).geometry
     real = g.tri_v0[g.tri_mat >= 0]
     center = ((real.amin(0) + real.amax(0)) / 2).cpu().numpy()
     o, d = (x.to(dev) for x in _rays(4096, 6, center, 2.0))
@@ -250,7 +250,7 @@ def atrium_big_batch():
         pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
     dev = torch.device("cuda", 0)
     scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
-    g = SceneUploader.upload(scene, device=dev).geometry
+    g = SceneUploader.upload(scene, use_ray_tracing=False, device=dev).geometry
     return (g, *_inside_rays(g, 16384, 12))
 
 
@@ -291,7 +291,7 @@ def instances_scene():
             m[0, 3] += j * spacing
             host.nodes.append(Node(name=f"{n.name}_{j}", local_transform=m,
                                    world_transform=m.copy(), mesh_index=n.mesh_index))
-    scene = SceneUploader.upload(host, device=dev)
+    scene = SceneUploader.upload(host, use_ray_tracing=False, device=dev)
     assert scene.geometry.cluster_min.shape[0] > k4.CULL_MAX_CLUSTERS
     return scene
 
@@ -623,7 +623,7 @@ def test_k2_sorted_atrium_big_matches_plain(cuda_device):
     """atrium_big (1861 clusters): 16,384 rays from inside its bounds in
     matrix_query's coherence order."""
     scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
-    g = SceneUploader.upload(scene, device=cuda_device).geometry
+    g = SceneUploader.upload(scene, use_ray_tracing=False, device=cuda_device).geometry
     real = g.tri_v0[g.tri_mat >= 0]
     lo, hi = (x.cpu().numpy() for x in (real.amin(0), real.amax(0)))
     rs = np.random.RandomState(10)
@@ -941,7 +941,7 @@ def atrium_big_scene():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc (the kernels have no CPU mode)")
     scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
-    return SceneUploader.upload(scene, device=torch.device("cuda", 0))
+    return SceneUploader.upload(scene, use_ray_tracing=False, device=torch.device("cuda", 0))
 
 
 def _shards(scene, n):
@@ -1021,3 +1021,74 @@ def test_shard_tables_are_the_uploaders_rule(atrium_big_scene, instances_scene, 
             cmin, cmax = k6.cluster_boxes(g.tri_v0, g.tri_e1, g.tri_e2, real)
             assert torch.equal(g.cluster_min, cmin) and torch.equal(g.cluster_max, cmax)
             assert torch.equal(g.tri_packed, k6.pack_slots(g.tri_v0, g.tri_e1, g.tri_e2, real))
+
+
+# --- closing the port: the dense engine, traverse_query, the "bvh" engine ------
+
+
+@pytest.mark.parametrize("k", [8, 2])
+def test_dense_on_atrium_big_matches_k2(atrium_big_batch, k):
+    """The dense engine (K4's candidates tested in plain PyTorch, K2 for
+    truncated lists) on atrium_big: the any-hit mask equals K2's and the
+    closest hits K2's canonical hits (chip_smoke `dense_vs_k2`: ids may
+    differ only inside the packed key's granule; cull misses counted),
+    and the card's result equals the same query on the CPU bit for bit."""
+    from hala_tpu_torch.ops import dense
+    from hala_tpu_torch.ops.intersect import canonical_hit
+
+    g, o, d, tm = atrium_big_batch
+    before = (cuda_lib.CULL_TOPK.launches, cuda_lib.MATRIX_TRAVERSE.launches)
+    hit = dense.intersect_dense(o, d, g, t_max=tm, k=k)
+    torch.cuda.synchronize()
+    assert cuda_lib.CULL_TOPK.launches > before[0]
+    assert cuda_lib.MATRIX_TRAVERSE.launches > before[1]
+    ref = canonical_hit(o, d, g.tri_v0, g.tri_e1, g.tri_e2, k2.intersect_matrix(o, d, g, t_max=tm))
+    rec = chip_smoke.dense_vs_k2(f"dense K {k}", hit, ref, o, d, tm, g, k)
+    assert rec["cull_misses"] <= 64
+    tf = tm * (1.0 - 1e-4)
+    occ = dense.occluded_dense(o, d, tf, g, k=k)
+    assert chip_smoke.dense_anyhit_vs_k2(f"dense any-hit K {k}", occ, o, d, tf, g) <= 64
+    g_cpu = types.SimpleNamespace(**{f: getattr(g, f).cpu() for f in (
+        "tri_v0", "tri_e1", "tri_e2", "cluster_min", "cluster_max", "tri_packed")})
+    n = 2048
+    cpu = dense.intersect_dense(o[:n].cpu(), d[:n].cpu(), g_cpu, t_max=tm[:n].cpu(), k=k)
+    _equal_bits([x[:n].cpu() for x in hit], cpu)
+
+
+def test_traverse_query_and_signature_sort_on_atrium_big(atrium_big_batch):
+    """traverse_query equals intersect_traversed, matrix_query with the
+    signature sort the Morton-sorted query, bit for bit; the inexact
+    options equal their kernels' plain versions."""
+    g, o, d, tm = atrium_big_batch
+    _equal_bits(k5.traverse_query(o, d, g, t_max=tm), k5.intersect_traversed(o, d, g, t_max=tm))
+    _equal_bits(k2.matrix_query(o, d, g, t_max=tm, sort_key="signature"),
+                k2.matrix_query(o, d, g, t_max=tm))
+    rough = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=4, exact=False)
+    with chip_smoke.plain_versions((k5, "cull_topk", chip_smoke.cull_plain),
+                                   (k5, "traverse_candidates", k5.traverse_candidates_plain)):
+        ref = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=4, exact=False)
+    _equal_bits(rough, ref)
+    wf = k7.intersect_wavefront(o, d, g, t_max=tm, k_per_ray=4, m_group=8, fallback=False)
+    with chip_smoke.plain_versions((k7, "cull_topk", chip_smoke.cull_plain),
+                                   (k7, "wavefront_walk", k7.wavefront_walk_plain)):
+        ref = k7.intersect_wavefront(o, d, g, t_max=tm, k_per_ray=4, m_group=8,
+                                     fallback=False)
+    _equal_bits(wf, ref)
+
+
+def test_bvh_on_the_card_matches_k1(cuda_device):
+    """The "bvh" engine on atrium.glb's tables on the card against K1 over
+    all slots (chip_smoke `bvh_vs_k1`: exact-t ties and grazes only),
+    with no kernel launched by the traversal."""
+    from hala_tpu_torch.ops import bvh
+
+    scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb"))
+    dev = SceneUploader.upload(scene, device=cuda_device)
+    g = dev.geometry
+    o, d, _ = chip_smoke.mixed_batch(dev, 64, 64, 4096, 71)
+    before = dict(cuda_lib.launches())
+    hit = bvh.intersect_bvh(dev.bvh, g, o, d)
+    torch.cuda.synchronize()
+    assert cuda_lib.launches() == before
+    ref = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2)
+    chip_smoke.bvh_vs_k1("atrium bvh", hit, ref, o, d, g)

@@ -244,7 +244,7 @@ def test_golden_envmap():
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
     from hala_tpu_torch.scene.procedural import cornell_box as t_cornell
 
-    dev = SceneUploader.upload(t_cornell(light_intensity=0.0), device="cpu")
+    dev = SceneUploader.upload(t_cornell(light_intensity=0.0), use_ray_tracing=False, device="cpu")
     settings = tint.RenderSettings(
         width=32, height=32, max_depth=3, rr_depth=2, tile_size=1024,
         intersector="bruteforce", env_type=tint.ENV_MAP,

@@ -196,7 +196,7 @@ def test_feature_render_side_by_side(case):
     build, depth, frames, flags = CASES[case]
     size = 24
     jdev = JUp.upload(build(_mods("hala_tpu")), use_ray_tracing=False)
-    tdev = TUp.upload(build(_mods("hala_tpu_torch")), device="cpu")
+    tdev = TUp.upload(build(_mods("hala_tpu_torch")), use_ray_tracing=False, device="cpu")
     for flag in flags:
         assert getattr(tdev.materials, flag), flag
     if case == "textures":

@@ -116,7 +116,7 @@ def _camera_scenes():
         js, ts = jc(), tc()
         if jcam_ is not None:
             js.cameras, ts.cameras = [jcam_], [tcam_]
-        out[name] = (JUp.upload(js, use_ray_tracing=False), TUp.upload(ts, device="cpu"))
+        out[name] = (JUp.upload(js, use_ray_tracing=False), TUp.upload(ts, use_ray_tracing=False, device="cpu"))
     return out
 
 
@@ -233,7 +233,7 @@ def _light_scene(pkg):
 def light_scenes():
     return (
         JUp.upload(_light_scene("hala_tpu"), use_ray_tracing=False),
-        TUp.upload(_light_scene("hala_tpu_torch"), device="cpu"),
+        TUp.upload(_light_scene("hala_tpu_torch"), use_ray_tracing=False, device="cpu"),
     )
 
 
@@ -354,7 +354,7 @@ def test_gather_materials():
     from hala_tpu_torch.scene.procedural import cornell_box as tc
 
     jdev = JUp.upload(jc(), use_ray_tracing=False)
-    tdev = TUp.upload(tc(), device="cpu")
+    tdev = TUp.upload(tc(), use_ray_tracing=False, device="cpu")
     rs = np.random.RandomState(8)
     idx = rs.randint(-1, tdev.materials.packed.shape[0], 300).astype(np.int32)
     gt = tb.gather_materials(tdev.materials, torch.from_numpy(idx))
@@ -397,7 +397,7 @@ def cornell_geoms():
     from hala_tpu_torch.scene.procedural import cornell_box as tc
 
     return (JUp.upload(jc(), use_ray_tracing=False).geometry,
-            TUp.upload(tc(), device="cpu").geometry)
+            TUp.upload(tc(), use_ray_tracing=False, device="cpu").geometry)
 
 
 def test_intersect_bruteforce(cornell_geoms):

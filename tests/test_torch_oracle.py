@@ -71,7 +71,7 @@ def _scene():
     scene.nodes.append(cn)
     scene.cameras = [OrthographicCamera(xmag=0.5, ymag=0.5)]
     scene.update_node_hierarchies()
-    return SceneUploader.upload(scene, device="cpu")
+    return SceneUploader.upload(scene, use_ray_tracing=False, device="cpu")
 
 
 def _analytic_L(px_world, pz_world):

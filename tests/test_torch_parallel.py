@@ -131,6 +131,10 @@ CASES = {
     "multicluster": ("sponza2", dict(_S32, max_depth=3, tile_size=128), 2, False),
     "matrix_engine": ("sponza2", dict(width=16, height=16, rr_depth=2, max_depth=2,
                                       tile_size=256, intersector="matrix"), 1, False),
+    # the split shadow query through the dense engine (K4 + plain tests + K2)
+    "matrix_dense_shadows": ("sponza2", dict(width=16, height=16, rr_depth=2, max_depth=2,
+                                             tile_size=256, intersector="matrix",
+                                             shadow_dense_k=4), 1, False),
 }
 
 
@@ -138,7 +142,7 @@ CASES = {
 def _port_scene(key: str):
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
 
-    return SceneUploader.upload(_host("hala_tpu_torch", key), device="cpu")
+    return SceneUploader.upload(_host("hala_tpu_torch", key), use_ray_tracing=False, device="cpu")
 
 
 def _job(name: str) -> dict:

@@ -211,7 +211,7 @@ class TestProceduralRender:
         assert img[h // 2 - 2:h // 2 + 2, w // 2 - 2:w // 2 + 2].mean() > 0.5
 
     def test_no_procedural_uploads_none(self):
-        assert SceneUploader.upload(cornell_box(), device="cpu").procedural is None
+        assert SceneUploader.upload(cornell_box(), use_ray_tracing=False, device="cpu").procedural is None
 
     def test_film_tiling_bit_identity(self):
         """Sphere hits are pure functions of (o, d): a tiled frame equals
@@ -277,7 +277,7 @@ def test_procedural_example_side_by_side_with_jax():
         assert r < 2e-3, (k, r)
     # the port's own upload of its own scene gives the same film
     tdev = SceneUploader.upload(_procedural_example(cornell_box, Material,
-                                                    ProceduralSphere), device="cpu")
+                                                    ProceduralSphere), use_ray_tracing=False, device="cpu")
     own = tint.Film.create(32, 32, "cpu")
     ts = tint.RenderSettings(width=32, height=32, max_depth=6, rr_depth=2, tile_size=1024,
                              intersector="pallas")
@@ -320,7 +320,7 @@ def test_sphere_ids_and_shading_rows_clip_on_every_table():
     sphere-only pixels of a primary-hit frame shade from the sphere's
     own material (its albedo AOV is the sphere's base color)."""
     scene = _with_sphere(cornell_box, radius=0.5)
-    tdev = SceneUploader.upload(scene, device="cpu")
+    tdev = SceneUploader.upload(scene, use_ray_tracing=False, device="cpu")
     film = tint.Film.create(16, 16, "cpu")
     tint.render_frame(tdev, None, tint.Uniforms.default("cpu"), film, 0,
                       tint.RenderSettings(width=16, height=16, max_depth=1))

@@ -291,7 +291,7 @@ def test_meshlet_tables_match_jax(scene):
         path = os.path.join(HERE, "..", "assets", "atrium.glb")
         js, ts = JS.load(path), TS.load(path)
     jm = JUp.upload(js, use_mesh_shader=True, use_ray_tracing=False).meshlets
-    tm = TUp.upload(ts, use_mesh_shader=True, device="cpu").meshlets
+    tm = TUp.upload(ts, use_mesh_shader=True, use_ray_tracing=False, device="cpu").meshlets
     assert jm.num_meshlets == tm.num_meshlets > 0
     for k in ("cone_apex", "cone_axis", "cone_cutoff", "center", "radius",
               "tri_meshlet", "tri_ids"):

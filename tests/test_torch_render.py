@@ -76,7 +76,7 @@ def _ortho_scene():
 
 
 def _trace(host, settings, frames):
-    dev = SceneUploader.upload(host, device="cpu")
+    dev = SceneUploader.upload(host, use_ray_tracing=False, device="cpu")
     film = Film.create(settings.width, settings.height, "cpu")
     uni = Uniforms.default("cpu")
     for f in range(frames):
@@ -136,7 +136,7 @@ def test_side_by_side_with_jax_pallas_interpret():
 def test_render_frames_equals_sequential_frames():
     settings = RenderSettings(width=32, height=32, max_depth=3, rr_depth=2,
                               tile_size=256)
-    dev = SceneUploader.upload(cornell_box(), device="cpu")
+    dev = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device="cpu")
     uni = Uniforms.default("cpu")
     seq = Film.create(32, 32, "cpu")
     rays_seq = 0.0
@@ -153,7 +153,7 @@ def test_render_frames_equals_sequential_frames():
 def test_tiling_does_not_change_the_image():
     """RNG is keyed on the global pixel id: tile size and the 32x32
     swizzle change nothing, bit for bit."""
-    dev = SceneUploader.upload(cornell_box(), device="cpu")
+    dev = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device="cpu")
     uni = Uniforms.default("cpu")
     films = []
     for tile in (1024, 96):  # one swizzled tile / ragged unswizzled tiles
@@ -165,7 +165,7 @@ def test_tiling_does_not_change_the_image():
 
 
 def test_bruteforce_backend_matches_auto():
-    dev = SceneUploader.upload(cornell_box(), device="cpu")
+    dev = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device="cpu")
     uni = Uniforms.default("cpu")
     out = []
     for sel in ("auto", "bruteforce"):
@@ -255,10 +255,12 @@ def test_cuda_error_marks_device_lost_and_restores(tmp_path):
 @pytest.mark.parametrize("option", ["intersector", "env", "blue_noise", "hooks",
                                     "scene_axis"])
 def test_unported_integrator_options_raise(option):
-    """What is still unported raises; the environment map, the
+    """Every option that once raised as unported renders now: the "bvh"
+    engine (on the uploaded skip-link BVH), the environment map, the
     blue-noise texture, pushed kernel hooks and the geometry-sharded
-    `scene_axis` (a one-rank mesh here), ported since, render instead."""
-    dev = SceneUploader.upload(cornell_box(), device="cpu")
+    `scene_axis` (a one-rank mesh here) each give a finite, lit film."""
+    dev = SceneUploader.upload(cornell_box(), use_ray_tracing=option == "intersector",
+                               device="cpu")
     kw = dict(width=8, height=8)
     args = dict(env=None, blue_noise=None, hooks=None)
     if option == "intersector":
@@ -290,13 +292,11 @@ def test_unported_integrator_options_raise(option):
                      hooks=args["hooks"])
         return film
 
-    if option in ("env", "blue_noise", "hooks", "scene_axis"):
-        film = render()
-        assert bool(torch.isfinite(film.accum).all())
-        assert float(film.accum[..., :3].mean()) > 0.0
-        return
-    with pytest.raises(HalaRendererError, match="not yet ported"):
-        render()
+    if option == "intersector":
+        assert dev.bvh is not None and _backend(RenderSettings(**kw), dev) == "bvh"
+    film = render()
+    assert bool(torch.isfinite(film.accum).all())
+    assert float(film.accum[..., :3].mean()) > 0.0
 
 
 def test_cuda_default_raises_without_cuda():

@@ -213,7 +213,7 @@ def test_graphics_program_draw_matches_jax():
 
     jp = JG(JD(), JUp.upload(_host("hala_tpu", "cornell"), use_ray_tracing=False))
     tp = GraphicsProgram(GraphicsProgramDesc(),
-                         SceneUploader.upload(cornell_box(), device="cpu"))
+                         SceneUploader.upload(cornell_box(), use_ray_tracing=False, device="cpu"))
     jc, _ = jp.draw(24, 24)
     tc, tg = tp.draw(24, 24)
     assert _rel(tc.numpy(), np.asarray(jc)) < REL_TOL
@@ -245,7 +245,7 @@ def test_graphics_desc_validation_and_blend():
                         "mutually exclusive")):
         with pytest.raises(HalaRendererError, match=match):
             GraphicsProgramDesc(**bad).validate()
-    scene = SceneUploader.upload(_glass_scene("hala_tpu_torch"), device="cpu")
+    scene = SceneUploader.upload(_glass_scene("hala_tpu_torch"), use_ray_tracing=False, device="cpu")
     over = GraphicsProgram(GraphicsProgramDesc(), scene)
     add = GraphicsProgram(GraphicsProgramDesc(color_blend=BlendState("one", "one", "add")),
                           scene)

@@ -55,7 +55,7 @@ def _jax_and_torch(name):
 def uploaded(request):
     js, ts = _jax_and_torch(request.param)
     jdev = JUploader.upload(js, use_ray_tracing=False)
-    tdev = TUploader.upload(ts, device="cpu")
+    tdev = TUploader.upload(ts, use_ray_tracing=False, device="cpu")
     return request.param, jdev, tdev
 
 
@@ -133,7 +133,7 @@ def test_device_rule():
     with pytest.raises(HalaRendererError, match="cuda"):
         TUploader.upload(tproc.cornell_box())
     with pytest.raises(HalaRendererError, match="cuda"):
-        TUploader.upload(tproc.cornell_box(), device="cpu").to("cuda")
+        TUploader.upload(tproc.cornell_box(), use_ray_tracing=False, device="cpu").to("cuda")
 
 
 def test_procedural_spheres_raise():
@@ -148,7 +148,7 @@ def test_procedural_spheres_raise():
     scene.procedurals = [ProceduralSphere(*s) for s in spheres]
     jscene = jproc.cornell_box()
     jscene.procedurals = [JSphere(*s) for s in spheres]
-    got = TUploader.upload(scene, device="cpu").procedural
+    got = TUploader.upload(scene, use_ray_tracing=False, device="cpu").procedural
     ref = JUploader.upload(jscene, use_ray_tracing=False).procedural
     carried = from_numpy(JUploader.upload(jscene, use_ray_tracing=False), "cpu").procedural
     assert got.num_prims == ref.num_prims == carried.num_prims == 2
@@ -162,7 +162,7 @@ def test_no_camera_raises():
     for node in scene.nodes:
         node.camera_index = None
     with pytest.raises(HalaRendererError, match="Scene has no camera"):
-        TUploader.upload(scene, device="cpu")
+        TUploader.upload(scene, use_ray_tracing=False, device="cpu")
 
 
 def test_unsupported_format():

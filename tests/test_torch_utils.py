@@ -35,7 +35,7 @@ def _few_threads():
 
 @pytest.fixture(scope="module")
 def cornell_dev():
-    return SceneUploader.upload(cornell_box(), device="cpu")
+    return SceneUploader.upload(cornell_box(), use_ray_tracing=False, device="cpu")
 
 
 # --- RenderConfig -------------------------------------------------------------
@@ -83,8 +83,11 @@ def test_config_build_renderer(cornell_dev):
     bvh = RenderConfig(width=8, height=8, intersector="bvh").build_renderer(device="cpu")
     bvh.set_scene(cornell_box())
     bvh.commit()
-    with pytest.raises(HalaRendererError, match="not yet ported"):
-        bvh.update()
+    assert bvh.scene.bvh is not None and bvh.settings.use_bvh
+    bvh.update()
+    bvh.render()
+    assert bool(torch.isfinite(bvh.film.accum).all())
+    assert float(bvh.film.accum[..., :3].mean()) > 0.0
 
 
 # --- checkpoints --------------------------------------------------------------

@@ -89,7 +89,7 @@ def time_k1_k3(S, host, dev, reps: int) -> dict:
     n = 2 * 512 * 512
     for label, scene_host in (("cornell", cornell_box()),
                               ("soup4096", random_triangle_soup(4096, seed=4))):
-        sc = SceneUploader.upload(scene_host, device=dev)
+        sc = SceneUploader.upload(scene_host, use_ray_tracing=False, device=dev)
         g = sc.geometry
         if label == "cornell":
             side = int((n // 2) ** 0.5)
@@ -103,7 +103,7 @@ def time_k1_k3(S, host, dev, reps: int) -> dict:
             o, d, *tris, t_max=tm, num_real=k), reps)
         out[f"k1_{label}_anyhit_ms"] = S.cuda_ms(lambda: k1.occluded_pallas(
             o, d, tm, *tris, num_real=k), reps)
-    scene = SceneUploader.upload(host, device=dev)
+    scene = SceneUploader.upload(host, use_ray_tracing=False, device=dev)
     tile = 64
     tris = S.raster_inputs(scene, 1920, 1088, tile)
     seg = k3.build_segments(*tris, 1920, 1088, tile)
@@ -183,7 +183,7 @@ def time_k7_k8(S, host, dev, reps: int, own: bool) -> dict:
     from hala_tpu_torch.ops import wavefront as k7
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
 
-    scene = SceneUploader.upload(host, device=dev)
+    scene = SceneUploader.upload(host, use_ray_tracing=False, device=dev)
     out = {}
     for label, batch in (("small", S.mixed_batch(scene, 256, 128, 32768, 31)),
                          ("big", S.mixed_batch(scene, 1024, 1024, 1 << 20, 33))):
@@ -201,7 +201,7 @@ def time_k7_k8(S, host, dev, reps: int, own: bool) -> dict:
         out[label] = rec
         del a8, a7
     r = RayTracingRenderer("atrium_big_wavefront", 1920, 1088, max_depth=4, rr_depth=2,
-                           spp=1, intersector="wavefront", device="cuda")
+                           spp=1, intersector="wavefront", use_bvh=False, device="cuda")
     r.set_scene(host)
     r.commit()
     S.warm_up(r)
@@ -307,7 +307,7 @@ def main() -> int:
             out.update(time_k7_k8(S, host, dev, args.reps, root == HERE))
         print(json.dumps(out), flush=True)
         return 0
-    scene = SceneUploader.upload(host, device=dev)
+    scene = SceneUploader.upload(host, use_ray_tracing=False, device=dev)
     x5_host, x5_scene, _, _ = S.upload_instances(host, dev)
     own = root == HERE
     # the parent's K4 builds nothing per launch; here the unions are
@@ -384,7 +384,7 @@ def main() -> int:
                                          ("atrium_big", "wavefront", host),
                                          ("x5", "auto", x5_host)):
             r = RayTracingRenderer(f"{name}_{engine}", 1920, 1088, max_depth=4,
-                                   rr_depth=2, spp=1, intersector=engine, device="cuda")
+                                   rr_depth=2, spp=1, intersector=engine, use_bvh=False, device="cuda")
             r.set_scene(scene_host)
             r.commit()
             S.warm_up(r)
