@@ -74,6 +74,7 @@ from ..ops.traverse import (
 )
 from ..ops.wavefront import intersect_wavefront
 from ..scene.gpu.scene import TensorTables, resolve_device
+from ..utils import profiling
 
 ENV_SKY = 0  # rt_renderer.rs:23-41 HalaEnvType
 ENV_MAP = 1
@@ -298,10 +299,14 @@ def _sorted_dispatch(scene, o, d, t_max, query) -> Hit:
     (ops/compaction.py) and undo the permutation."""
     g = scene.geometry
     tm = full_t_max(t_max, o.shape[0], o.device)
-    order, inverse = order_by(
-        _coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
-    hit = query(*permute(order, o, d, tm))
-    return Hit(*(permute(inverse, x) for x in hit))
+    with profiling.span("hala.sort"):
+        order, inverse = order_by(
+            _coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+        rays = permute(order, o, d, tm)
+    hit = query(*rays)
+    del rays  # the sorted rays are not kept through the inverse permutation
+    with profiling.span("hala.sort"):
+        return Hit(*(permute(inverse, x) for x in hit))
 
 
 def _wavefront_route(settings: RenderSettings, scene, choice: str) -> bool:
@@ -414,28 +419,42 @@ def _gather_rays(mesh, o, d, t):
     return rays[:, 0:3], rays[:, 3:6], rays[:, 6].contiguous()
 
 
+def _query_span(scene, settings: RenderSettings, kind: str, rays: int):
+    """The `hala.query` span of one query, and its counters: the engine
+    `_backend` resolves, the kind ("closest", "any", "batched" for a
+    closest-hit query carrying shadow rays, "extend") and the rays."""
+    if not profiling.enabled():
+        return profiling.NO_SPAN
+    engine = _backend(settings, scene)
+    profiling.count("query.calls", engine=engine, kind=kind)
+    profiling.count("query.rays", rays, engine=engine, kind=kind)
+    return profiling.span("hala.query", engine=engine, kind=kind, rays=rays)
+
+
 def _intersect(scene, o, d, settings: RenderSettings, t_max=None,
-               extend: bool = False) -> Hit:
+               extend: bool = False, kind: str = "closest") -> Hit:
     """Closest-hit dispatch: the triangle backend's query, then the
     procedural spheres. `extend` marks a bounce rays' query, which
-    `extend_intersector` may send to the wavefront. On a geometry shard
-    the query runs on every rank's rays and the ranks' hits are merged
-    (`merge_shard_hits`' rule); the spheres are replicated and join
-    after, on this rank's rays."""
-    mesh = settings.scene_axis
-    if mesh is None:
-        hit = _intersect_local(scene, o, d, settings, t_max, extend)
-        return _merge_proc(scene, o, d, hit, t_max)
-    n = o.shape[0]
-    og, dg, tg = _gather_rays(mesh, o, d, t_max)
-    hit = _intersect_local(scene, og, dg, settings, tg, extend)
-    own = slice(mesh.rank * n, (mesh.rank + 1) * n)
-    merged = _lex_merge(
-        [hit], [mesh.rank * scene.geometry.tri_v0.shape[0]],
-        lambda xs: mesh.all_min(xs[0]), lambda xs: mesh.sum_scatter(xs[0]),
-        lambda x: x[own],
-    )
-    return _merge_proc(scene, o, d, merged, t_max)
+    `extend_intersector` may send to the wavefront; `kind` names the
+    query in its span. On a geometry shard the query runs on every
+    rank's rays and the ranks' hits are merged (`merge_shard_hits`'
+    rule); the spheres are replicated and join after, on this rank's
+    rays."""
+    with _query_span(scene, settings, "extend" if extend else kind, o.shape[0]):
+        mesh = settings.scene_axis
+        if mesh is None:
+            hit = _intersect_local(scene, o, d, settings, t_max, extend)
+            return _merge_proc(scene, o, d, hit, t_max)
+        n = o.shape[0]
+        og, dg, tg = _gather_rays(mesh, o, d, t_max)
+        hit = _intersect_local(scene, og, dg, settings, tg, extend)
+        own = slice(mesh.rank * n, (mesh.rank + 1) * n)
+        merged = _lex_merge(
+            [hit], [mesh.rank * scene.geometry.tri_v0.shape[0]],
+            lambda xs: mesh.all_min(xs[0]), lambda xs: mesh.sum_scatter(xs[0]),
+            lambda x: x[own],
+        )
+        return _merge_proc(scene, o, d, merged, t_max)
 
 
 def _intersect_local(scene, o, d, settings: RenderSettings, t_max=None,
@@ -479,16 +498,17 @@ def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
     (1e-4, t_far * (1 - 1e-4)) or a procedural sphere in (1e-4, t_far).
     On a geometry shard every rank answers every rank's rays for its
     own triangles, and the masks are OR'd by an int32 reduce-scatter."""
-    mesh = settings.scene_axis
-    if mesh is None:
-        occ = _occluded_local(scene, o, d, t_far, settings)
-    else:
-        og, dg, tg = _gather_rays(mesh, o, d, t_far)
-        occ_g = _occluded_local(scene, og, dg, tg, settings)
-        occ = mesh.sum_scatter(occ_g.to(torch.int32)) > 0
-    if scene.procedural is not None:
-        occ = occ | occluded_spheres(scene.procedural, o, d, t_far)
-    return occ
+    with _query_span(scene, settings, "any", o.shape[0]):
+        mesh = settings.scene_axis
+        if mesh is None:
+            occ = _occluded_local(scene, o, d, t_far, settings)
+        else:
+            og, dg, tg = _gather_rays(mesh, o, d, t_far)
+            occ_g = _occluded_local(scene, og, dg, tg, settings)
+            occ = mesh.sum_scatter(occ_g.to(torch.int32)) > 0
+        if scene.procedural is not None:
+            occ = occ | occluded_spheres(scene.procedural, o, d, t_far)
+        return occ
 
 
 def _occluded_local(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
@@ -604,27 +624,28 @@ def _path_context(
     pixel_angle = 2.0 * torch.tan(0.5 * torch.clamp(cam_yfov, min=1e-3)) / fh
 
     def init_state(o, d, hit0):
-        zeros3 = torch.zeros_like(o)
-        zeros = zeros3[:, 0]
-        return dict(
-            o=o,
-            d=d,
-            hit_t=hit0.t,
-            hit_tri=hit0.tri,
-            hit_u=hit0.u,
-            hit_v=hit0.v,
-            throughput=zeros3 + 1.0,
-            radiance=zeros3,
-            active=zeros < 1.0,
-            prev_pdf=zeros,  # 0 => previous bounce was camera/delta
-            albedo=zeros3,
-            normal=zeros3,
-            rays=zeros + 1.0,  # the primary ray
-            path_dist=zeros,   # accumulated path length (mip LOD cone)
-            med_density=zeros,     # >0 while inside a SCATTER medium
-            med_g=zeros,           # phase anisotropy of the current medium
-            med_color=zeros3,      # single-scatter albedo
-        )
+        with profiling.span("hala.shade", bounce=0):
+            zeros3 = torch.zeros_like(o)
+            zeros = zeros3[:, 0]
+            return dict(
+                o=o,
+                d=d,
+                hit_t=hit0.t,
+                hit_tri=hit0.tri,
+                hit_u=hit0.u,
+                hit_v=hit0.v,
+                throughput=zeros3 + 1.0,
+                radiance=zeros3,
+                active=zeros < 1.0,
+                prev_pdf=zeros,  # 0 => previous bounce was camera/delta
+                albedo=zeros3,
+                normal=zeros3,
+                rays=zeros + 1.0,  # the primary ray
+                path_dist=zeros,   # accumulated path length (mip LOD cone)
+                med_density=zeros,     # >0 while inside a SCATTER medium
+                med_g=zeros,           # phase anisotropy of the current medium
+                med_color=zeros3,      # single-scatter albedo
+            )
 
     def bounce_pre(bounce, st):
         o, d = st["o"], st["d"]
@@ -1100,7 +1121,8 @@ def _path_context(
         return blocked_acc
 
     def bounce_body(bounce, st):
-        c = bounce_pre(bounce, st)
+        with profiling.span("hala.shade", bounce=bounce):
+            c = bounce_pre(bounce, st)
         n = c["active"].shape[0]
         q_o = [c["shadow_o"]]
         q_d = [c["nee_dir"]]
@@ -1117,28 +1139,31 @@ def _path_context(
             occ = _occluded(
                 scene, torch.cat(q_o), torch.cat(q_d), torch.cat(q_t), settings
             )
-            blocked_e = occ[n:2 * n] if has_env_map else None
-            return bounce_post(c, qhit, occ[:n], blocked_e)
+            with profiling.span("hala.shade", bounce=bounce):
+                blocked_e = occ[n:2 * n] if has_env_map else None
+                return bounce_post(c, qhit, occ[:n], blocked_e)
         qhit = _intersect(
             scene,
             torch.cat([c["next_o"], *q_o]),
             torch.cat([c["next_d"], *q_d]),
             settings,
             t_max=torch.cat([c["ext_tmax"], *q_t]),
+            kind="batched",
         )
-        blocked = transmit(
-            bounce, c, qhit.tri[n:2 * n], qhit.t[n:2 * n], c["nee_dir"],
-            c["nee_tmax"], c["r_alpha"][:, 2], 37,
-        )
-        blocked_e = (
-            transmit(
-                bounce, c, qhit.tri[2 * n:3 * n], qhit.t[2 * n:3 * n],
-                c["wi_e"], c["env_tmax"], c["r_alpha"][:, 3], 53,
+        with profiling.span("hala.shade", bounce=bounce):
+            blocked = transmit(
+                bounce, c, qhit.tri[n:2 * n], qhit.t[n:2 * n], c["nee_dir"],
+                c["nee_tmax"], c["r_alpha"][:, 2], 37,
             )
-            if has_env_map
-            else None
-        )
-        return bounce_post(c, qhit, blocked, blocked_e)
+            blocked_e = (
+                transmit(
+                    bounce, c, qhit.tri[2 * n:3 * n], qhit.t[2 * n:3 * n],
+                    c["wi_e"], c["env_tmax"], c["r_alpha"][:, 3], 53,
+                )
+                if has_env_map
+                else None
+            )
+            return bounce_post(c, qhit, blocked, blocked_e)
 
     return init_state, bounce_body
 
@@ -1263,52 +1288,56 @@ def _render_frame_impl(
     # so the image is the same either way.
     swizzle = h % 32 == 0 and w % 32 == 0 and pp % 1024 == 0
 
-    bufs = [film.accum.reshape(-1, 4), film.albedo.reshape(-1, 4),
-            film.normal.reshape(-1, 4)]
-    if swizzle:
-        bufs = [to_blocked(b) for b in bufs]
-    if n_pad != n_pix:
-        bufs = [torch.nn.functional.pad(b, (0, 0, 0, n_pad - n_pix)) for b in bufs]
-    else:
-        bufs = [b.clone() for b in bufs]
-    accum, albedo, normal = bufs
-
+    with profiling.span("hala.film"):
+        bufs = [film.accum.reshape(-1, 4), film.albedo.reshape(-1, 4),
+                film.normal.reshape(-1, 4)]
+        if swizzle:
+            bufs = [to_blocked(b) for b in bufs]
+        if n_pad != n_pix:
+            bufs = [torch.nn.functional.pad(b, (0, 0, 0, n_pad - n_pix)) for b in bufs]
+        else:
+            bufs = [b.clone() for b in bufs]
+        accum, albedo, normal = bufs
+        ones = torch.ones((pp, 1), dtype=torch.float32, device=dev)
+        rays_total = torch.zeros((), dtype=torch.float32, device=dev)
     fidx = int(frame_index) & _U32
     inv_n1 = float(np.float32(1.0) / (np.float32(frame_index) + np.float32(1.0)))
-    ones = torch.ones((pp, 1), dtype=torch.float32, device=dev)
-    rays_total = torch.zeros((), dtype=torch.float32, device=dev)
     for t in range(n_tiles):
         start = t * pp
-        o, d, gpix, fidx_r = _tile_raygen(
-            scene, uniforms, blue_noise, hooks, fidx, start, w, cam_h, row_offset,
-            spp, tile, swizzle, dev,
-        )
+        with profiling.span("hala.raygen"):
+            profiling.count("frame.tiles")
+            o, d, gpix, fidx_r = _tile_raygen(
+                scene, uniforms, blue_noise, hooks, fidx, start, w, cam_h, row_offset,
+                spp, tile, swizzle, dev,
+            )
         L, alb, nrm, rays = trace_paths(
             scene, env, uniforms, o, d, gpix, fidx_r, settings,
             full_height=cam_h, blue_noise=blue_noise, hooks=hooks,
         )
-        if hooks is not None and hooks.post_shade is not None:
-            L, alb, nrm = hooks.post_shade(L, alb, nrm)
-        L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
-        if spp > 1:
-            # pixel mean over the sample-adjacent lanes
-            L = L.reshape(pp, spp, 3).mean(dim=1)
-            alb = alb.reshape(pp, spp, 3).mean(dim=1)
-            nrm = nrm.reshape(pp, spp, 3).mean(dim=1)
-        sl = slice(start, start + pp)
-        for buf, val in ((accum, L), (albedo, alb), (normal, nrm)):
-            old = buf[sl]
-            buf[sl] = old + (torch.cat([val, ones], dim=-1) - old) * inv_n1
-        # the last tile's padding pixels lie outside the film: their rays
-        # are traced (the tile's shape is fixed) but not counted
-        rays_total = rays_total + torch.sum(rays[:min(tile, (n_pix - start) * spp)])
+        with profiling.span("hala.film"):
+            if hooks is not None and hooks.post_shade is not None:
+                L, alb, nrm = hooks.post_shade(L, alb, nrm)
+            L = torch.nan_to_num(L, nan=0.0, posinf=0.0, neginf=0.0)
+            if spp > 1:
+                # pixel mean over the sample-adjacent lanes
+                L = L.reshape(pp, spp, 3).mean(dim=1)
+                alb = alb.reshape(pp, spp, 3).mean(dim=1)
+                nrm = nrm.reshape(pp, spp, 3).mean(dim=1)
+            sl = slice(start, start + pp)
+            for buf, val in ((accum, L), (albedo, alb), (normal, nrm)):
+                old = buf[sl]
+                buf[sl] = old + (torch.cat([val, ones], dim=-1) - old) * inv_n1
+            # the last tile's padding pixels lie outside the film: their
+            # rays are traced (the tile's shape is fixed) but not counted
+            rays_total = rays_total + torch.sum(rays[:min(tile, (n_pix - start) * spp)])
 
-    for buf, dst in ((accum, film.accum), (albedo, film.albedo),
-                     (normal, film.normal)):
-        buf = buf[:n_pix]
-        if swizzle:
-            buf = from_blocked(buf)
-        dst.copy_(buf.reshape(h, w, 4))
+    with profiling.span("hala.film"):
+        for buf, dst in ((accum, film.accum), (albedo, film.albedo),
+                         (normal, film.normal)):
+            buf = buf[:n_pix]
+            if swizzle:
+                buf = from_blocked(buf)
+            dst.copy_(buf.reshape(h, w, 4))
     return rays_total
 
 

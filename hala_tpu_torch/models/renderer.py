@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..error import HalaRendererError
+from ..utils import profiling
 
 logger = logging.getLogger("hala_tpu_torch.renderer")
 
@@ -96,6 +97,7 @@ class BaseRenderer:
         self.device = device
         self.is_device_lost = False  # HalaRendererData parity (renderer.rs:119)
         self._pending = False  # a dispatched frame not yet waited for
+        self._pending_frame = -1  # its frame index, for the wait's span
         self._last_cpu_time = 0.0
         self._last_rays = None  # 0-d device tensor of the last frame
         # the animation path: staged node -> new world 4x4, and the world
@@ -178,11 +180,12 @@ class BaseRenderer:
             return
         try:
             t0 = time.monotonic()
-            if self._pending:
-                self._sync()
-                self._pending = False
-            gpu_time = time.monotonic() - t0
-            rays = 0.0 if self._last_rays is None else float(self._last_rays)
+            with profiling.span("hala.wait", frame=self._pending_frame):
+                if self._pending:
+                    self._sync()
+                    self._pending = False
+                gpu_time = time.monotonic() - t0
+                rays = 0.0 if self._last_rays is None else float(self._last_rays)
             self.statistics.record_frame(gpu_time, self._last_cpu_time, rays)
         # the CUDA runtime's errors (a lost device, an illegal access)
         except torch.AcceleratorError as err:  # device lost analog

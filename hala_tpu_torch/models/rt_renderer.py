@@ -45,6 +45,7 @@ from ..scene.cpu.image_data import ImageData
 from ..scene.cpu.scene import Scene
 from ..scene.gpu.scene import resolve_device
 from ..scene.loader.uploader import SceneUploader
+from ..utils import profiling
 from ..utils.pfm import write_pfm
 from .integrator import (
     ENV_MAP,
@@ -248,11 +249,13 @@ class RayTracingRenderer(BaseRenderer):
         if self._frame_index >= self.max_frames:
             return  # progressive budget reached (rt_renderer.rs:393-396)
         t0 = time.monotonic()
-        _, rays = render_frame(
-            self.scene, self.env, self.uniforms, self.film, self._frame_index,
-            self.settings, blue_noise=self.blue_noise, hooks=self.hooks,
-        )
+        with profiling.span("hala.frame", frame=self._frame_index, renderer="trace"):
+            _, rays = render_frame(
+                self.scene, self.env, self.uniforms, self.film, self._frame_index,
+                self.settings, blue_noise=self.blue_noise, hooks=self.hooks,
+            )
         self._pending = True
+        self._pending_frame = self._frame_index
         self._last_rays = rays
         self._frame_index += 1
         self._last_cpu_time = time.monotonic() - t0
@@ -290,11 +293,13 @@ class RayTracingRenderer(BaseRenderer):
         k_max = max(1, frames_per_dispatch)
         while left > 0:
             k = min(k_max, left)
-            _, rays = render_frames(
-                self.scene, self.env, self.uniforms, self.film,
-                self._frame_index, k, self.settings,
-                blue_noise=self.blue_noise, hooks=self.hooks,
-            )
+            with profiling.span("hala.frame", frame=self._frame_index,
+                                renderer="trace", frames=k):
+                _, rays = render_frames(
+                    self.scene, self.env, self.uniforms, self.film,
+                    self._frame_index, k, self.settings,
+                    blue_noise=self.blue_noise, hooks=self.hooks,
+                )
             rays_acc.append(rays)
             self._frame_index += k
             left -= k

@@ -50,6 +50,7 @@ from ..ops.tonemap import apply_tonemap
 from ..scene.cpu.scene import Scene
 from ..scene.gpu.scene import resolve_device
 from ..scene.loader.uploader import SceneUploader
+from ..utils import profiling
 from ..utils.pfm import write_pfm
 from .renderer import BaseRenderer
 
@@ -208,6 +209,7 @@ def _raster_setup(scene, camera_index: int, settings: RasterSettings,
     """Vertex transform + primitive validity shared by the opaque pass
     and the transparency peel passes. Returns (screen, depth, inv_w,
     valid, visible)."""
+    profiling.count("raster.triangles", scene.geometry.tri_v0.shape[0])
     ss = settings.msaa
     rw, rh = settings.width * ss, settings.height * ss
     geom = scene.geometry
@@ -296,9 +298,10 @@ def gbuffer_pass(scene, camera_index: int, settings: RasterSettings,
     opaque pass under depth peeling)."""
     ss = settings.msaa
     rw, rh = settings.width * ss, settings.height * ss
-    screen, depth, inv_w, valid, visible = _raster_setup(
-        scene, camera_index, settings, hooks, prim_count
-    )
+    with profiling.span("hala.raster.setup"):
+        screen, depth, inv_w, valid, visible = _raster_setup(
+            scene, camera_index, settings, hooks, prim_count
+        )
     if tri_mask is not None:
         valid = valid & tri_mask
 
@@ -333,9 +336,10 @@ def peel_layers_pass(scene, camera_index: int, settings: RasterSettings,
     so relight() re-shades them without re-peeling)."""
     ss = settings.msaa
     rw, rh = settings.width * ss, settings.height * ss
-    screen, dpt, inv_w, valid, _ = _raster_setup(
-        scene, camera_index, settings, hooks, prim_count
-    )
+    with profiling.span("hala.raster.setup"):
+        screen, dpt, inv_w, valid, _ = _raster_setup(
+            scene, camera_index, settings, hooks, prim_count
+        )
     t_valid = valid & _transparent_tris(scene)
     px, py = _pixel_centres(rw, rh, screen.device)
     layers = []
@@ -402,9 +406,10 @@ def raster_frame(scene, camera_index: int, settings: RasterSettings,
         tri_mask=~_transparent_tris(scene) if peel else None,
     )
     cam_pos = scene.cameras.position[camera_index]
-    color, albedo, normal, _ = _shade(scene, frag, cam_pos)
-    if hooks is not None and hooks.fragment is not None:
-        color, albedo, normal = hooks.fragment(color, albedo, normal)
+    with profiling.span("hala.raster.shade"):
+        color, albedo, normal, _ = _shade(scene, frag, cam_pos)
+        if hooks is not None and hooks.fragment is not None:
+            color, albedo, normal = hooks.fragment(color, albedo, normal)
     if peel:
         layers = peel_layers_pass(scene, camera_index, settings, hooks, prim_count)
         color = peel_composite_pass(
@@ -417,12 +422,13 @@ def raster_frame(scene, camera_index: int, settings: RasterSettings,
             return img
         return img.reshape(h, ss, w, ss, ch).mean(dim=(1, 3))
 
-    gbuffer = {
-        "albedo": resolve(albedo, 3),
-        "normal": resolve(normal, 3),
-        "depth": resolve(frag.depth[:, None], 1)[..., 0],
-    }
-    return resolve(color, 3), gbuffer
+    with profiling.span("hala.raster.post"):
+        gbuffer = {
+            "albedo": resolve(albedo, 3),
+            "normal": resolve(normal, 3),
+            "depth": resolve(frag.depth[:, None], 1)[..., 0],
+        }
+        return resolve(color, 3), gbuffer
 
 
 @torch.inference_mode()
@@ -432,9 +438,10 @@ def lighting_pass(scene, frag, camera_index: int, settings: RasterSettings,
     second subpass, rz_renderer.rs:1249-1338)."""
     h, w = settings.height, settings.width
     cam_pos = scene.cameras.position[camera_index]
-    color, albedo, normal, _ = _shade(scene, frag, cam_pos)
-    if hooks is not None and hooks.fragment is not None:
-        color, albedo, normal = hooks.fragment(color, albedo, normal)
+    with profiling.span("hala.raster.shade"):
+        color, albedo, normal, _ = _shade(scene, frag, cam_pos)
+        if hooks is not None and hooks.fragment is not None:
+            color, albedo, normal = hooks.fragment(color, albedo, normal)
     return (
         color.reshape(h, w, 3),
         {
@@ -495,6 +502,7 @@ class RasterizationRenderer(BaseRenderer):
         self.color: torch.Tensor | None = None
         self.gbuffer: dict | None = None
         self.camera_index = 0
+        self._frame_count = 0  # frames dispatched, the spans' frame index
         self._frag = None
         self._peel = None
 
@@ -587,37 +595,41 @@ class RasterizationRenderer(BaseRenderer):
             self.commit()
         self.check_and_restore_device()
         t0 = time.monotonic()
-        cam = self.camera_index
-        if self.settings.deferred:
-            # Two-pass deferred pipeline: the visibility buffer is cached
-            # so lighting can re-run without re-rasterizing (relight()).
-            # Transparent materials stay out of the G-buffer (it cannot
-            # blend) and composite from cached peel layers after lighting.
-            peel = _peel(self.settings, self.scene)
-            self._frag = gbuffer_pass(
-                self.scene, cam, self.settings, self.hooks,
-                tri_mask=~_transparent_tris(self.scene) if peel else None,
-            )
-            self._peel = (
-                peel_layers_pass(self.scene, cam, self.settings, self.hooks)
-                if peel else None
-            )
-            color, gbuffer = lighting_pass(
-                self.scene, self._frag, cam, self.settings, self.hooks,
-            )
-            color = self._composite_peel(color)
-        else:
-            color, gbuffer = raster_frame(
-                self.scene, cam, self.settings, self.hooks,
-            )
-        self._finish(color, gbuffer, ui_fn)
+        with profiling.span("hala.frame", frame=self._frame_count, renderer="raster"):
+            cam = self.camera_index
+            if self.settings.deferred:
+                # Two-pass deferred pipeline: the visibility buffer is cached
+                # so lighting can re-run without re-rasterizing (relight()).
+                # Transparent materials stay out of the G-buffer (it cannot
+                # blend) and composite from cached peel layers after lighting.
+                peel = _peel(self.settings, self.scene)
+                self._frag = gbuffer_pass(
+                    self.scene, cam, self.settings, self.hooks,
+                    tri_mask=~_transparent_tris(self.scene) if peel else None,
+                )
+                self._peel = (
+                    peel_layers_pass(self.scene, cam, self.settings, self.hooks)
+                    if peel else None
+                )
+                color, gbuffer = lighting_pass(
+                    self.scene, self._frag, cam, self.settings, self.hooks,
+                )
+                color = self._composite_peel(color)
+            else:
+                color, gbuffer = raster_frame(
+                    self.scene, cam, self.settings, self.hooks,
+                )
+            self._finish(color, gbuffer, ui_fn)
+        self._pending_frame = self._frame_count
+        self._frame_count += 1
         self._last_cpu_time = time.monotonic() - t0
 
     def _finish(self, color, gbuffer, ui_fn=None) -> None:
-        if self.post_program is not None:
-            color = self.post_program.dispatch(color)
-        if ui_fn is not None:
-            color = ui_fn(color)
+        with profiling.span("hala.raster.post"):
+            if self.post_program is not None:
+                color = self.post_program.dispatch(color)
+            if ui_fn is not None:
+                color = ui_fn(color)
         self._pending = True
         self.color = color
         self.gbuffer = gbuffer

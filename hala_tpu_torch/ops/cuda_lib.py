@@ -9,7 +9,10 @@ launches on the stream it is given, allocates nothing, and returns
 
 Each `Kernel` keeps `launches`, a plain count of the times its kernel
 was launched, so a run can show which kernels its main path went
-through. Nothing here is touched for tensors on the CPU.
+through. The first use's build and load are the spans
+`hala.kernels.build` and `hala.kernels.load`, and a build adds to the
+counter `kernels.builds`. Nothing here is touched for tensors on the
+CPU.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ import tempfile
 import time
 
 import torch
+
+from ..utils import profiling
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -125,8 +130,11 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         newest = max(os.path.getmtime(p) for p in sources() + headers())
         if not os.path.exists(LIB_PATH) or os.path.getmtime(LIB_PATH) < newest:
-            build()
-        _lib = ctypes.CDLL(LIB_PATH)
+            profiling.count("kernels.builds", library=os.path.basename(LIB_PATH))
+            with profiling.span("hala.kernels.build", frame=-1):
+                build()
+        with profiling.span("hala.kernels.load", frame=-1):
+            _lib = ctypes.CDLL(LIB_PATH)
     return _lib
 
 

@@ -27,6 +27,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
+
 # Elements of one (pixels, candidates) temporary: 4M float32 = 16 MB; a
 # chunk step keeps about twenty of them alive.
 _BLOCK_ELEMS = 1 << 22
@@ -270,19 +272,20 @@ def rasterize(
     `seam_dedup` applies a top-left-style fill rule, so a pixel centre
     exactly on an edge shared by two triangles belongs to one of them.
     Ids travel as float32 and must stay below 2^24."""
-    t = tri_screen.shape[0]
-    chunk = min(chunk, t)
-    assert t % chunk == 0, "triangle buffers must be chunk-padded"
-    assert t < (1 << 24), "ids travel as float32"
-    area = signed_area(tri_screen)
-    ids = (torch.arange(t, dtype=torch.int32, device=tri_screen.device)
-           if tri_ids is None else tri_ids)
-    rows = pack_candidates(tri_screen, tri_depth, tri_inv_w, ids, area)
-    ok = (torch.abs(area) > 1e-12) & tri_valid
-    bound = None if depth_bound is None else depth_bound[None]
-    planes = scan(rows[None], ok[None], px[None], py[None], chunk,
-                  bound, seam_dedup)
-    return resolve(*(p[0] for p in planes))
+    with profiling.span("hala.raster.visibility", path="scan"):
+        t = tri_screen.shape[0]
+        chunk = min(chunk, t)
+        assert t % chunk == 0, "triangle buffers must be chunk-padded"
+        assert t < (1 << 24), "ids travel as float32"
+        area = signed_area(tri_screen)
+        ids = (torch.arange(t, dtype=torch.int32, device=tri_screen.device)
+               if tri_ids is None else tri_ids)
+        rows = pack_candidates(tri_screen, tri_depth, tri_inv_w, ids, area)
+        ok = (torch.abs(area) > 1e-12) & tri_valid
+        bound = None if depth_bound is None else depth_bound[None]
+        planes = scan(rows[None], ok[None], px[None], py[None], chunk,
+                      bound, seam_dedup)
+        return resolve(*(p[0] for p in planes))
 
 
 def tile_pixels(n_tiles: int, tw: int, tile: int, device):
@@ -306,16 +309,17 @@ def _raster_tiles(tri_screen, tri_depth, tri_inv_w, ids, sel, tw, th, tile,
     """Each tile's candidate triangles `ids` (n_tiles, K), selected where
     `sel`, scanned in order in chunks -> FragmentBuffer over the image,
     with global triangle ids."""
-    t = tri_screen.shape[0]
-    area = signed_area(tri_screen)
-    packed = pack_candidates(
-        tri_screen, tri_depth, tri_inv_w,
-        torch.arange(t, dtype=torch.int32, device=tri_screen.device), area,
-    )
-    ok = sel & (torch.abs(area) > 1e-12)[ids]
-    px, py = tile_pixels(tw * th, tw, tile, tri_screen.device)
-    planes = scan(packed[ids], ok, px, py, chunk)
-    return resolve(*(untile(p, tw, th, tile, width, height) for p in planes))
+    with profiling.span("hala.raster.visibility", path="plain"):
+        t = tri_screen.shape[0]
+        area = signed_area(tri_screen)
+        packed = pack_candidates(
+            tri_screen, tri_depth, tri_inv_w,
+            torch.arange(t, dtype=torch.int32, device=tri_screen.device), area,
+        )
+        ok = sel & (torch.abs(area) > 1e-12)[ids]
+        px, py = tile_pixels(tw * th, tw, tile, tri_screen.device)
+        planes = scan(packed[ids], ok, px, py, chunk)
+        return resolve(*(untile(p, tw, th, tile, width, height) for p in planes))
 
 
 def _stable_first(mask: torch.Tensor, k: int) -> torch.Tensor:
@@ -355,36 +359,37 @@ def rasterize_meshlet_binned(
     km_max = min(km_max, m)
     dev = tri_screen.device
 
-    smin_t = torch.amin(tri_screen, dim=1)  # (T, 2)
-    smax_t = torch.amax(tri_screen, dim=1)
-    member = torch.clamp(ml_tri, min=0).long()
-    mvalid = (ml_tri >= 0) & tri_valid[member]  # (M, 128)
-    big = 1e9
-    ml_min = torch.amin(
-        torch.where(mvalid[..., None], smin_t[member], big), dim=1
-    )  # (M, 2)
-    ml_max = torch.amax(
-        torch.where(mvalid[..., None], smax_t[member], -big), dim=1
-    )
-    ml_live = ml_visible & torch.any(mvalid, dim=1)
+    with profiling.span("hala.raster.bin"):
+        smin_t = torch.amin(tri_screen, dim=1)  # (T, 2)
+        smax_t = torch.amax(tri_screen, dim=1)
+        member = torch.clamp(ml_tri, min=0).long()
+        mvalid = (ml_tri >= 0) & tri_valid[member]  # (M, 128)
+        big = 1e9
+        ml_min = torch.amin(
+            torch.where(mvalid[..., None], smin_t[member], big), dim=1
+        )  # (M, 2)
+        ml_max = torch.amax(
+            torch.where(mvalid[..., None], smax_t[member], -big), dim=1
+        )
+        ml_live = ml_visible & torch.any(mvalid, dim=1)
 
-    x0, y0 = _tile_origins(n_tiles, tw, tile, dev)
-    overlap = (
-        ml_live[None]
-        & (ml_max[None, :, 0] >= x0[:, None])
-        & (ml_min[None, :, 0] <= x0[:, None] + tile)
-        & (ml_max[None, :, 1] >= y0[:, None])
-        & (ml_min[None, :, 1] <= y0[:, None] + tile)
-    )  # (n_tiles, M)
-    count = overlap.sum(dim=1)
-    mids = _stable_first(overlap, km_max).long()  # (n_tiles, km)
-    msel = torch.arange(km_max, device=dev)[None] < count[:, None]
+        x0, y0 = _tile_origins(n_tiles, tw, tile, dev)
+        overlap = (
+            ml_live[None]
+            & (ml_max[None, :, 0] >= x0[:, None])
+            & (ml_min[None, :, 0] <= x0[:, None] + tile)
+            & (ml_max[None, :, 1] >= y0[:, None])
+            & (ml_min[None, :, 1] <= y0[:, None] + tile)
+        )  # (n_tiles, M)
+        count = overlap.sum(dim=1)
+        mids = _stable_first(overlap, km_max).long()  # (n_tiles, km)
+        msel = torch.arange(km_max, device=dev)[None] < count[:, None]
 
-    # mesh stage: expand candidate meshlets to their triangle lists
-    tris = ml_tri[mids]                            # (n_tiles, km, 128)
-    tsel = msel[..., None] & (tris >= 0)
-    ids = torch.clamp(tris, min=0).reshape(n_tiles, -1).long()
-    sel = tsel.reshape(n_tiles, -1) & tri_valid[ids]
+        # mesh stage: expand candidate meshlets to their triangle lists
+        tris = ml_tri[mids]                            # (n_tiles, km, 128)
+        tsel = msel[..., None] & (tris >= 0)
+        ids = torch.clamp(tris, min=0).reshape(n_tiles, -1).long()
+        sel = tsel.reshape(n_tiles, -1) & tri_valid[ids]
     frag = _raster_tiles(tri_screen, tri_depth, tri_inv_w, ids, sel, tw, th,
                          tile, width, height, 128)
     return frag, (count > km_max).to(torch.float32).mean()
@@ -416,53 +421,54 @@ def _rasterize_tiled_scatter(
     kb = min(k_max, t)
     lmax = min(large_max, t)
 
-    smin = torch.amin(tri_screen, dim=1)  # (T, 2)
-    smax = torch.amax(tri_screen, dim=1)
-    onscreen = (
-        tri_valid
-        & (smax[:, 0] >= 0.0) & (smin[:, 0] <= width)
-        & (smax[:, 1] >= 0.0) & (smin[:, 1] <= height)
-    )
-    bx0, bx1, by0, by1 = tile_span(smin, smax, tile, tw, th)
-    spanx = bx1 - bx0
-    spany = by1 - by0
-    small = onscreen & (spanx <= 1) & (spany <= 1)
+    with profiling.span("hala.raster.bin"):
+        smin = torch.amin(tri_screen, dim=1)  # (T, 2)
+        smax = torch.amax(tri_screen, dim=1)
+        onscreen = (
+            tri_valid
+            & (smax[:, 0] >= 0.0) & (smin[:, 0] <= width)
+            & (smax[:, 1] >= 0.0) & (smin[:, 1] <= height)
+        )
+        bx0, bx1, by0, by1 = tile_span(smin, smax, tile, tw, th)
+        spanx = bx1 - bx0
+        spany = by1 - by0
+        small = onscreen & (spanx <= 1) & (spany <= 1)
 
-    ids = torch.arange(t, dtype=torch.int32, device=dev)
-    sent = n_tiles
-    keys = []
-    for dx in (0, 1):
-        for dy in (0, 1):
-            ok = small & (spanx >= dx) & (spany >= dy)
-            cell = (by0 + dy) * tw + (bx0 + dx)
-            keys.append(torch.where(ok, cell, sent))
-    key4 = torch.cat(keys)
-    id4 = torch.cat([ids] * 4)
-    k_s, order = torch.sort(key4, stable=True)
-    p_s = id4[order]
-    # rank within bucket: index minus the bucket's first sorted index
-    iota = torch.arange(4 * t, device=dev)
-    is_start = torch.ones_like(k_s, dtype=torch.bool)
-    is_start[1:] = k_s[1:] != k_s[:-1]
-    pos = iota - torch.cummax(torch.where(is_start, iota, 0), dim=0).values
-    slot = torch.where((k_s < sent) & (pos < kb), k_s * kb + pos, n_tiles * kb)
-    tbl = torch.full((n_tiles * kb + 1,), -1, dtype=torch.int32, device=dev)
-    tbl[slot] = p_s  # unique slots, but for the dropped overflow slot
-    tbl = tbl[:n_tiles * kb].reshape(n_tiles, kb)
-    cnt = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev).scatter_reduce(
-        0, torch.clamp(k_s, max=sent).long(), pos + 1, reduce="amax"
-    )
-    tile_over = cnt[:n_tiles] > kb
+        ids = torch.arange(t, dtype=torch.int32, device=dev)
+        sent = n_tiles
+        keys = []
+        for dx in (0, 1):
+            for dy in (0, 1):
+                ok = small & (spanx >= dx) & (spany >= dy)
+                cell = (by0 + dy) * tw + (bx0 + dx)
+                keys.append(torch.where(ok, cell, sent))
+        key4 = torch.cat(keys)
+        id4 = torch.cat([ids] * 4)
+        k_s, order = torch.sort(key4, stable=True)
+        p_s = id4[order]
+        # rank within bucket: index minus the bucket's first sorted index
+        iota = torch.arange(4 * t, device=dev)
+        is_start = torch.ones_like(k_s, dtype=torch.bool)
+        is_start[1:] = k_s[1:] != k_s[:-1]
+        pos = iota - torch.cummax(torch.where(is_start, iota, 0), dim=0).values
+        slot = torch.where((k_s < sent) & (pos < kb), k_s * kb + pos, n_tiles * kb)
+        tbl = torch.full((n_tiles * kb + 1,), -1, dtype=torch.int32, device=dev)
+        tbl[slot] = p_s  # unique slots, but for the dropped overflow slot
+        tbl = tbl[:n_tiles * kb].reshape(n_tiles, kb)
+        cnt = torch.zeros(n_tiles + 1, dtype=torch.int64, device=dev).scatter_reduce(
+            0, torch.clamp(k_s, max=sent).long(), pos + 1, reduce="amax"
+        )
+        tile_over = cnt[:n_tiles] > kb
 
-    big = onscreen & ~small
-    l_ids = _stable_first(big, lmax).long()
-    sel_big = big[l_ids]
-    big_over = big.sum() > lmax
+        big = onscreen & ~small
+        l_ids = _stable_first(big, lmax).long()
+        sel_big = big[l_ids]
+        big_over = big.sum() > lmax
 
-    ids_tbl = torch.cat(
-        [torch.clamp(tbl, min=0).long(), l_ids[None].expand(n_tiles, -1)], dim=1
-    )
-    sel = torch.cat([tbl >= 0, sel_big[None].expand(n_tiles, -1)], dim=1)
+        ids_tbl = torch.cat(
+            [torch.clamp(tbl, min=0).long(), l_ids[None].expand(n_tiles, -1)], dim=1
+        )
+        sel = torch.cat([tbl >= 0, sel_big[None].expand(n_tiles, -1)], dim=1)
     frag = _raster_tiles(tri_screen, tri_depth, tri_inv_w, ids_tbl, sel, tw,
                          th, tile, width, height, kb + lmax)
     return frag, (tile_over | big_over).to(torch.float32).mean()
@@ -524,26 +530,27 @@ def rasterize_tiled(
     n_tiles = tw * th
     k_max = min(k_max, t)
 
-    smin = torch.amin(tri_screen, dim=1)  # (T, 2)
-    smax = torch.amax(tri_screen, dim=1)
-    x0, y0 = _tile_origins(n_tiles, tw, tile, dev)
-    # (tiles, T) overlap and its stable sort, in blocks of tiles
-    ids = torch.empty((n_tiles, k_max), dtype=torch.int64, device=dev)
-    count = torch.empty((n_tiles,), dtype=torch.int64, device=dev)
-    step = max(1, _BLOCK_ELEMS // t)
-    for b0 in range(0, n_tiles, step):
-        b1 = min(n_tiles, b0 + step)
-        bx, by = x0[b0:b1, None], y0[b0:b1, None]
-        overlap = (
-            tri_valid[None]
-            & (smax[None, :, 0] >= bx)
-            & (smin[None, :, 0] <= bx + tile)
-            & (smax[None, :, 1] >= by)
-            & (smin[None, :, 1] <= by + tile)
-        )
-        count[b0:b1] = overlap.sum(dim=1)
-        ids[b0:b1] = _stable_first(overlap, k_max).long()
-    sel = torch.arange(k_max, device=dev)[None] < count[:, None]
+    with profiling.span("hala.raster.bin"):
+        smin = torch.amin(tri_screen, dim=1)  # (T, 2)
+        smax = torch.amax(tri_screen, dim=1)
+        x0, y0 = _tile_origins(n_tiles, tw, tile, dev)
+        # (tiles, T) overlap and its stable sort, in blocks of tiles
+        ids = torch.empty((n_tiles, k_max), dtype=torch.int64, device=dev)
+        count = torch.empty((n_tiles,), dtype=torch.int64, device=dev)
+        step = max(1, _BLOCK_ELEMS // t)
+        for b0 in range(0, n_tiles, step):
+            b1 = min(n_tiles, b0 + step)
+            bx, by = x0[b0:b1, None], y0[b0:b1, None]
+            overlap = (
+                tri_valid[None]
+                & (smax[None, :, 0] >= bx)
+                & (smin[None, :, 0] <= bx + tile)
+                & (smax[None, :, 1] >= by)
+                & (smin[None, :, 1] <= by + tile)
+            )
+            count[b0:b1] = overlap.sum(dim=1)
+            ids[b0:b1] = _stable_first(overlap, k_max).long()
+        sel = torch.arange(k_max, device=dev)[None] < count[:, None]
     frag = _raster_tiles(tri_screen, tri_depth, tri_inv_w, ids, sel, tw, th,
                          tile, width, height, k_max)
     return frag, (count > k_max).to(torch.float32).mean()

@@ -37,6 +37,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import profiling
 from . import cuda_lib
 from .raster import (
     ROW_WIDTH,
@@ -350,7 +351,9 @@ def rasterize_tiled_exact(
     Returns (FragmentBuffer flat over pixels, overflow flag in {0.0,
     1.0}). Overflow fires only on the three static selection bounds;
     per-tile counts are never capped."""
-    seg = build_segments(tri_screen, tri_depth, tri_inv_w, tri_valid,
-                         width, height, tile, mid_max, huge_max, cand_cap)
-    planes = raster_segments(seg.starts, seg.data, seg.tw, seg.tile)
-    return segments_to_fragments(planes, seg, width, height), seg.over
+    with profiling.span("hala.raster.bin"):
+        seg = build_segments(tri_screen, tri_depth, tri_inv_w, tri_valid,
+                             width, height, tile, mid_max, huge_max, cand_cap)
+    with profiling.span("hala.raster.visibility", path="k3"):
+        planes = raster_segments(seg.starts, seg.data, seg.tw, seg.tile)
+        return segments_to_fragments(planes, seg, width, height), seg.over

@@ -69,6 +69,7 @@ from .cluster import (  # noqa: F401  (slab_live, PRETEST_PER_CHUNK: K2's API)
 from .cull import _ID_MASK, CULL_MAX_CLUSTERS, INF_KEY, cull_topk, geometry_unions
 from .intersect import EPS, T_MIN, Hit, canonical_hit, full_t_max, mt_components
 from .compaction import coherence_key, order_by
+from ..utils import profiling
 
 MATRIX_MAX_CLUSTERS = (1 << 13) - 1
 MATRIX_BLOCK_RAYS = 128  # rays sharing one K2 walk (csrc/matrix_traverse.cu)
@@ -1044,18 +1045,20 @@ def matrix_query(
 
         return intersect_wavefront(o, d, g, t_max=tm, any_hit=any_hit,
                                    k_per_ray=wavefront_k, m_group=wavefront_m)
-    if sort_key == "signature":
-        from .wavefront import signature_key
+    with profiling.span("hala.sort"):
+        if sort_key == "signature":
+            from .wavefront import signature_key
 
-        pk, _ = cull_topk(o, d, tm, g.cluster_min, g.cluster_max, k=4,
-                          unions=geometry_unions(g)[0])
-        key = signature_key(pk)
-    else:
-        key = _coherence_key(o, d, tm, g.cluster_min, g.cluster_max)
-    order, inverse = order_by(key)
-    o_s, d_s, tm_s = o[order], d[order], tm[order]
+            pk, _ = cull_topk(o, d, tm, g.cluster_min, g.cluster_max, k=4,
+                              unions=geometry_unions(g)[0])
+            key = signature_key(pk)
+        else:
+            key = _coherence_key(o, d, tm, g.cluster_min, g.cluster_max)
+        order, inverse = order_by(key)
+        o_s, d_s, tm_s = o[order], d[order], tm[order]
     if kernel == "grouped":
         hit = intersect_grouped(o_s, d_s, g, t_max=tm_s, any_hit=any_hit)
     else:
         hit = intersect_matrix(o_s, d_s, g, t_max=tm_s, any_hit=any_hit)
-    return Hit(*(x[inverse] for x in hit))
+    with profiling.span("hala.sort"):
+        return Hit(*(x[inverse] for x in hit))

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 from ...error import HalaRendererError
+from ...utils import profiling
 from .node import Node
 from .mesh import Mesh
 from .material import Material, MediumType
@@ -44,7 +45,8 @@ class Scene:
         if lower.endswith(".gltf") or lower.endswith(".glb"):
             from ..loader.gltf_loader import GltfLoader
 
-            scene = GltfLoader.load(path)
+            with profiling.span("hala.load"):
+                scene = GltfLoader.load(path)
         else:
             raise HalaRendererError(f"Unsupported scene file format: {path}")
         scene.update_node_hierarchies()

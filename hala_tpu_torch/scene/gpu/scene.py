@@ -55,6 +55,18 @@ class TensorTables:
             out[f.name] = v
         return dataclasses.replace(self, **out)
 
+    def nbytes(self) -> int:
+        """Bytes of every tensor held, nested tables included (read from
+        the shapes: no device access)."""
+        total = 0
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, torch.Tensor):
+                total += v.nbytes
+            elif isinstance(v, TensorTables):
+                total += v.nbytes()
+        return total
+
     @property
     def device(self) -> torch.device:
         for f in dataclasses.fields(self):

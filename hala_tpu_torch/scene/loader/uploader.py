@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ...error import HalaRendererError
+from ...utils import profiling
 from ...ops.cluster import cluster_boxes, pack_slots
 from ..cpu.scene import Scene
 from ..cpu.camera import PerspectiveCamera, OrthographicCamera
@@ -87,43 +88,52 @@ class SceneUploader:
         use_ray_tracing: bool = True,
         device="cuda",
     ) -> DeviceScene:
-        dev = resolve_device(device)
-        cameras = SceneUploader._upload_cameras(scene, dev)
-        lights = SceneUploader._upload_lights(scene, dev)
-        materials = SceneUploader._upload_materials(scene, dev)
-        geometry = SceneUploader._upload_geometry(scene, dev)
-        textures = SceneUploader._upload_textures(scene, dev)
+        with profiling.span("hala.upload"):
+            dev = resolve_device(device)
+            cameras = SceneUploader._upload_cameras(scene, dev)
+            lights = SceneUploader._upload_lights(scene, dev)
+            materials = SceneUploader._upload_materials(scene, dev)
+            with profiling.span("hala.upload.geometry"):
+                geometry = SceneUploader._upload_geometry(scene, dev)
+            with profiling.span("hala.upload.textures"):
+                textures = SceneUploader._upload_textures(scene, dev)
 
-        # flattened primitive id -> node index, in the same enumeration
-        # order as _upload_geometry's prim_id (animation delta routing)
-        prim_node = tuple(
-            ni
-            for ni, node in enumerate(scene.nodes)
-            if node.mesh_index is not None
-            for _ in scene.meshes[node.mesh_index].primitives
-        )
-        meshlets = None
-        if use_mesh_shader:
-            from ...ops.meshlets import build_scene_meshlets
+            # flattened primitive id -> node index, in the same enumeration
+            # order as _upload_geometry's prim_id (animation delta routing)
+            prim_node = tuple(
+                ni
+                for ni, node in enumerate(scene.nodes)
+                if node.mesh_index is not None
+                for _ in scene.meshes[node.mesh_index].primitives
+            )
+            meshlets = None
+            if use_mesh_shader:
+                from ...ops.meshlets import build_scene_meshlets
 
-            build_scene_meshlets(scene, global_meshlets=use_global_meshlets)
-            meshlets = SceneUploader._upload_meshlets(scene, geometry, dev)
-        bvh = None
-        if use_ray_tracing:
-            from ...ops.bvh import build_bvh
+                build_scene_meshlets(scene, global_meshlets=use_global_meshlets)
+                meshlets = SceneUploader._upload_meshlets(scene, geometry, dev)
+            bvh = None
+            if use_ray_tracing:
+                from ...ops.bvh import build_bvh
 
-            bvh = build_bvh(geometry)
-        return DeviceScene(
-            geometry=geometry,
-            materials=materials,
-            lights=lights,
-            cameras=cameras,
-            textures=textures,
-            meshlets=meshlets,
-            bvh=bvh,
-            procedural=SceneUploader._upload_procedural(scene, dev),
-            prim_node=prim_node,
-        )
+                with profiling.span("hala.upload.bvh"):
+                    bvh = build_bvh(geometry)
+            out = DeviceScene(
+                geometry=geometry,
+                materials=materials,
+                lights=lights,
+                cameras=cameras,
+                textures=textures,
+                meshlets=meshlets,
+                bvh=bvh,
+                procedural=SceneUploader._upload_procedural(scene, dev),
+                prim_node=prim_node,
+            )
+            if profiling.enabled():
+                profiling.count("upload.triangles", geometry.num_triangles)
+                profiling.count("upload.clusters", geometry.tri_packed.shape[0])
+                profiling.count("upload.bytes", out.nbytes())
+            return out
 
     # -- procedural primitives -------------------------------------------
 
@@ -471,7 +481,8 @@ class SceneUploader:
         tri_lo = np.minimum(np.minimum(v0, v0 + e1), v0 + e2)
         tri_hi = np.maximum(np.maximum(v0, v0 + e1), v0 + e2)
         if n_tris > SAH_MIN_TRIS:
-            slots = sah_slot_map(tri_lo, tri_hi, TRI_PAD)
+            with profiling.span("hala.upload.sah"):
+                slots = sah_slot_map(tri_lo, tri_hi, TRI_PAD)
             prefix_layout = False
         else:
             from ...ops.morton import morton3d_np

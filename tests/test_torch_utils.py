@@ -1,7 +1,7 @@
 """The port's utilities against the JAX package's: `RenderConfig` (the
 same JSON both ways), render-state checkpoints (a file either package
-writes loads in the other) and the profiling hooks (mirror of
-tests/test_features.py `test_frame_timer_and_annotation`)."""
+writes loads in the other) and the Chrome trace exporter, which draws
+the tracer's spans (tests/test_torch_tracing.py holds the tracer)."""
 
 import dataclasses
 import json
@@ -21,7 +21,8 @@ from hala_tpu_torch.scene.loader.uploader import SceneUploader
 from hala_tpu_torch.scene.procedural import cornell_box
 from hala_tpu_torch.utils.checkpoint import load_render_state, save_render_state
 from hala_tpu_torch.utils.config import RenderConfig
-from hala_tpu_torch.utils.profiling import FrameTimer, annotate, trace
+from hala_tpu_torch.utils import profiling
+from hala_tpu_torch.utils.profiling import trace
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -147,25 +148,23 @@ def test_resume_continues_progressive(tmp_path, cornell_dev):
 # --- profiling ----------------------------------------------------------------
 
 
-def test_frame_timer_and_annotation(cornell_dev):
-    timer = FrameTimer()
+def test_trace_writes_a_chrome_trace(tmp_path, cornell_dev):
+    """Inside `trace()` spans are on and drawn as named ranges; after it
+    tracing is off again."""
+    log_dir = str(tmp_path / "profile")
     settings = RenderSettings(width=8, height=8, max_depth=1, tile_size=64,
                               intersector="bruteforce")
     film = Film.create(8, 8, "cpu")
-    with annotate("frame"):
-        with timer.section("render") as h:
-            render_frame(cornell_dev, None, Uniforms.default("cpu"), film, 0, settings)
-            h["result"] = film.accum
-    assert timer.times["render"] > 0
-    assert "render" in timer.report()
-
-
-def test_trace_writes_a_chrome_trace(tmp_path, cornell_dev):
-    log_dir = str(tmp_path / "profile")
-    with trace(log_dir) as out:
-        with annotate("hala_frame"):
-            torch.ones(64).sum()
-    assert out == log_dir
-    with open(os.path.join(log_dir, "trace.json")) as f:
-        events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "hala_frame" for e in events)
+    assert not profiling.enabled()
+    try:
+        with trace(log_dir) as out:
+            with profiling.span("hala.frame", frame=0):
+                render_frame(cornell_dev, None, Uniforms.default("cpu"), film, 0, settings)
+        assert not profiling.enabled()
+        assert out == log_dir
+        with open(os.path.join(log_dir, "trace.json")) as f:
+            names = {e.get("name") for e in json.load(f)["traceEvents"]}
+        assert {"hala.frame", "hala.raygen", "hala.query", "hala.shade", "hala.film"} <= names
+        assert [s.name for s in profiling.spans() if s.parent == -1] == ["hala.frame"]
+    finally:
+        profiling.reset()
