@@ -163,9 +163,10 @@ Phases, in order; any failure raises and exits non-zero:
      queries through their kernels' plain versions;
   6. bench.py's raster cells through RasterizationRenderer with the
      ACES post program: raster_atrium (atrium_big 1920x1088, binned,
-     tile 64; must launch K3) and raster (Cornell 1920x1088, binned; the
-     plain per-tile path, no K3), each one warm-up frame then timed
-     frames, and a torch.profiler window over raster_atrium frames;
+     tile 64; must launch K3) and raster (Cornell 1920x1088, binned;
+     K3 too, as on the card every mesh it can lay out), each one warm-up
+     frame then timed frames, and a torch.profiler window over
+     raster_atrium frames;
   7. save_images and a finiteness check of the PFMs.
 Phases 4-6 are the main path: launch counts are zeroed just before each
 render and read just after. bench.py's invariants (film or image mean
@@ -1983,10 +1984,13 @@ def check_k3_skip_table(dev, reps: int, size: int = 256, n_dense: int = 5200,
     return rec
 
 
-def check_k3(dev_scene, reps: int, w: int = 1920, h: int = 1088,
+def check_k3(dev_scene, cornell_dev, reps: int, w: int = 1920, h: int = 1088,
              small: int = 256):
     """K3 (csrc/raster_tiled.cu) vs its plain version at the bench
-    shape, and the exact path vs the full scan at small x small."""
+    shape, on `dev_scene` and on the Cornell raster frame's 128 slots
+    (with the bounds `rasterize_tiled` routes it with, and the routed
+    frame against the capped per-tile path), and the exact path vs the
+    full scan at small x small."""
     import torch
 
     from hala_tpu_torch.ops import raster as rr
@@ -2017,6 +2021,27 @@ def check_k3(dev_scene, reps: int, w: int = 1920, h: int = 1088,
         f"pairs, longest segment {int(seg_len.max())}, median "
         f"{int(seg_len.median())}, {n_tiles} tiles; {covered:.3f} of pixels "
         f"covered")
+
+    ct = raster_inputs(cornell_dev, w, h, tile)
+    c_seg = k3.build_segments(*ct, w, h, tile, **k3.unbounded(ct[0].shape[0], n_tiles))
+    c_args = (c_seg.starts, c_seg.data, c_seg.tw, c_seg.tile)
+    ck = k3.raster_segments(*c_args)
+    cp = k3.raster_segments_plain(*c_args)
+    routed, r_over = rr.rasterize_tiled(*ct, w, h, tile=tile)
+    capped, c_over = rr.rasterize_tiled(*ct, w, h, tile=tile, scatter=False)
+    torch.cuda.synchronize()
+    equal_planes(f"K3 vs plain, Cornell {w}x{h}", ck, cp)
+    for label in ("depth", "tri", "u", "v"):
+        x, y = getattr(routed, label), getattr(capped, label)
+        if not torch.equal(x.view(torch.int32), y.view(torch.int32)):
+            raise AssertionError(f"Cornell {w}x{h}: routed vs capped {label} differs")
+    if float(c_seg.over) or float(r_over) or float(c_over):
+        raise AssertionError(f"Cornell {w}x{h}: overflow {float(c_seg.over)}, "
+                             f"{float(r_over)}, {float(c_over)}")
+    log(f"  K3 vs plain, Cornell {w}x{h} tile {tile} ({ct[0].shape[0]} slots): "
+        f"depth, tri, uw, vw, iw equal bit for bit, overflow 0, n_real "
+        f"{int(c_seg.n_real)}; the routed frame's depth, tri, u, v equal the "
+        f"capped per-tile path's bit for bit")
 
     s2 = raster_inputs(dev_scene, small, small, tile)
     f_exact, over2 = k3.rasterize_tiled_exact(*s2, small, small, tile=tile)
@@ -3871,7 +3896,7 @@ def main() -> int:
     small = mixed_batch(big_dev, 256, 128, 32768, 31)
     big = mixed_batch(big_dev, 1024, 1024, 1 << 20, 33)
     k2_rec = check_k2(big_dev, small, big, reps=6)
-    k3_rec = check_k3(big_dev, reps=10)
+    k3_rec = check_k3(big_dev, cornell_dev, reps=10)
     k3_skip = check_k3_skip_table(dev, reps=10)
     k4_rec = check_k4(big_dev, small, big, reps=5)
     k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
@@ -4092,8 +4117,11 @@ def main() -> int:
     cuda_lib.reset_launches()
     rc_out = run_raster(rc, "raster", card)
     after_rc = cuda_lib.launches()
-    if any(after_rc.values()):
-        raise AssertionError(f"raster (Cornell) launches {after_rc}")
+    frames_rc = RASTER_FRAMES["raster"] + 1
+    if (after_rc["raster_tiled"] != frames_rc
+            or any(n for k, n in after_rc.items() if k != "raster_tiled")):
+        raise AssertionError(f"raster (Cornell) launches {after_rc}, expected "
+                             f"{frames_rc} of raster_tiled and nothing else")
     log(f"  launches: raster_atrium {after_ra}, raster {after_rc}")
     ra_stages = raster_stages(ra, 5, card)
     ra_prof = profile_frames("raster_atrium", ra.update, 3, ra_out["ms_per_frame"],

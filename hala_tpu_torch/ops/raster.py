@@ -6,8 +6,9 @@ depth test with CompareOp::GREATER (rz_renderer.rs:494) and the
 negative-viewport y-flip (rz_renderer.rs:861-869). The fixed-function
 rasterizer becomes a chunked scan: every pixel tests triangle chunks
 with edge functions and keeps the reverse-Z max depth. Tile binning
-restricts each tile's candidate list; large meshes route to the exact
-segment kernel of `ops/raster_kernel.py`.
+restricts each tile's candidate list. `rasterize_tiled` routes every
+mesh that the exact segment kernel of `ops/raster_kernel.py` (K3) can
+lay out to it, on the card and on the CPU alike (`tiled_route`).
 
 Perspective-correct interpolation uses 1/w-weighted barycentrics.
 
@@ -487,6 +488,20 @@ def tile_span(smin, smax, tile: int, tw: int, th: int):
             span(smin[:, 1], th), span(smax[:, 1], th))
 
 
+def tiled_route(t: int, tile: int, n_tiles: int) -> str:
+    """The path `rasterize_tiled(scatter=None)` takes for `t` triangle
+    slots on `n_tiles` tiles of `tile` x `tile` pixels: "k3" (the exact
+    segment path) wherever `raster_kernel.lays_out` accepts the layout,
+    else "plain" (the capped per-tile scan, which on the card emulates
+    each fused multiply-add in float64). The JAX package sends only
+    meshes of more than 4096 triangles to its segment kernel; both
+    paths give the full scan's image (`rasterize`) bit for bit wherever
+    no tile's candidate list clips at k_max."""
+    from .raster_kernel import lays_out
+
+    return "k3" if lays_out(t, tile, n_tiles) else "plain"
+
+
 def rasterize_tiled(
     tri_screen: torch.Tensor,   # (T, 3, 2)
     tri_depth: torch.Tensor,    # (T, 3)
@@ -501,33 +516,45 @@ def rasterize_tiled(
     """Tile-binned rasterization: triangles are binned to screen tiles
     by their screen AABB; each tile tests only its candidate list.
 
-    Returns (FragmentBuffer flat over pixels, overflow fraction of tiles
-    whose candidate list clipped at k_max). `scatter=None` routes meshes
-    of more than 4096 triangles to the exact segment kernel
-    (ops/raster_kernel.py, no per-tile cap) when tile*tile is a multiple
-    of 128, as the JAX package does; `scatter="exact"` forces it,
-    `scatter=True` the capped scatter table, `scatter=False` the capped
-    per-tile-overlap path."""
+    Returns (FragmentBuffer flat over pixels, overflow). `scatter=None`
+    routes by `tiled_route`: every mesh K3 can lay out goes to the exact
+    segment kernel (ops/raster_kernel.py, no per-tile cap; overflow is
+    its 0/1 flag of a static bound, sized by `unbounded` up to 4096
+    triangles so that it reads 0), the rest to the capped
+    per-tile-overlap path (overflow is the fraction of tiles whose
+    candidate list clipped at k_max). `scatter="exact"` forces the exact
+    path with the JAX package's bounds, `scatter=True` the capped
+    scatter table, `scatter=False` the capped per-tile-overlap path.
+    The counter `raster.path` counts the path taken."""
     t = tri_screen.shape[0]
-    lane_ok = (tile * tile) % 128 == 0
-    if scatter is None:
-        scatter = "exact" if (t > 4096 and lane_ok) else False
-    if scatter == "exact":
-        from .raster_kernel import rasterize_tiled_exact
-
-        return rasterize_tiled_exact(
-            tri_screen, tri_depth, tri_inv_w, tri_valid,
-            width, height, tile=tile,
-        )
-    if scatter:
-        return _rasterize_tiled_scatter(
-            tri_screen, tri_depth, tri_inv_w, tri_valid,
-            width, height, tile, k_max,
-        )
     dev = tri_screen.device
     tw = -(-width // tile)
     th = -(-height // tile)
     n_tiles = tw * th
+    bounds = {}
+    if scatter is None:
+        scatter = "exact" if tiled_route(t, tile, n_tiles) == "k3" else False
+        if scatter and t <= 4096:
+            from .raster_kernel import unbounded
+
+            # a table of every key: at most 4096 x (68 + 2047) rows of
+            # 64 B; above 4096 triangles, the JAX package's bounds
+            bounds = unbounded(t, n_tiles)
+    if scatter == "exact":
+        from .raster_kernel import rasterize_tiled_exact
+
+        profiling.count("raster.path", path="k3")
+        return rasterize_tiled_exact(
+            tri_screen, tri_depth, tri_inv_w, tri_valid,
+            width, height, tile=tile, **bounds,
+        )
+    if scatter:
+        profiling.count("raster.path", path="scatter")
+        return _rasterize_tiled_scatter(
+            tri_screen, tri_depth, tri_inv_w, tri_valid,
+            width, height, tile, k_max,
+        )
+    profiling.count("raster.path", path="plain")
     k_max = min(k_max, t)
 
     with profiling.span("hala.raster.bin"):

@@ -29,6 +29,10 @@ than `cand_cap` (tile, candidate) pairs. Nothing on the CUDA path waits
 on the host: the segment starts and the real pair count stay on the
 device. The wrapper launches K3 for CUDA tensors and runs the plain
 version for CPU tensors; there is no other fallback.
+
+`ops/raster.rasterize_tiled` sends here every mesh K3 can lay out
+(`lays_out`), with bounds that cannot bind (`unbounded`) up to 4096
+triangles, and the JAX package's bounds above, where it routes too.
 """
 
 from __future__ import annotations
@@ -80,6 +84,24 @@ class Segments(NamedTuple):
     tile: int
 
 
+def lays_out(t: int, tile: int, n_tiles: int) -> bool:
+    """Whether `build_segments` can lay out `t` triangle slots on
+    `n_tiles` tiles of `tile` x `tile` pixels: ids fit the fused key's
+    20 bits, cell << 20 fits 31, and tile*tile is a multiple of 128
+    (so `tile` is a multiple of SUB_TILE)."""
+    return (t < (1 << _ID_BITS) and (n_tiles << _ID_BITS) < (1 << 31)
+            and (tile * tile) % 128 == 0)
+
+
+def unbounded(t: int, n_tiles: int) -> dict:
+    """`build_segments` bounds at which none of the three static bounds
+    can bind for `t` slots on `n_tiles` tiles: every mid and huge
+    triangle enumerated, and a table that holds every key (4 a small
+    triangle, _MID_SPAN^2 a mid one, one a tile a huge one)."""
+    return dict(mid_max=t, huge_max=t,
+                cand_cap=t * (4 + _MID_SPAN * _MID_SPAN + n_tiles))
+
+
 def build_segments(
     tri_screen: torch.Tensor,   # (T, 3, 2)
     tri_depth: torch.Tensor,    # (T, 3)
@@ -96,12 +118,12 @@ def build_segments(
     candidate table (raster_kernel.py:171-303 of the JAX package)."""
     t = tri_screen.shape[0]
     dev = tri_screen.device
-    assert t < (1 << _ID_BITS), "fused sort key holds ids < 2^20"
     tw = -(-width // tile)
     th = -(-height // tile)
     n_tiles = tw * th
-    assert n_tiles * (1 << _ID_BITS) < (1 << 31), "cell bits overflow"
-    assert (tile * tile) % 128 == 0, "tile*tile must be lane-divisible"
+    assert lays_out(t, tile, n_tiles), (
+        f"{t} slots on {n_tiles} tiles of {tile}: ids must be < 2^20, "
+        "cell << 20 < 2^31 and tile*tile lane-divisible")
     mid_max = min(mid_max, t)
     huge_max = min(huge_max, t)
 

@@ -175,6 +175,116 @@ def test_k3_nan_depth_cancels_its_chunk(cuda_device):
     assert (got[1].reshape(16, 16)[5:10, :4] == -1).all()
 
 
+def _cornell_path_scene():
+    """The benchmark's Cornell Box (bench_port/configs/cornell.json,
+    built by bench_port/lib/quadscene.py) with one camera node for each
+    pose of the raster traffic's path: offsets drawn uniformly from
+    [-s, s]^3 (s the config's `camera_offset`) by `camera_path_seed`, as
+    the benchmark draws them. Returns (host scene, traffic)."""
+    import copy
+    import importlib.util
+    import json
+
+    bench = os.path.join(os.path.dirname(os.path.abspath(HERE)), "bench_port")
+    with open(os.path.join(bench, "configs", "cornell.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(bench, "traffic", "raster_1080p.json")) as f:
+        traffic = json.load(f)
+    spec = importlib.util.spec_from_file_location(
+        "bench_port_quadscene", os.path.join(bench, "lib", "quadscene.py"))
+    quadscene = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(quadscene)
+    host = quadscene.build(config["scene"])
+    (cam,) = [n for n in host.nodes if n.camera_index is not None]
+    drawn = np.random.default_rng(traffic["camera_path_seed"]).uniform(
+        -1.0, 1.0, (traffic["camera_poses"], 3)).astype(np.float32)
+    base = cam.local_transform.copy()
+    for k, offset in enumerate(drawn * np.float32(config["camera_offset"])):
+        node = cam if k == 0 else copy.deepcopy(cam)
+        node.local_transform = base.copy()
+        node.local_transform[:3, 3] += offset
+        if k:
+            node.children = []
+            host.nodes.append(node)
+            if node.parent is not None:
+                host.nodes[node.parent].children.append(len(host.nodes) - 1)
+    host.update_node_hierarchies()
+    return host, traffic
+
+
+def test_cornell_raster_routes_to_k3(cuda_device):
+    """The benchmark's Cornell raster frame (128 slots, 1920x1088, tile
+    64) at each of its 8 camera poses: the binned G-buffer pass takes
+    K3, one launch a frame, the `raster.path` counter reads `k3` once a
+    frame, and its fragments equal the capped per-tile path's bit for
+    bit."""
+    from hala_tpu_torch.models.rz_renderer import RasterSettings, _raster_setup, gbuffer_pass
+    from hala_tpu_torch.ops.raster import rasterize_tiled
+    from hala_tpu_torch.utils import profiling
+
+    host, tr = _cornell_path_scene()
+    scene = SceneUploader.upload(host, use_ray_tracing=False, device=cuda_device)
+    assert scene.geometry.tri_v0.shape[0] == 128
+    settings = RasterSettings(tr["width"], tr["height"], binned=True, tile=tr["tile"])
+    for k in range(tr["camera_poses"]):
+        before = cuda_lib.RASTER_TILED.launches
+        profiling.reset()
+        profiling.enable()
+        try:
+            frag = gbuffer_pass(scene, k, settings)
+            routes = [(c["labels"], c["value"]) for c in profiling.counters()
+                      if c["name"] == "raster.path"]
+        finally:
+            profiling.disable()
+            profiling.reset()
+        torch.cuda.synchronize()
+        assert cuda_lib.RASTER_TILED.launches == before + 1
+        assert routes == [({"path": "k3"}, 1)]
+        tris = _raster_setup(scene, k, settings)[:4]
+        ref, over = rasterize_tiled(*tris, settings.width, settings.height,
+                                    tile=settings.tile, k_max=settings.bin_k_max,
+                                    scatter=False)
+        assert float(over) == 0.0
+        assert float((ref.tri >= 0).float().mean()) > 0.5
+        _equal_bits(frag, ref)
+
+
+@pytest.mark.parametrize("case", ["huge_600", "pairs_2040"])
+def test_routed_k3_past_the_jax_bounds(cuda_device, case):
+    """K3 on meshes of at most 4096 triangles past the JAX package's
+    static bounds (600 huge strips against its 512; 128 triangles around
+    2040 tiles, more than its 131072 pairs): the routed path reads no
+    overflow and gives the capped path's image (its cap k_max = t cannot
+    clip) bit for bit, where the JAX package's bounds would not."""
+    from hala_tpu_torch.ops.raster import rasterize_tiled
+
+    rs = np.random.RandomState(7)
+    if case == "huge_600":
+        t, w, h = 600, 256, 64
+        x0, y0 = rs.uniform(-20.0, 100.0, (t, 1)), rs.uniform(0.0, 64.0, (t, 1))
+        length, height = rs.uniform(130.0, 250.0, (t, 1)), rs.uniform(1.0, 4.0, (t, 1))
+        s = rs.uniform(0.2, 0.8, (t, 1))
+        tri = np.stack([np.concatenate([x0, y0], 1),
+                        np.concatenate([x0 + length, y0 + height * s], 1),
+                        np.concatenate([x0 + length * s, y0 + height], 1)], 1)
+    else:
+        t, w, h = 128, 960, 544
+        around = np.array([[-700.0, -300.0], [1700.0, -300.0], [480.0, 1500.0]])
+        tri = around + rs.uniform(-500.0, 500.0, (t, 3, 2))
+    arrays = (tri, rs.uniform(0.1, 0.9, (t, 3)), rs.uniform(0.5, 2.0, (t, 3)))
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device) for a in arrays]
+    args.append(torch.ones(t, dtype=torch.bool, device=cuda_device))
+    assert float(k3.build_segments(*args, w, h, 16).over) == 1.0
+    before = cuda_lib.RASTER_TILED.launches
+    routed, over = rasterize_tiled(*args, w, h, tile=16)
+    capped, c_over = rasterize_tiled(*args, w, h, tile=16, k_max=t, scatter=False)
+    torch.cuda.synchronize()
+    assert cuda_lib.RASTER_TILED.launches == before + 1
+    assert float(over) == float(c_over) == 0.0
+    assert float((routed.tri >= 0).float().mean()) > 0.3
+    _equal_bits(routed, capped)
+
+
 def _k1_soup(n_tris, n_rays, seed, dev):
     """n_tris random triangles in [-1, 1]^3 (slot 2000 a copy of slot
     1000) and n_rays rays: a tenth aimed at slot 1000's centroid, the

@@ -245,6 +245,141 @@ def test_rasterize_tiled_routes_large_meshes_to_exact():
         assert torch.equal(getattr(routed, k), getattr(exact, k)), k
 
 
+@pytest.mark.parametrize("t, tile, n_tiles, path", [
+    (128, 64, 510, "k3"),              # one 128-slot cluster at 1920x1088
+    (128, 64, 2040, "k3"),             # 2x MSAA at 1080p
+    (128, 64, 8160, "plain"),          # 4x MSAA at 1080p: cell << 20 passes 2^31
+    (128, 8, 32640, "plain"),          # tile*tile 64: not lane-divisible
+    (4224, 64, 510, "k3"),             # where the JAX package routes too
+    (1 << 20, 64, 510, "plain"),       # ids past the fused key's 20 bits
+])
+def test_tiled_route(t, tile, n_tiles, path):
+    """Every mesh K3 can lay out takes K3, whatever its size."""
+    assert tr.tiled_route(t, tile, n_tiles) == path
+
+
+def _cornell_pose(seed, width, height, tile):
+    """The Cornell box uploaded with its 128-slot padding, its camera
+    moved by up to 0.3 on each axis by `seed`: the binned pass's
+    (screen, depth, inv_w, valid)."""
+    from hala_tpu_torch.models.rz_renderer import RasterSettings, _raster_setup
+    from hala_tpu_torch.scene.loader.uploader import SceneUploader
+    from hala_tpu_torch.scene.procedural import cornell_box
+
+    host = cornell_box()
+    (cam,) = [n for n in host.nodes if n.camera_index is not None]
+    cam.local_transform = cam.local_transform.copy()
+    cam.local_transform[:3, 3] += np.random.RandomState(seed).uniform(-0.3, 0.3, 3)
+    host.update_node_hierarchies()
+    scene = SceneUploader.upload(host, use_ray_tracing=False, device="cpu")
+    assert scene.geometry.tri_v0.shape[0] == 128
+    settings = RasterSettings(width, height, binned=True, tile=tile)
+    return _raster_setup(scene, 0, settings)[:4]
+
+
+def _equal_bits(a, b):
+    assert torch.equal(a.tri, b.tri)
+    for k in ("depth", "u", "v"):
+        assert torch.equal(getattr(a, k).view(torch.int32),
+                           getattr(b, k).view(torch.int32)), k
+
+
+@pytest.mark.parametrize("case", ["cornell_0", "cornell_1", "cornell_2",
+                                  "mesh_256", "mesh_1000"])
+def test_exact_equals_capped_where_nothing_clips(case):
+    """Where the capped per-tile path reports no overflow, the routed
+    exact segment path (K3's plain version here) gives its image bit
+    for bit."""
+    if case.startswith("cornell"):
+        width, height, tile = 200, 136, 64
+        t_args = _cornell_pose(int(case[-1]), width, height, tile)
+    else:
+        width = height = 128
+        tile = 16
+        _, t_args = _both(_mesh(int(case[5:]), int(case[5:]), extent=128.0))
+    capped, c_over = tr.rasterize_tiled(*t_args, width, height, tile=tile, scatter=False)
+    exact, e_over = tr.rasterize_tiled(*t_args, width, height, tile=tile)
+    assert float(c_over) == float(e_over) == 0.0
+    assert (capped.tri >= 0).float().mean() > 0.3
+    _equal_bits(exact, capped)
+
+
+@pytest.mark.parametrize("case", ["skewed_512", "mesh_1000"])
+def test_exact_is_the_full_scan_where_the_cap_clips(case):
+    """Where a tile's candidate list clips at k_max (the capped path's
+    overflow reads > 0), the exact path gives the unbinned full scan's
+    image and the capped path another."""
+    if case == "skewed_512":
+        arrays, k_max = _skewed(512), 256
+    else:
+        arrays, k_max = _mesh(13, 1000, huge_frac=0.05), 64
+    _, t_args = _both(arrays)
+    capped, c_over = tr.rasterize_tiled(*t_args, 64, 64, tile=16, k_max=k_max,
+                                        scatter=False)
+    exact, e_over = tk.rasterize_tiled_exact(*t_args, 64, 64, tile=16)
+    assert float(c_over) > 0.0 and float(e_over) == 0.0
+    t = arrays[0].shape[0]
+    px, py = _pixels(64, 64)
+    full = tr.rasterize(*t_args, torch.from_numpy(px), torch.from_numpy(py),
+                        chunk=t // 4, tri_ids=torch.arange(t, dtype=torch.int32))
+    _equal_bits(exact, full)
+    assert not torch.equal(capped.tri, full.tri)
+
+
+def _strips(t, seed=7):
+    """`t` thin strips across 256 x 64 pixels, each 130-250 wide (8 or
+    more tiles of 16: the segment path's "huge" class) and 1-4 high."""
+    rs = np.random.RandomState(seed)
+    x0 = rs.uniform(-20.0, 100.0, (t, 1))
+    y0 = rs.uniform(0.0, 64.0, (t, 1))
+    length = rs.uniform(130.0, 250.0, (t, 1))
+    height = rs.uniform(1.0, 4.0, (t, 1))
+    s = rs.uniform(0.2, 0.8, (t, 1))
+    tri = np.stack([np.concatenate([x0, y0], 1),
+                    np.concatenate([x0 + length, y0 + height * s], 1),
+                    np.concatenate([x0 + length * s, y0 + height], 1)], 1)
+    return (tri.astype(np.float32), rs.uniform(0.1, 0.9, (t, 3)).astype(np.float32),
+            rs.uniform(0.5, 2.0, (t, 3)).astype(np.float32), np.ones(t, bool))
+
+
+def _covering(t, seed=8):
+    """`t` triangles, each around 960 x 544 pixels (2040 tiles of 16)
+    or most of it: about t x 2040 (tile, candidate) pairs."""
+    rs = np.random.RandomState(seed)
+    around = np.array([[-700.0, -300.0], [1700.0, -300.0], [480.0, 1500.0]])
+    tri = (around + rs.uniform(-500.0, 500.0, (t, 3, 2))).astype(np.float32)
+    return (tri, rs.uniform(0.1, 0.9, (t, 3)).astype(np.float32),
+            rs.uniform(0.5, 2.0, (t, 3)).astype(np.float32), np.ones(t, bool))
+
+
+@pytest.mark.parametrize("case", ["huge_600", "pairs_2040"])
+def test_routed_exact_past_the_jax_bounds(case):
+    """Meshes of at most 4096 triangles past the JAX package's static
+    bounds of the segment path (600 huge triangles against its 512; at
+    2040 tiles more than its 131072 (tile, candidate) pairs): the
+    routed path sizes the bounds so that none binds, and gives the full
+    scan's image (at every 8th pixel at 2040 tiles), as the capped path
+    does with a cap that cannot clip."""
+    if case == "huge_600":
+        arrays, w, h, step = _strips(600), 256, 64, 1
+    else:
+        arrays, w, h, step = _covering(128), 960, 544, 8
+    t = arrays[0].shape[0]
+    _, t_args = _both(arrays)
+    assert float(tk.build_segments(*t_args, w, h, 16).over) == 1.0
+    routed, over = tr.rasterize_tiled(*t_args, w, h, tile=16)
+    assert float(over) == 0.0
+    assert (routed.tri >= 0).float().mean() > 0.3
+    px, py = _pixels(w, h)
+    full = tr.rasterize(*t_args, torch.from_numpy(px[::step]), torch.from_numpy(py[::step]),
+                        chunk=t // 4, tri_ids=torch.arange(t, dtype=torch.int32))
+    _equal_bits(tr.FragmentBuffer(*(x[::step] for x in routed)), full)
+    if step == 1:
+        capped, c_over = tr.rasterize_tiled(*t_args, w, h, tile=16, k_max=t, scatter=False)
+        assert float(c_over) == 0.0
+        _equal_bits(routed, capped)
+
+
 def test_k3_wrapper_takes_plain_version_on_cpu():
     from hala_tpu_torch.ops import cuda_lib
 

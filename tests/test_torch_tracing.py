@@ -48,8 +48,8 @@ def _trace_renderer(intersector="auto", size=32, max_depth=2):
     return r
 
 
-def _raster_renderer(scene, w=64, h=32):
-    r = RasterizationRenderer("r", w, h, binned=True, tile=16, device="cpu")
+def _raster_renderer(scene, w=64, h=32, tile=16):
+    r = RasterizationRenderer("r", w, h, binned=True, tile=tile, device="cpu")
     r.set_scene(scene)
     r.commit()
     return r
@@ -140,11 +140,14 @@ def test_trace_frame_spans(intersector):
 
 @pytest.mark.parametrize("path", ["plain", "k3"])
 def test_raster_frame_spans(path):
-    """setup, bin, visibility (the capped plain path on the Cornell box,
-    the exact segment path on atrium.glb's 34k triangles), shade and
-    post under the frame."""
-    scene = cornell_box() if path == "plain" else Scene.load(ATRIUM)
-    r = _raster_renderer(scene)
+    """setup, bin, visibility (the capped plain path on the Cornell box
+    at tile 8, which K3 cannot lay out, the exact segment path on
+    atrium.glb's 34k triangles), shade and post under the frame; the
+    `raster.path` counter names the path once."""
+    if path == "plain":
+        r = _raster_renderer(cornell_box(), tile=8)
+    else:
+        r = _raster_renderer(Scene.load(ATRIUM))
     profiling.enable()
     _frames(r, 1)
     spans = profiling.spans()
@@ -157,6 +160,8 @@ def test_raster_frame_spans(path):
         "hala.raster.shade", "hala.raster.post", "hala.raster.post"]
     assert kids[2].attrs["path"] == path
     assert _counter("raster.triangles") == r.scene.geometry.tri_v0.shape[0]
+    assert [(c["labels"], c["value"]) for c in profiling.counters()
+            if c["name"] == "raster.path"] == [({"path": path}, 1)]
 
 
 @pytest.mark.parametrize("kind", ["trace", "raster"])
