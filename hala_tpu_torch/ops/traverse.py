@@ -34,7 +34,11 @@ clusters of 128 triangle slots with per-cluster AABBs
   rerun through K6 (ops/cluster.py) with t_max just above their best
   (`fallback_t_max`), while resolved rays get t_max = -inf and cost K6
   nothing (`exact=False` skips K6). No cap on C. `traverse_query` runs
-  it on the rays sorted by their nearest candidate cluster.
+  it on the rays sorted by their nearest candidate cluster. Its stages
+  are the spans `hala.query.cull` (the K4 launches), `hala.query.merge`
+  (the superchunk merge, where there are two or more), `hala.query.walk`
+  (K5) and `hala.query.fallback` (K6 and the merge of the two hits); the
+  cull span's attr `superchunks` counts the K4 launches.
 
 Results are the lexicographic (t, slot) minimum over the admissible
 pairs (ops/cluster.py), the brute force over all slots but where the
@@ -333,20 +337,21 @@ def cull_candidates(o, d, t_max, cluster_min, cluster_max, k_per_ray: int,
     k = min(k_per_ray, c)
     sc = CULL_MAX_CLUSTERS if superchunk is None else superchunk
     ids_all, tns_all, cnt = [], [], None
-    for j, lo in enumerate(range(0, c, sc)):
-        pk, cnt_i = cull_topk(
-            o, d, t_max, cluster_min[lo:lo + sc], cluster_max[lo:lo + sc], k=k,
-            unions=None if unions is None else unions[j],
-        )
-        valid = pk != INF_KEY
-        ids_all.append(torch.where(valid, (pk & _ID_MASK) + lo, BIG_CLUSTER))
-        tns_all.append(torch.where(
-            valid, (pk & ~_ID_MASK).view(torch.float32), _INF
-        ))
-        cnt = cnt_i if cnt is None else cnt + cnt_i
+    with profiling.span("hala.query.cull", superchunks=-(-c // sc)):
+        for j, lo in enumerate(range(0, c, sc)):
+            pk, cnt_i = cull_topk(
+                o, d, t_max, cluster_min[lo:lo + sc], cluster_max[lo:lo + sc], k=k,
+                unions=None if unions is None else unions[j],
+            )
+            valid = pk != INF_KEY
+            ids_all.append(torch.where(valid, (pk & _ID_MASK) + lo, BIG_CLUSTER))
+            tns_all.append(torch.where(
+                valid, (pk & ~_ID_MASK).view(torch.float32), _INF
+            ))
+            cnt = cnt_i if cnt is None else cnt + cnt_i
     if len(ids_all) == 1:
-        ids, tns = ids_all[0], tns_all[0]
-    else:
+        return ids_all[0], tns_all[0], cnt > k
+    with profiling.span("hala.query.merge"):
         # tns are >= 0, so their bits order as integers; ids < 2^30
         tns = torch.cat(tns_all, dim=1)
         ids = torch.cat(ids_all, dim=1)
@@ -354,7 +359,7 @@ def cull_candidates(o, d, t_max, cluster_min, cluster_max, k_per_ray: int,
         key = torch.sort(key, dim=1).values[:, :k]
         tns = (key >> 31).to(torch.int32).view(torch.float32)
         ids = (key & ((1 << 31) - 1)).to(torch.int32)
-    return ids, tns, cnt > k
+        return ids, tns, cnt > k
 
 
 # --- K5: the candidate walk -------------------------------------------------
@@ -520,23 +525,25 @@ def _traverse_core(o, d, geometry, tm, ids, tns, ovf, exact: bool = True) -> Hit
     """K5 over the candidate lists, then K6 for the unresolved rays,
     launched for every query without a host sync. `exact=False` returns
     K5's hits as they stand (unresolved rays may miss a closer hit)."""
-    hit, unres, runs = traverse_candidates(o, d, tm, ids, tns, ovf,
-                                           geometry.cluster_min,
-                                           geometry.cluster_max, geometry.tri_packed)
-    stats.record(tm, unres, runs)
+    with profiling.span("hala.query.walk"):
+        hit, unres, runs = traverse_candidates(o, d, tm, ids, tns, ovf,
+                                               geometry.cluster_min,
+                                               geometry.cluster_max, geometry.tri_packed)
+        stats.record(tm, unres, runs)
     if not exact:
         return hit
-    fb = intersect_clustered(o, d, geometry, t_max=fallback_t_max(hit, unres))
-    # the lexicographic (t, slot) minimum of the two
-    better = (fb.tri >= 0) & (
-        (fb.t < hit.t) | ((fb.t == hit.t) & (hit.tri >= 0) & (fb.tri < hit.tri))
-    )
-    return Hit(
-        t=torch.where(better, fb.t, hit.t),
-        tri=torch.where(better, fb.tri, hit.tri),
-        u=torch.where(better, fb.u, hit.u),
-        v=torch.where(better, fb.v, hit.v),
-    )
+    with profiling.span("hala.query.fallback"):
+        fb = intersect_clustered(o, d, geometry, t_max=fallback_t_max(hit, unres))
+        # the lexicographic (t, slot) minimum of the two
+        better = (fb.tri >= 0) & (
+            (fb.t < hit.t) | ((fb.t == hit.t) & (hit.tri >= 0) & (fb.tri < hit.tri))
+        )
+        return Hit(
+            t=torch.where(better, fb.t, hit.t),
+            tri=torch.where(better, fb.tri, hit.tri),
+            u=torch.where(better, fb.u, hit.u),
+            v=torch.where(better, fb.v, hit.v),
+        )
 
 
 def intersect_traversed(

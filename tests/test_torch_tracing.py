@@ -245,3 +245,73 @@ def test_dump_round_trips(tmp_path):
     assert spans == profiling.spans() and len(spans) > 5
     assert counters == profiling.counters()
     assert len(lines) == len(spans) + len(counters)
+
+
+def test_traverse_spans_off_read_no_clock(monkeypatch):
+    """The "traverse" engine's spans (`hala.query.cull`, `.merge`,
+    `.walk`, `.fallback`) read no clock and record nothing while tracing
+    is off: a frame through it and a query forced through one superchunk
+    a cluster."""
+    import importlib.util
+
+    from hala_tpu_torch.ops import traverse
+
+    spec = importlib.util.spec_from_file_location(
+        "make_instances", os.path.join(HERE, "..", "tools", "make_instances.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    r = RayTracingRenderer("t", 16, 16, max_depth=2, use_bvh=False,
+                           intersector="traverse", device="cpu")
+    r.set_scene(tool.hall_scene(cornell_box())[0])
+    r.commit()
+    g = r.scene.geometry
+    o = torch.tensor([[0.0, 0.0, 3.0], [0.2, 0.3, 3.0]])
+    d = torch.tensor([[0.0, 0.0, -1.0], [0.0, -0.1, -1.0]])
+    ref = traverse.intersect_traversed(o, d, g, k_per_ray=2)
+
+    def no_clock():
+        raise AssertionError("a clock was read while tracing is off")
+
+    monkeypatch.setattr(time, "time_ns", no_clock)
+    _frames(r, 1)
+    hit = traverse.intersect_traversed(o, d, g, k_per_ray=2, superchunk=1)
+    monkeypatch.undo()
+    assert g.cluster_min.shape[0] > 1
+    assert torch.equal(hit.tri, ref.tri) and torch.equal(hit.t, ref.t)
+    assert profiling.spans() == [] and profiling.counters() == []
+
+
+def test_signature_sort_cull_stays_in_hala_sort(monkeypatch):
+    """K4 launched by `matrix_query`'s "signature" sort key runs inside
+    `hala.sort`, under no span of the "traverse" engine, and opens
+    none."""
+    from hala_tpu_torch.ops import traverse
+
+    r = _trace_renderer("matrix", size=16)
+    g = r.scene.geometry
+    rs = torch.Generator().manual_seed(5)
+    o = torch.rand((256, 3), generator=rs) * 1.6 - 0.8
+    d = torch.nn.functional.normalize(torch.randn((256, 3), generator=rs), dim=1)
+    real = traverse.cull_topk
+
+    def cull_topk(*args, **kw):
+        # a marker span where K4 launches: its ancestors are the spans
+        # open at the launch
+        with profiling.span("launch.cull_topk"):
+            return real(*args, **kw)
+
+    monkeypatch.setattr(traverse, "cull_topk", cull_topk)
+    profiling.enable()
+    with profiling.span("hala.query", engine="matrix", kind="closest", rays=256):
+        traverse.matrix_query(o, d, g, sort_key="signature")
+    spans = profiling.spans()
+    _check_tree(spans)
+    (mark,) = [s for s in spans if s.name == "launch.cull_topk"]
+    by_index = {s.index: s for s in spans}
+    ancestors = []
+    while mark.parent != -1:
+        mark = by_index[mark.parent]
+        ancestors.append(mark.name)
+    assert ancestors == ["hala.sort", "hala.query"]
+    assert sorted(s.name for s in spans) == [
+        "hala.query", "hala.sort", "hala.sort", "launch.cull_topk"]

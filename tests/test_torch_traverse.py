@@ -337,6 +337,39 @@ def test_traversal_exact_through_superchunk_merge(geoms):
     _assert_hits(ours, bf)
 
 
+def test_superchunk_merge_spans(geoms):
+    """With tracing on, the forced superchunks of 8 (63 clusters: 8 of
+    them) run under one `hala.query.cull`, then `hala.query.merge`,
+    `hala.query.walk` and `hala.query.fallback`, each a child of the
+    enclosing `hala.query`; the cull span's `superchunks` reads 8. The
+    hits equal one superchunk's bit for bit."""
+    from hala_tpu_torch.utils import profiling
+
+    _, tdev = geoms["rooms"]
+    o, d, tm = (_t(x) for x in _batch(tdev, 1024, 10))
+    whole = k5.intersect_traversed(o, d, tdev.geometry, t_max=tm, k_per_ray=4)
+    profiling.reset()
+    profiling.enable()
+    try:
+        with profiling.span("hala.query", engine="traverse", kind="closest", rays=1024):
+            split = k5.intersect_traversed(o, d, tdev.geometry, t_max=tm, k_per_ray=4,
+                                           superchunk=8)
+        spans = profiling.spans()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    for a, b in zip(split, whole):
+        assert torch.equal(a, b)
+    (query,) = [s for s in spans if s.name == "hala.query"]
+    kids = sorted((s for s in spans if s.parent == query.index), key=lambda s: s.index)
+    assert [s.name for s in kids] == ["hala.query.cull", "hala.query.merge",
+                                      "hala.query.walk", "hala.query.fallback"]
+    assert all(query.start <= s.start <= s.end <= query.end for s in kids)
+    assert len(spans) == 5
+    assert kids[0].attrs == {"superchunks": -(-tdev.geometry.cluster_min.shape[0] // 8)}
+    assert tdev.geometry.cluster_min.shape[0] == 63
+
+
 @pytest.mark.parametrize("name", ["sponza", "rooms"])
 def test_intersect_clustered_matches_bruteforce_and_jax(geoms, name):
     jdev, tdev = geoms[name]
