@@ -51,11 +51,14 @@ Phases, in order; any failure raises and exits non-zero:
      (ops/cluster.py) on `grazing_beside_span`, seeds 1-5: K2, K5 and K6
      equal `stream_plain` bit for bit (K2 also its schedule model), K7
      and K8 their plain versions, and the rays K1 hits through pairs
-     the rule rejects are counted — then the golden renders (path tracer, with the
+     the rule rejects are counted; the surface fetch (K9) against its
+     plain version, bit for bit, on every bounce of an atrium_big
+     1920x1088 frame, without and with procedural spheres, and with
+     rows given a lane, then timed (`check_shade_fetch`) — then the golden renders (path tracer, with the
      environment-map golden, and rasterizer) held against
      tests/fixtures (RMSE < 1e-3);
   4. Cornell 512x512, depth 4, 16 frames through RayTracingRenderer
-     (must go through K1 only);
+     (must go through K1 only among the visibility kernels, and K9);
   5. atrium_big at 1920x1088, depth 4, 1 spp, 4 frames (must use K2
      and none of K4-K6) and a torch.profiler window over one more of
      its frames, then the same through intersector="traverse"
@@ -1486,6 +1489,126 @@ def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
     return out
 
 
+def fetch_batches(dev_scene, size=(1920, 1088), depth=4, device="cuda"):
+    """The surface fetch's inputs at every bounce of frame 0 of
+    `dev_scene` ("auto", depth 4, the 2^20-ray tiles), as
+    models/integrator.py `_surface_fetch` receives them: a list of
+    (hit, hit_p, path_dist, pixel_angle), tile by tile, bounce by
+    bounce."""
+    from hala_tpu_torch.models import integrator as tint
+    from hala_tpu_torch.ops.intersect import Hit
+
+    got = []
+    real = tint._surface_fetch
+
+    def capture(scene, hit, hit_p, path_dist, pixel_angle, settings):
+        got.append((Hit(*(x.clone() for x in hit)), hit_p.clone(), path_dist.clone(),
+                    pixel_angle.clone()))
+        return real(scene, hit, hit_p, path_dist, pixel_angle, settings)
+
+    w, h = size
+    tint._surface_fetch = capture
+    try:
+        film = tint.Film.create(w, h, device)
+        tint.render_frame(dev_scene, None, tint.Uniforms.default(device), film, 0,
+                          tint.RenderSettings(width=w, height=h, max_depth=depth,
+                                              rr_depth=2))
+    finally:
+        tint._surface_fetch = real
+    return got
+
+
+def fetch_fields(f):
+    """A SurfaceFetch's tensors, and their names, in one order."""
+    pairs = [(k, x) for k, x in zip(f._fields, f) if k != "mp" and x is not None]
+    pairs += list(zip(f.mp._fields, f.mp))
+    return [k for k, _ in pairs], [x for _, x in pairs]
+
+
+def equal_fetch(name: str, got, ref) -> float:
+    """Raise unless two SurfaceFetch results hold the same fields and
+    bits; their max_abs_diff (0.0 when they pass)."""
+    names, a = fetch_fields(got)
+    names_ref, b = fetch_fields(ref)
+    if names != names_ref:
+        raise AssertionError(f"{name}: fields {names} against {names_ref}")
+    equal_tensors(name, a, b, names)
+    return max_abs_diff(a, b)
+
+
+def check_shade_fetch(dev_scene, spheres_scene, reps: int):
+    """K9 (csrc/shade_fetch.cu) vs `shade_fetch_plain` bit for bit on
+    every bounce of an atrium_big 1920x1088 frame (eight batches, 2^20
+    and 1,040,384 lanes), on every bounce of the same frame with three
+    procedural spheres on the view axis (`spheres_scene`), and on one
+    batch with rows given lane by lane (the sharded geometry's route,
+    the rows a permutation of the lanes' own); then timed on bounce 1
+    of atrium_big's first tile: K9 and the plain version. The bound:
+    each input read once (hits, path lengths, the shade, material and
+    uv tables, the texture stack), each output written once."""
+    import torch
+
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import shade_fetch as k9
+    from hala_tpu_torch.ops.gathers import take_rows
+    from hala_tpu_torch.ops.prims import PROC_BASE
+
+    def plain(scene, hit, hit_p, pd, pa, rows=None):
+        if rows is None:
+            table = scene.geometry.shade_table
+            rows = take_rows(table, torch.clamp(hit.tri, 0, table.shape[0] - 1))
+        return k9.shade_fetch_plain(scene, rows, hit, hit_p, pd, pa)
+
+    err, sphere_lanes = 0.0, 0
+    batches = fetch_batches(dev_scene)
+    for label, scene, bs in (("atrium_big", dev_scene, batches),
+                             ("atrium_big + spheres", spheres_scene,
+                              fetch_batches(spheres_scene))):
+        for b, (hit, hit_p, pd, pa) in enumerate(bs):
+            before = cuda_lib.SHADE_FETCH.launches
+            got = k9.shade_fetch(scene, hit, hit_p, pd, pa)
+            ref = plain(scene, hit, hit_p, pd, pa)
+            torch.cuda.synchronize()
+            if cuda_lib.SHADE_FETCH.launches != before + 1:
+                raise AssertionError(f"K9 did not run on {label} batch {b}")
+            err = max(err, equal_fetch(f"K9 vs plain, {label} batch {b}", got, ref))
+            if scene is spheres_scene:
+                sphere_lanes += int((hit.tri >= PROC_BASE).sum())
+    if sphere_lanes == 0:
+        raise AssertionError("K9 vs plain: no lane hit a sphere")
+    hit, hit_p, pd, pa = batches[1]
+    n = hit.tri.shape[0]
+    table = dev_scene.geometry.shade_table
+    perm = torch.randperm(n, device=hit.tri.device,
+                          generator=torch.Generator(hit.tri.device).manual_seed(12))
+    rows = take_rows(table, torch.clamp(hit.tri, 0, table.shape[0] - 1))[perm]
+    got = k9.shade_fetch(dev_scene, hit, hit_p, pd, pa, rows)
+    err = max(err, equal_fetch("K9 vs plain, rows a lane", got,
+                               plain(dev_scene, hit, hit_p, pd, pa, rows)))
+    got = k9.shade_fetch(dev_scene, hit, hit_p, pd, pa)
+    out_bytes = sum(x.nbytes for x in fetch_fields(got)[1])
+    mats, stack = dev_scene.materials, dev_scene.textures
+    in_bytes = (4 * 4 * n + table.nbytes + mats.packed.nbytes
+                + (mats.uv_transform.nbytes if mats.has_uv_transform else 0)
+                + (stack.data.nbytes + stack.sizes.nbytes if stack is not None else 0))
+    b_ms, b_by = bound(0, in_bytes + out_bytes)
+    launches = cuda_lib.SHADE_FETCH.launches
+    rec = dict(lanes=n, batches=2 * len(batches) + 1, sphere_lanes=sphere_lanes,
+               bound_ms=b_ms, bound_by=b_by, in_bytes=in_bytes, out_bytes=out_bytes,
+               max_abs_err=err,
+               ms=cuda_ms(lambda: k9.shade_fetch(dev_scene, hit, hit_p, pd, pa), reps),
+               plain_ms=cuda_ms(lambda: plain(dev_scene, hit, hit_p, pd, pa), reps),
+               library_ms=None)
+    rec["launches_timed"] = cuda_lib.SHADE_FETCH.launches - launches
+    log(f"  K9 on atrium_big 1920x1088, every bounce ({len(batches)} batches), "
+        f"the same with spheres ({sphere_lanes} sphere lanes) and rows a lane: "
+        f"equal to shade_fetch_plain bit for bit (max abs err {err}); bounce 1 of "
+        f"tile 0 ({n} lanes): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.3f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}: {in_bytes / 1e6:.1f} MB in, "
+        f"{out_bytes / 1e6:.1f} MB out)")
+    return rec
+
+
 def check_k7_k8(dev_scene, small, big, reps: int):
     """K8 (csrc/grouped_walk.cu) and K7 (csrc/wavefront_walk.cu) vs
     their plain versions, bit for bit, closest and any-hit: on
@@ -1729,11 +1852,11 @@ def check_past_key_width(dev_scene, n_rand: int):
     o, d = random_rays(dev_scene, n_rand, 41)
     tm = torch.full((n_rand,), 3.0e38, device=o.device)
     tm[1::4] = 4.0
-    cuda_lib_before = _launches()
+    cuda_lib_before = visibility_launches()
     ht = k5.intersect_traversed(o, d, g, t_max=tm, k_per_ray=TRAVERSE_K)
     hb = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm)
     torch.cuda.synchronize()
-    calls = {k: v - cuda_lib_before[k] for k, v in _launches().items()}
+    calls = {k: v - cuda_lib_before[k] for k, v in visibility_launches().items()}
     if calls["cull_topk"] != 2:
         raise AssertionError(f"expected two cull superchunks, got {calls}")
     _, graze = compare_with_exact(
@@ -1821,10 +1944,21 @@ def check_instances(dev_scene, reps: int, cam=(1024, 1024), n_rand: int = 1 << 2
     return k4, k6_rec
 
 
-def _launches():
+def fetch_launches(settings, frames: int) -> int:
+    """K9's launches in `frames` frames at `settings`: one a bounce and
+    ray tile (models/integrator.py `render_frame`'s tiling)."""
+    n_rays = settings.width * settings.height * settings.spp
+    tile = min(settings.tile_size, n_rays)
+    tile = max(settings.spp, tile - tile % settings.spp)
+    return frames * settings.max_depth * -(-n_rays // tile)
+
+
+def visibility_launches():
+    """`cuda_lib.launches()` without K9, which shading launches on every
+    route: the counts the route checks read."""
     from hala_tpu_torch.ops import cuda_lib
 
-    return cuda_lib.launches()
+    return {k: n for k, n in cuda_lib.launches().items() if k != "shade_fetch"}
 
 
 def raster_inputs(dev_scene, width: int, height: int, tile: int):
@@ -2306,7 +2440,7 @@ def family_render(name: str, host_scene, frames: int, k2_film, card: str,
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     out = run_render(r, frames, frames, name, card, cell="sponza")
-    counts = cuda_lib.launches()
+    counts = visibility_launches()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["rel_rmse_vs_k2"] = rel_rmse(r.film.accum[..., :3], k2_film)
     out["launches_per_frame"] = {
@@ -2360,7 +2494,7 @@ def instances_render(host_scene, frames: int, card: str, size=(1920, 1088),
     cuda_lib.reset_launches()
     out = run_render(r, frames, frames, f"atrium_big x{INSTANCES} auto", card,
                      cell=f"atrium_big_x{INSTANCES}")
-    counts = cuda_lib.launches()
+    counts = visibility_launches()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["upload_s"] = upload_s
     out["launches_per_frame"] = {key: v / frames for key, v in counts.items() if v}
@@ -2388,7 +2522,7 @@ def instances_render(host_scene, frames: int, card: str, size=(1920, 1088),
     clus.render_loop(1)
     torch.cuda.synchronize()
     out["cluster_frame_ms"] = (time.perf_counter() - t0) * 1e3
-    after = cuda_lib.launches()
+    after = visibility_launches()
     if not (after["cluster_stream"] > 0
             and sum(after.values()) == after["cluster_stream"]):
         raise AssertionError(f"atrium_big x{INSTANCES} cluster launches {after}")
@@ -2568,10 +2702,14 @@ def procedural_render(card: str, frames: int = 16, size=(512, 512), device="cuda
     r.render_loop(frames)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = cuda_lib.launches()
+    counts = visibility_launches()
     if not (counts["intersect_bruteforce"] > 0
             and sum(counts.values()) == counts["intersect_bruteforce"]):
         raise AssertionError(f"procedural launches {counts}")
+    k9 = cuda_lib.SHADE_FETCH.launches
+    if k9 != fetch_launches(r.settings, frames):
+        raise AssertionError(f"procedural: {k9} K9 launches, expected "
+                             f"{fetch_launches(r.settings, frames)}")
     accum = r.film.accum[..., :3]
     primaries = size[0] * size[1] * frames
     out = dict(mean=float(accum.mean()), rays_per_primary=r.total_rays / primaries,
@@ -2668,7 +2806,11 @@ def spheres_render(host, card: str, frames: int = 2, size=(1920, 1088), device="
         cuda_lib.reset_launches()
         rec = run_render(r, frames, frames, f"atrium_big + spheres {label}", card,
                          cell="sponza")
-        rec["launches"] = cuda_lib.launches()
+        rec["launches"] = visibility_launches()
+        rec["k9_launches"] = cuda_lib.SHADE_FETCH.launches
+        if rec["k9_launches"] != fetch_launches(r.settings, frames):
+            raise AssertionError(f"atrium_big + spheres {label}: {rec['k9_launches']} "
+                                 f"K9 launches, expected {fetch_launches(r.settings, frames)}")
         large = ("cull_topk", "traverse_candidates", "cluster_stream")
         if label == "auto":
             ok = rec["launches"]["matrix_traverse"] > 0 and not any(
@@ -2763,7 +2905,7 @@ def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
                 prog.trace_rays(timed, *size, frame_index=f, uniforms=uni)
             torch.cuda.synchronize()
             out[label] = dict(ms_per_frame=(time.perf_counter() - t0) / frames * 1e3,
-                              k1_launches=cuda_lib.launches()["intersect_bruteforce"])
+                              k1_launches=visibility_launches()["intersect_bruteforce"])
     finally:
         for name in kernels:
             cache.remove(name)
@@ -2935,7 +3077,7 @@ def animated_cornell(card: str, size=(512, 512), device="cuda"):
         cuda_lib.reset_launches()
         rec = run_render(r, ANIMATED_FRAMES, ANIMATED_FRAMES,
                          f"animated cornell dx={dx:+.2f}", card, cell="cornell")
-        counts = cuda_lib.launches()
+        counts = visibility_launches()
         if not (counts["intersect_bruteforce"] > 0
                 and sum(counts.values()) == counts["intersect_bruteforce"]):
             raise AssertionError(f"animated cornell dx={dx} launches {counts}")
@@ -2999,7 +3141,7 @@ def moved_k2_k3(r, name: str, host, nodes, worlds, device, seed: int = 51):
     cuda_lib.reset_launches()
     ra.update()
     img = ra.get_final_image()
-    counts = cuda_lib.launches()
+    counts = visibility_launches()
     if counts["raster_tiled"] != 1 or not np.isfinite(img).all():
         raise AssertionError(f"{name} raster launches {counts}")
     for f in ("tri_v0", "tri_e1", "tri_e2", "tri_packed"):
@@ -3124,7 +3266,7 @@ def animated_instances(big_host, copies: int, card: str, size=(1920, 1088),
     r.total_rays = 0.0
     cuda_lib.reset_launches()
     out["ms_first_after"] = timed_frames(r, 1)
-    counts = cuda_lib.launches()
+    counts = visibility_launches()
     first = r.film.accum[..., :3].clone()
     out["mean_frame0"] = float(first.mean())
     check_invariants(f"atrium_big_x{copies}", out["mean_frame0"], r.total_rays,
@@ -3286,7 +3428,8 @@ def _parallel_rank(rank: int, world: int, root: str, device: str, jobs: dict) ->
                 rays.append(float(r))
                 ms.append((time.perf_counter() - t0) * 1e3)
             comm_stats.enabled = False
-            stats[job] = dict(launches=cuda_lib.launches(), frame_ms=ms, rays=rays,
+            stats[job] = dict(launches=visibility_launches(),
+                              k9_launches=cuda_lib.SHADE_FETCH.launches, frame_ms=ms, rays=rays,
                               comm_calls=comm_stats.calls, comm_bytes=comm_stats.nbytes,
                               comm_ms=comm_stats.seconds * 1e3)
             film = tiled.gather()
@@ -3320,8 +3463,10 @@ def _check_launches(job: str, ranks) -> None:
     must, must_not = PARALLEL_LAUNCHES[job]
     for r, rank in enumerate(ranks):
         counts = rank[job]["launches"]
-        if not (all(counts[k] > 0 for k in must) and not any(counts[k] for k in must_not)):
-            raise AssertionError(f"{job}: rank {r} of {len(ranks)} launches {counts}")
+        if not (all(counts[k] > 0 for k in must) and not any(counts[k] for k in must_not)
+                and rank[job]["k9_launches"] > 0):
+            raise AssertionError(f"{job}: rank {r} of {len(ranks)} launches {counts}, "
+                                 f"K9 {rank[job]['k9_launches']}")
 
 
 def _ranks_line(job: str, ranks) -> str:
@@ -3588,7 +3733,7 @@ def bvh_checks(cornell_k1, big_host, x5_host, card: str, device="cuda",
     f0 = warm_up(r)
     cuda_lib.reset_launches()
     out["cornell"] = run_render(r, frames, frames, "cornell bvh", card, cell="cornell")
-    counts = cuda_lib.launches()
+    counts = visibility_launches()
     if any(counts.values()):
         raise AssertionError(f"cornell bvh launches {counts}")
     out["cornell"]["frame0_rel_rmse_vs_k1"] = rel_rmse(f0, frame0(cornell_k1))
@@ -3598,7 +3743,7 @@ def bvh_checks(cornell_k1, big_host, x5_host, card: str, device="cuda",
     leg.commit()
     cuda_lib.reset_launches()
     legacy_equal = bool(torch.equal(frame0(leg), f0))
-    if _backend(leg.settings, leg.scene) != "bvh" or any(cuda_lib.launches().values()) \
+    if _backend(leg.settings, leg.scene) != "bvh" or any(visibility_launches().values()) \
             or not legacy_equal:
         raise AssertionError("cornell legacy: not the bvh frame 0")
     if not out["cornell"]["frame0_rel_rmse_vs_k1"] < REL_RMSE_TOL:
@@ -3687,7 +3832,7 @@ def dense_render(big_host, k2_film, k2_rays: float, card: str, device="cuda",
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     out = run_render(r, frames, frames, "atrium_big dense shadows", card, cell="sponza")
-    counts = cuda_lib.launches()
+    counts = visibility_launches()
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     if not (counts["cull_topk"] > 0 and counts["matrix_traverse"] > 0):
         raise AssertionError(f"atrium_big dense launches {counts}")
@@ -3902,7 +4047,10 @@ def main() -> int:
     k5_rec, k6_rec, graze_k2 = check_k5_k6(big_dev, small, big, reps=5)
     k7_rec, k8_rec = check_k7_k8(big_dev, small, big, reps=5)
     graze_span = check_k2_grazing(dev)
-    del big_dev, small, big
+    spheres_host, _ = with_spheres_on_view_axis(big_host, big_dev)
+    spheres_dev = SceneUploader.upload(spheres_host, use_ray_tracing=False, device=dev)
+    k9_rec = check_shade_fetch(big_dev, spheres_dev, reps=20)
+    del big_dev, small, big, spheres_dev, spheres_host
     x5_host, x5_dev, x5_upload_s, _ = upload_instances(big_host, dev)
     wide_rec = check_past_key_width(x5_dev, 32768)
     k4_x5, k6_x5 = check_instances(x5_dev, reps=3)
@@ -3924,7 +4072,8 @@ def main() -> int:
     k2_frame0 = warm_up(sponza)
     cuda_lib.reset_launches()
     c_out = run_render(cornell, 16, 16, "cornell", card)
-    after_cornell = cuda_lib.launches()
+    after_cornell = visibility_launches()
+    k9_cornell = cuda_lib.SHADE_FETCH.launches
     if not (after_cornell["intersect_bruteforce"] > 0
             and after_cornell["matrix_traverse"] == 0
             and after_cornell["raster_tiled"] == 0):
@@ -3932,12 +4081,20 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     s_out = run_render(sponza, 4, 4, "sponza", card)
-    after_sponza = cuda_lib.launches()
+    after_sponza = visibility_launches()
+    k9_sponza = cuda_lib.SHADE_FETCH.launches
     large = ("cull_topk", "traverse_candidates", "cluster_stream")
     if after_sponza["matrix_traverse"] <= 0 or any(after_sponza[k] for k in large):
         raise AssertionError(f"atrium_big launches {after_sponza}")
+    # K9 once a bounce and tile on both scenes: 16 frames x 1 tile x 4
+    # bounces = 64 on the Cornell box, 4 x 2 x 4 = 32 on atrium_big
+    want_k9 = (fetch_launches(cornell.settings, 16), fetch_launches(sponza.settings, 4))
+    if (k9_cornell, k9_sponza) != want_k9 or want_k9 != (64, 32):
+        raise AssertionError(f"shade_fetch launches: cornell {k9_cornell}, "
+                             f"atrium_big {k9_sponza}, expected {want_k9}")
     peak = torch.cuda.max_memory_allocated()
-    log(f"  launches: cornell {after_cornell}, atrium_big {after_sponza}; "
+    log(f"  launches: cornell {after_cornell}, atrium_big {after_sponza}; K9 "
+        f"cornell {k9_cornell}, atrium_big {k9_sponza}; "
         f"atrium_big peak memory {peak / 2**30:.2f} GiB [{card}]")
 
     trav = RayTracingRenderer("atrium_big_traverse", 1920, 1088, max_depth=4,
@@ -3949,7 +4106,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     cuda_lib.reset_launches()
     t_out = run_render(trav, 4, 4, "atrium_big traverse", card, cell="sponza")
-    after_trav = cuda_lib.launches()
+    after_trav = visibility_launches()
     t_peak = torch.cuda.max_memory_allocated()
     if not (all(after_trav[k] > 0 for k in large)
             and after_trav["matrix_traverse"] == 0
@@ -3993,7 +4150,7 @@ def main() -> int:
     clus.commit()
     cuda_lib.reset_launches()
     cl_out = run_render(clus, 1, 1, "atrium_big cluster", card, cell="sponza")
-    after_clus = cuda_lib.launches()
+    after_clus = visibility_launches()
     if not (after_clus["cluster_stream"] > 0
             and sum(after_clus.values()) == after_clus["cluster_stream"]):
         raise AssertionError(f"atrium_big cluster launches {after_clus}")
@@ -4072,7 +4229,7 @@ def main() -> int:
     warm_up(envr)
     cuda_lib.reset_launches()
     e_out = run_render(envr, 16, 16, "envmap", card)
-    after_env = cuda_lib.launches()
+    after_env = visibility_launches()
     if not (after_env["intersect_bruteforce"] > 0
             and sum(after_env.values()) == after_env["intersect_bruteforce"]):
         raise AssertionError(f"envmap launches {after_env}")
@@ -4106,7 +4263,7 @@ def main() -> int:
     ra.set_scene(big_host)
     cuda_lib.reset_launches()
     ra_out = run_raster(ra, "raster_atrium", card)
-    after_ra = cuda_lib.launches()
+    after_ra = visibility_launches()
     frames_ra = RASTER_FRAMES["raster_atrium"] + 1
     if after_ra["raster_tiled"] != frames_ra:
         raise AssertionError(f"raster_atrium launches {after_ra}, expected "
@@ -4116,7 +4273,7 @@ def main() -> int:
     rc.set_scene(cornell_box())
     cuda_lib.reset_launches()
     rc_out = run_raster(rc, "raster", card)
-    after_rc = cuda_lib.launches()
+    after_rc = visibility_launches()
     frames_rc = RASTER_FRAMES["raster"] + 1
     if (after_rc["raster_tiled"] != frames_rc
             or any(n for k, n in after_rc.items() if k != "raster_tiled")):
@@ -4191,6 +4348,11 @@ def main() -> int:
              bound_ms_atrium_big=k6_rec["bound_ms"],
              full_range_ms_atrium_big=k6_rec["full_ms"],
              full_range_ms=k6_x5["full_ms"]),
+        # K9: on bounce 1 of atrium_big's first 2^20-ray tile
+        dict(entry("shade_fetch (K9)", "hala_tpu_torch/csrc/shade_fetch.cu",
+                   "none (plain JAX in hala_tpu/models/integrator.py bounce_pre)",
+                   k9_sponza, k9_rec),
+             sphere_lanes=k9_rec["sphere_lanes"]),
         # K7, K8: beside the bound from the spans the rays enter, the old
         # one from every pair of the tested entries
         dict(entry("wavefront_walk (K7)", "hala_tpu_torch/csrc/wavefront_walk.cu",
@@ -4206,8 +4368,8 @@ def main() -> int:
         name = k["name"].split(" ")[0]
         # closeout_render: the "bvh" renders launch nothing (gated), the
         # dense-shadow render K4 and K2
-        k["closeout_launches"] = after_close[name]
-        k["parallel_launches"] = {job: [rank["launches"][name] for rank in rec["ranks"]]
+        k["closeout_launches"] = after_close.get(name)
+        k["parallel_launches"] = {job: [rank["launches"].get(name) for rank in rec["ranks"]]
                                   for job, rec in par_out["jobs"].items()}
     summary = dict(card=card, cornell=c_out, atrium_big=s_out,
                    atrium_big_peak_bytes=peak, atrium_big_profile=s_prof,
@@ -4248,7 +4410,7 @@ def main() -> int:
                    envmap=e_out, cornell_blue_noise=bn_out,
                    procedural=proc_out, atrium_big_spheres=spheres_out,
                    hooks=hooks_out, animated=anim_out, parallel=par_out,
-                   closeout=close_out,
+                   closeout=close_out, shade_fetch=k9_rec,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

@@ -23,7 +23,9 @@ parallel/tiling.py), the scene is this rank's geometry shard
 (parallel/scene_shard.py): each query all-gathers the rays, runs on the
 rank's clusters and merges the ranks' hits by (t, global tri)
 (`merge_shard_hits`), and shade rows come back from their owners
-(`_rows_sharded`).
+(`_rows_sharded`). Shading's fetch of the hit's rows, material and
+texels (`_surface_fetch`) is K9 for hits on the card and its plain
+version on the CPU (ops/shade_fetch.py).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import rng
-from ..ops.bsdf import bsdf_eval, bsdf_sample, gather_materials
+from ..ops.bsdf import bsdf_eval, bsdf_sample
 from ..ops.bvh import intersect_bvh, occluded_bvh
 from ..ops.camera import generate_rays
 from ..ops.cluster import intersect_clustered
@@ -62,7 +64,7 @@ from ..ops.sampling import (
     to_local,
     to_world,
 )
-from ..ops.texture import sample_textures_packed
+from ..ops.shade_fetch import SurfaceFetch, shade_fetch
 from ..ops.cull import _ID_MASK as _CULL_ID_MASK
 from ..ops.traverse import (
     MATRIX_MAX_CLUSTERS,
@@ -571,6 +573,16 @@ def _fetch_rows(table, tri, settings: RenderSettings):
     return _rows_sharded(table, idx, mesh)
 
 
+def _surface_fetch(scene, hit, hit_p, path_dist, pixel_angle,
+                   settings: RenderSettings) -> SurfaceFetch:
+    """The shading point's attributes at `hit` (ops/shade_fetch.py): the
+    rows of a sharded geometry come from their owners first."""
+    rows = None
+    if settings.scene_axis is not None:
+        rows = _fetch_rows(scene.geometry.shade_table, hit.tri, settings)
+    return shade_fetch(scene, hit, hit_p, path_dist, pixel_angle, rows)
+
+
 def _path_context(
     scene,
     env,
@@ -717,105 +729,17 @@ def _path_context(
         on_surface = active & ~scatter
 
         # --- shading point ----------------------------------------------
-        u, v = hit.u, hit.v
-        w0 = 1.0 - u - v
-        rows = _fetch_rows(geom.shade_table, hit.tri, settings)
-        ns = normalize(
-            w0[:, None] * rows[:, 0:3]
-            + u[:, None] * rows[:, 3:6]
-            + v[:, None] * rows[:, 6:9]
-        )
-        uv = (
-            w0[:, None] * rows[:, 9:11]
-            + u[:, None] * rows[:, 11:13]
-            + v[:, None] * rows[:, 13:15]
-        )
-        ng = rows[:, 15:18]
-        # orient geometric normal along shading normal
-        ng = torch.where((dot(ng, ns) < 0)[:, None], -ng, ng)
         hit_p = o + hit.t[:, None] * d
-
-        mat_idx = rows[:, 18].to(torch.int32)
-        # Procedural sphere hits (tri >= PROC_BASE, ops/prims.py): the
-        # analytic attributes replace the clipped triangle row's; hit.u/v
-        # carry the spherical uv.
-        is_proc = prow = None
-        if scene.procedural is not None:
-            is_proc = hit.tri >= PROC_BASE
-            pid = torch.clamp(hit.tri - PROC_BASE, 0,
-                              scene.procedural.center.shape[0] - 1).long()
-            prow = scene.procedural.packed[pid]
-            ns_p = normalize(hit_p - prow[:, 0:3])
-            ns = torch.where(is_proc[:, None], ns_p, ns)
-            ng = torch.where(is_proc[:, None], ns_p, ng)
-            uv = torch.where(is_proc[:, None], torch.stack([u, v], dim=1), uv)
-            mat_idx = torch.where(is_proc, prow[:, 4].to(torch.int32), mat_idx)
-        mp = gather_materials(scene.materials, mat_idx)
-        # Vertex colors (COLOR_0) widen the shade row to 48 columns.
-        if rows.shape[1] > 32:
-            vcol = (
-                w0[:, None] * rows[:, 32:35]
-                + u[:, None] * rows[:, 35:38]
-                + v[:, None] * rows[:, 38:41]
-            )
-            if is_proc is not None:
-                vcol = torch.where(is_proc[:, None], 1.0, vcol)
-            mp = mp._replace(base_color=mp.base_color * vcol)
-        # KHR_texture_transform: uv' = offset + R(rot) @ (scale * uv).
-        if scene.materials.has_uv_transform:
-            uvt = scene.materials.uv_transform[torch.clamp(mat_idx, min=0).long()]
-            su = uv[:, 0] * uvt[:, 3]
-            sv = uv[:, 1] * uvt[:, 4]
-            cr = torch.cos(uvt[:, 2])
-            sr = torch.sin(uvt[:, 2])
-            uv = torch.stack(
-                [uvt[:, 0] + cr * su + sr * sv, uvt[:, 1] - sr * su + cr * sv],
-                dim=1,
-            )
         path_dist = st["path_dist"] + effective_t * active.to(torch.float32)
+        ns, uv, ng, tan_raw, mat_idx, mp, base_t, mr_t, em_t, n_tex = (
+            _surface_fetch(scene, hit, hit_p, path_dist, pixel_angle, settings))
 
-        # Interpolated tangent, Gram-Schmidt-orthonormalized against ns.
-        tan_raw = (
-            w0[:, None] * rows[:, 20:23]
-            + u[:, None] * rows[:, 23:26]
-            + v[:, None] * rows[:, 26:29]
-        )
-        if is_proc is not None:
-            # spheres carry no tangents: zero takes the fallback basis
-            tan_raw = torch.where(is_proc[:, None], 0.0, tan_raw)
-        tan_proj = tan_raw - ns * dot(tan_raw, ns)[:, None]
-        tan_len = torch.sqrt(dot(tan_proj, tan_proj))[:, None]
-        has_tan = tan_len[:, 0] > 1e-4
-
-        # Material maps: base/mr/emission at the trilinear lod, plus the
-        # normal map at level 0 when present.
-        base_t = mr_t = em_t = n_tex = None
-        if scene.textures is not None:
-            uv_dens = rows[:, 29]
-            if is_proc is not None:
-                # ~1 / (2 pi r) texels per world unit at the equator
-                uv_dens = torch.where(
-                    is_proc, 1.0 / torch.clamp(2.0 * np.pi * prow[:, 3], min=1e-6),
-                    uv_dens)
-            lod_uv = torch.log2(
-                torch.clamp(path_dist * pixel_angle * uv_dens, 1e-6, 1e6)
-            )
-            maps = [
-                mp.base_color_map, mp.metallic_roughness_map, mp.emission_map,
-            ]
-            map_lods = [lod_uv, lod_uv, lod_uv]
-            if scene.materials.has_normal_map:
-                maps.append(mp.normal_map)
-                map_lods.append(None)
-            fetched = sample_textures_packed(
-                scene.textures, maps, uv, lods=map_lods
-            )
-            base_t, mr_t, em_t = fetched[:3]
-            if scene.materials.has_normal_map:
-                n_tex = fetched[3]
-
-        # Normal mapping (material normal_map, tangent-space +Z up).
+        # Normal mapping (material normal_map, tangent-space +Z up), with
+        # the interpolated tangent Gram-Schmidt-orthonormalized against ns.
         if scene.textures is not None and scene.materials.has_normal_map:
+            tan_proj = tan_raw - ns * dot(tan_raw, ns)[:, None]
+            tan_len = torch.sqrt(dot(tan_proj, tan_proj))[:, None]
+            has_tan = tan_len[:, 0] > 1e-4
             n_t = n_tex[:, :3]
             n_ts = normalize(n_t * 2.0 - 1.0)
             tb0 = torch.where(

@@ -222,6 +222,13 @@ WAVEFRONT_WALK = Kernel(
     [_P] * 9 + [_I] * 5 + [_P] * 6,
 )
 
+# csrc/shade_fetch.cu: K9
+SHADE_FETCH = Kernel(
+    "hala_shade_fetch",
+    [_P] * 6 + [_I] * 3 + [_P] + [_I] + [_P] * 3 + [_I] * 5 + [_P] * 2 + [_I] * 2
+    + [_P] * 2,
+)
+
 KERNELS = {
     "intersect_bruteforce": INTERSECT_BRUTEFORCE,
     "matrix_traverse": MATRIX_TRAVERSE,
@@ -231,6 +238,7 @@ KERNELS = {
     "cluster_stream": CLUSTER_STREAM,
     "grouped_walk": GROUPED_WALK,
     "wavefront_walk": WAVEFRONT_WALK,
+    "shade_fetch": SHADE_FETCH,
 }
 
 

@@ -34,6 +34,7 @@ HERE = os.path.dirname(__file__)
 pytestmark = pytest.mark.cuda
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(HERE)))
+sys.path.insert(0, os.path.abspath(HERE))  # the CPU tests' tables (K9)
 
 import chip_smoke  # noqa: E402  (the skip-breaking raster and span tables)
 
@@ -1256,3 +1257,162 @@ def test_spans_share_the_profilers_clock(cuda_device, kind):
         assert any(a <= launch[0] <= b for a, b in boxes), (e.name, launch, boxes)
     table = stages.attribute(trace, spans, 1)
     assert table["unattributed_share"] < 5.0, table
+
+
+# ---------------------------------------------------------------------------
+# K9: the shading point's surface fetch (csrc/shade_fetch.cu)
+# ---------------------------------------------------------------------------
+
+
+def _k9_against_plain(case, rows=None):
+    """K9 once, against shade_fetch_plain on the same CUDA tensors;
+    `rows`, where given, the shade rows a lane."""
+    from hala_tpu_torch.ops import shade_fetch as k9
+    from hala_tpu_torch.ops.gathers import take_rows
+    from test_torch_shade_fetch import assert_fetch_equal
+
+    scene, hit, hit_p, pd, pa = case
+    table = scene.geometry.shade_table
+    before = cuda_lib.SHADE_FETCH.launches
+    got = k9.shade_fetch(scene, hit, hit_p, pd, pa, rows)
+    if rows is None:
+        rows = take_rows(table, torch.clamp(hit.tri, 0, table.shape[0] - 1))
+    ref = k9.shade_fetch_plain(scene, rows, hit, hit_p, pd, pa)
+    torch.cuda.synchronize()
+    assert cuda_lib.SHADE_FETCH.launches == before + 1
+    assert_fetch_equal(got, ref)
+
+
+@pytest.mark.parametrize("levels", [1, 5])
+@pytest.mark.parametrize("uv_transform", [False, True])
+@pytest.mark.parametrize("normal_map", [False, True])
+@pytest.mark.parametrize("cols", [32, 48])
+def test_k9_matches_plain(cuda_device, cols, normal_map, uv_transform, levels):
+    """Bit for bit on every output: 32- and 48-column rows, normal map on
+    and off, uv transform on and off, one and five mip levels; the
+    tables put uv below 0 and above 1, map ids at -1, misses and ids
+    past the table among the hits and the LOD at both ends of its
+    clamp (tests/test_torch_shade_fetch.py `fetch_case`)."""
+    from test_torch_shade_fetch import fetch_case
+
+    _k9_against_plain(fetch_case(cols, normal_map, uv_transform, levels, n=100_003,
+                                 seed=cols + 2 * levels, device=cuda_device))
+
+
+def test_k9_without_textures_matches_plain(cuda_device):
+    from test_torch_shade_fetch import fetch_case
+
+    _k9_against_plain(fetch_case(n=4099, seed=7, device=cuda_device, textures=False))
+
+
+@pytest.mark.parametrize("textures", [False, True])
+@pytest.mark.parametrize("cols", [32, 48])
+def test_k9_with_spheres_matches_plain(cuda_device, cols, textures):
+    """Procedural sphere hits (a fifth of the lanes): the analytic
+    normal, uv, material, vertex colour, tangent and uv density in
+    place of the row's, bit for bit."""
+    from hala_tpu_torch.ops.prims import PROC_BASE
+    from test_torch_shade_fetch import fetch_case
+
+    case = fetch_case(cols, n=100_003, seed=cols + 3, device=cuda_device,
+                      textures=textures, spheres=True)
+    assert int((case[1].tri >= PROC_BASE).sum()) > 10_000
+    _k9_against_plain(case)
+
+
+@pytest.mark.parametrize("spheres", [False, True])
+@pytest.mark.parametrize("cols", [32, 48])
+def test_k9_rows_given_a_lane_match_plain(cuda_device, cols, spheres):
+    """Shade rows given a lane (a sharded geometry's, through its
+    collective): lane i reads row i, here a permutation of the lanes'
+    own rows, bit for bit against the plain fetch over the same rows."""
+    from hala_tpu_torch.ops.gathers import take_rows
+    from test_torch_shade_fetch import fetch_case
+
+    case = fetch_case(cols, n=65_537, seed=cols + 5, device=cuda_device, spheres=spheres)
+    scene, hit = case[0], case[1]
+    table = scene.geometry.shade_table
+    perm = torch.randperm(hit.tri.shape[0], device=cuda_device,
+                          generator=torch.Generator(cuda_device).manual_seed(4))
+    _k9_against_plain(case, take_rows(table, torch.clamp(hit.tri, 0, table.shape[0] - 1))[perm])
+
+
+def test_k9_on_atrium_big_frames_batches(cuda_device):
+    """Every bounce of an atrium_big 1920x1088 frame (2^20-lane tiles)
+    through K9 and the plain version, bit for bit."""
+    scene = Scene.load(os.path.join(HERE, "..", "assets", "atrium_big.glb"))
+    dev = SceneUploader.upload(scene, use_ray_tracing=False, device=cuda_device)
+    batches = chip_smoke.fetch_batches(dev)
+    assert len(batches) == 8 and batches[0][0].tri.shape[0] == 1 << 20
+    for hit, hit_p, pd, pa in batches:
+        _k9_against_plain((dev, hit, hit_p, pd, pa))
+
+
+def _atrium_spheres(device):
+    host = Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb"))
+    base = SceneUploader.upload(host, use_ray_tracing=False, device=device)
+    return chip_smoke.with_spheres_on_view_axis(host, base)[0]
+
+
+@pytest.mark.parametrize("name", ["atrium", "textures", "cornell", "procedural",
+                                  "atrium_spheres"])
+def test_k9_film_equals_the_plain_route(cuda_device, name, monkeypatch):
+    """Two frames through K9 and through the plain fetch on the card
+    (the plain version swapped in): films equal bit for bit. atrium.glb
+    has a mip pyramid and three maps, the feature scene 48-column rows,
+    a uv transform and a normal map, the Cornell box no textures; the
+    procedural example's Cornell box and atrium.glb each add spheres."""
+    from hala_tpu_torch.models import integrator
+    from hala_tpu_torch.ops import shade_fetch as k9
+    from hala_tpu_torch.ops.gathers import take_rows
+    from test_torch_features import _mods, _texture_scene
+
+    host = {"atrium": lambda: Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb")),
+            "textures": lambda: _texture_scene(_mods("hala_tpu_torch")),
+            "cornell": cornell_box, "procedural": chip_smoke.procedural_scene,
+            "atrium_spheres": lambda: _atrium_spheres(cuda_device)}[name]()
+    dev = SceneUploader.upload(host, use_ray_tracing=False, device=cuda_device)
+    assert (dev.procedural is not None) == (name in ("procedural", "atrium_spheres"))
+    settings = RenderSettings(width=128, height=96, max_depth=4, rr_depth=2)
+
+    def films():
+        film = Film.create(128, 96, cuda_device)
+        for f in range(2):
+            render_frame(dev, None, Uniforms.default(cuda_device), film, f, settings)
+        torch.cuda.synchronize()
+        return film
+
+    before = cuda_lib.SHADE_FETCH.launches
+    kernel = films()
+    assert cuda_lib.SHADE_FETCH.launches == before + 2 * 4
+
+    def plain_fetch(scene, hit, hit_p, path_dist, pixel_angle, rows=None):
+        if rows is None:
+            table = scene.geometry.shade_table
+            rows = take_rows(table, torch.clamp(hit.tri, 0, table.shape[0] - 1))
+        return k9.shade_fetch_plain(scene, rows, hit, hit_p, path_dist, pixel_angle)
+
+    monkeypatch.setattr(integrator, "shade_fetch", plain_fetch)
+    plain = films()
+    assert cuda_lib.SHADE_FETCH.launches == before + 2 * 4
+    for k in ("accum", "albedo", "normal"):
+        assert torch.equal(getattr(kernel, k), getattr(plain, k)), k
+
+
+def test_k9_counter_reads_kernel_on_the_card(cuda_device):
+    """`shade.fetch` reads route "kernel" for every bounce of a frame."""
+    from hala_tpu_torch.utils import profiling
+
+    dev = SceneUploader.upload(Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb")),
+                               use_ray_tracing=False, device=cuda_device)
+    settings = RenderSettings(width=64, height=64, max_depth=3, tile_size=2048)
+    film = Film.create(64, 64, cuda_device)
+    profiling.reset()
+    profiling.enable()
+    try:
+        render_frame(dev, None, Uniforms.default(cuda_device), film, 0, settings)
+        counters = [c for c in profiling.counters() if c["name"] == "shade.fetch"]
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert counters == [{"name": "shade.fetch", "labels": {"route": "kernel"}, "value": 2 * 3}]

@@ -414,11 +414,14 @@ def test_cpu_tensors_never_launch(cornell, sponza, rs):
     from hala_tpu_torch.ops.traverse import intersect_traversed
 
     intersect_traversed(_t(o), _t(d), sdev.geometry, k_per_ray=2)
-    intersect_clustered(_t(o), _t(d), sdev.geometry)
+    hit = intersect_clustered(_t(o), _t(d), sdev.geometry)
+    from hala_tpu_torch.ops.shade_fetch import shade_fetch
+
+    shade_fetch(sdev, hit, torch.zeros((64, 3)), torch.ones(64), torch.tensor(1e-3))
     assert cuda_lib.launches() == {
         "intersect_bruteforce": 0, "matrix_traverse": 0, "raster_tiled": 0,
         "cull_topk": 0, "traverse_candidates": 0, "cluster_stream": 0,
-        "grouped_walk": 0, "wavefront_walk": 0,
+        "grouped_walk": 0, "wavefront_walk": 0, "shade_fetch": 0,
     }
 
 
