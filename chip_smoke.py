@@ -462,11 +462,11 @@ def coherent_order(dev_scene, batch):
     """The batch in matrix_query's coherence order (octant and origin
     Morton cell, dead rays last), and the inverse permutation."""
     from hala_tpu_torch.ops import traverse as k2
-    from hala_tpu_torch.ops.compaction import order_by
+    from hala_tpu_torch.ops.compaction import order_by, query_coherence_key
 
     g = dev_scene.geometry
     o, d, tm = batch
-    order, inverse = order_by(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+    order, inverse = order_by(query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
     return tuple(x[order].contiguous() for x in batch), inverse
 
 
@@ -1623,6 +1623,7 @@ def check_k7_k8(dev_scene, small, big, reps: int):
 
     from hala_tpu_torch.ops import traverse as k8
     from hala_tpu_torch.ops import wavefront as k7
+    from hala_tpu_torch.ops.compaction import query_coherence_key
     from hala_tpu_torch.ops.intersect import canonical_hit
 
     g = dev_scene.geometry
@@ -1634,7 +1635,7 @@ def check_k7_k8(dev_scene, small, big, reps: int):
 
     def coherent(batch):
         o, d, tm = k8.pad_to_groups(*batch)
-        order = torch.argsort(k8._coherence_key(o, d, tm, cmin, cmax), stable=True)
+        order = torch.argsort(query_coherence_key(o, d, tm, cmin, cmax), stable=True)
         return o[order].contiguous(), d[order].contiguous(), tm[order].contiguous()
 
     def k8_args(o, d, tm, k_cap):
@@ -2782,7 +2783,7 @@ def spheres_render(host, card: str, frames: int = 2, size=(1920, 1088), device="
 
     from hala_tpu_torch.models import integrator
     from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
-    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import cuda_lib, query
     from hala_tpu_torch.ops.prims import PROC_BASE
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
 
@@ -2797,7 +2798,7 @@ def spheres_render(host, card: str, frames: int = 2, size=(1920, 1088), device="
         r.commit()
         if label == "auto":
             o, d = camera_rays(r.scene, *size, seed=7)
-            hit = integrator._intersect(r.scene, o, d, r.settings)
+            hit = integrator._intersect(r.scene, o, d, query.resolve(r.settings, r.scene))
             out["sphere_share"] = float((hit.tri >= PROC_BASE).float().mean())
             out["hit_share"] = float((hit.tri >= 0).float().mean())
             if not out["sphere_share"] >= SPHERE_SHARE_MIN:
@@ -3046,7 +3047,6 @@ def animated_cornell(card: str, size=(512, 512), device="cuda"):
     moved soup's, packed by the first query after the move."""
     import torch
 
-    from hala_tpu_torch.models.integrator import _num_real
     from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
     from hala_tpu_torch.ops import cuda_lib
     from hala_tpu_torch.ops.pallas import intersect_kernel as k1
@@ -3084,9 +3084,9 @@ def animated_cornell(card: str, size=(512, 512), device="cuda"):
         # the table K1's wrapper keeps for these three tensors: packed
         # by the first query after the move, from the moved soup
         soup = (g.tri_v0, g.tri_e1, g.tri_e2)
-        packed = k1._PACKED.get((*map(id, soup), _num_real(g)))
+        packed = k1._PACKED.get((*map(id, soup), k1.prefix_slots(g)))
         if packed is None or not all(w() is t for w, t in zip(packed[0], soup)) \
-                or not torch.equal(packed[2], k1.pack_triangles(*soup, _num_real(g))):
+                or not torch.equal(packed[2], k1.pack_triangles(*soup, k1.prefix_slots(g))):
             raise AssertionError("K1 did not pack the moved soup")
         host2, _, _ = tall_box_scene()
         host2.nodes[node].world_transform = world
@@ -3716,9 +3716,8 @@ def bvh_checks(cornell_k1, big_host, x5_host, card: str, device="cuda",
     the "bruteforce" frame 0 bit for bit."""
     import torch
 
-    from hala_tpu_torch.models.integrator import _backend
     from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
-    from hala_tpu_torch.ops import bvh, cuda_lib
+    from hala_tpu_torch.ops import bvh, cuda_lib, query
     from hala_tpu_torch.ops.pallas import intersect_kernel as k1
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
     from hala_tpu_torch.scene.procedural import cornell_box
@@ -3728,7 +3727,7 @@ def bvh_checks(cornell_k1, big_host, x5_host, card: str, device="cuda",
                            intersector="bvh", device=device)
     r.set_scene(cornell_box())
     r.commit()
-    if _backend(r.settings, r.scene) != "bvh":
+    if query.resolve(r.settings, r.scene).engine != "bvh":
         raise AssertionError("cornell: intersector=\"bvh\" does not resolve to \"bvh\"")
     f0 = warm_up(r)
     cuda_lib.reset_launches()
@@ -3743,8 +3742,8 @@ def bvh_checks(cornell_k1, big_host, x5_host, card: str, device="cuda",
     leg.commit()
     cuda_lib.reset_launches()
     legacy_equal = bool(torch.equal(frame0(leg), f0))
-    if _backend(leg.settings, leg.scene) != "bvh" or any(visibility_launches().values()) \
-            or not legacy_equal:
+    if query.resolve(leg.settings, leg.scene).engine != "bvh" \
+            or any(visibility_launches().values()) or not legacy_equal:
         raise AssertionError("cornell legacy: not the bvh frame 0")
     if not out["cornell"]["frame0_rel_rmse_vs_k1"] < REL_RMSE_TOL:
         raise AssertionError(f"cornell bvh frame 0 vs K1: {out['cornell']}")
@@ -3797,7 +3796,7 @@ def bvh_checks(cornell_k1, big_host, x5_host, card: str, device="cuda",
     r.commit()
     r.set_node_transform(node, ex.translate(ex.POSES_DX[0], 0.0, 0.0) @ w0)
     r.update_scene()
-    if r.scene.bvh is not None or _backend(r.settings, r.scene) != "bruteforce":
+    if r.scene.bvh is not None or query.resolve(r.settings, r.scene).engine != "bruteforce":
         raise AssertionError("a moved scene kept its BVH")
     if not torch.equal(frame0(r), frame0(r, "bruteforce")):
         raise AssertionError("moved bvh frame 0 is not the bruteforce frame 0")
@@ -3819,9 +3818,8 @@ def dense_render(big_host, k2_film, k2_rays: float, card: str, device="cuda",
     launches)."""
     import torch
 
-    from hala_tpu_torch.models import integrator
     from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
-    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import cuda_lib, query
 
     r = RayTracingRenderer("atrium_big_dense", *size, max_depth=4, rr_depth=2, spp=1,
                            intersector="matrix", use_bvh=False, device=device)
@@ -3842,20 +3840,20 @@ def dense_render(big_host, k2_film, k2_rays: float, card: str, device="cuda",
     out["traced_cull_misses"] = 0
     if out["pixels_differ"]:
         seen = []
-        dense_q = integrator.occluded_dense
+        dense_q = query.occluded_dense
 
         def checked(o, d, tf, g, k):
             occ = dense_q(o, d, tf, g, k=k)
             seen.append(dense_anyhit_vs_k2("dense shadow query", occ, o, d, tf, g))
             return occ
 
-        integrator.occluded_dense = checked
+        query.occluded_dense = checked
         try:
             r.reset_accumulation()
             r.render_loop(frames)
             torch.cuda.synchronize()
         finally:
-            integrator.occluded_dense = dense_q
+            query.occluded_dense = dense_q
         out["traced_cull_misses"] = sum(seen)
         if not out["traced_cull_misses"]:
             raise AssertionError(f"dense film: {out['pixels_differ']} pixels differ from "

@@ -35,24 +35,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import rng
+from ..ops import query, rng
 from ..ops.bsdf import bsdf_eval, bsdf_sample
-from ..ops.bvh import intersect_bvh, occluded_bvh
 from ..ops.camera import generate_rays
-from ..ops.cluster import intersect_clustered
-from ..ops.compaction import order_by, permute
-from ..ops.dense import DENSE_MAX_CLUSTERS, occluded_dense
 from ..ops.env import env_eval, env_sample, sky_radiance
 from ..ops.gathers import take_rows
-from ..ops.intersect import (
-    T_MAX,
-    Hit,
-    full_t_max,
-    intersect_bruteforce,
-    occluded_bruteforce,
-)
+from ..ops.intersect import T_MAX, Hit, full_t_max
 from ..ops.lights import intersect_lights, sample_one_light
-from ..ops.pallas.intersect_kernel import intersect_pallas, occluded_pallas
 from ..ops.prims import PROC_BASE, merge_procedural, occluded_spheres
 from ..ops.sampling import (
     build_basis,
@@ -65,16 +54,6 @@ from ..ops.sampling import (
     to_world,
 )
 from ..ops.shade_fetch import SurfaceFetch, shade_fetch
-from ..ops.cull import _ID_MASK as _CULL_ID_MASK
-from ..ops.traverse import (
-    MATRIX_MAX_CLUSTERS,
-    _coherence_key,
-    intersect_grouped,
-    intersect_matrix,
-    intersect_traversed,
-    matrix_query,
-)
-from ..ops.wavefront import intersect_wavefront
 from ..scene.gpu.scene import TensorTables, resolve_device
 from ..utils import profiling
 
@@ -89,8 +68,10 @@ _U32 = 0xFFFFFFFF
 class RenderSettings:
     """Integrator configuration.
 
-    `intersector` selects the visibility backend; "auto" resolves per
-    scene in `_backend`. Explicit values: "pallas" (the brute-force
+    `intersector` selects the visibility engine, and `shadow_dense_k`,
+    `shadow_intersector` and `extend_intersector` the routes of a
+    matrix-family engine's shadow and bounce rays; ops/query.py
+    `resolve` holds the rules. The engines: "pallas" (the brute-force
     kernel, csrc/intersect_bruteforce.cu), "matrix" (the cluster
     traversal kernel, csrc/matrix_traverse.cu), "grouped" (per-group
     candidate lists walked by csrc/grouped_walk.cu), "wavefront" (the
@@ -101,31 +82,12 @@ class RenderSettings:
     csrc/cluster_stream.cu), "cluster" (csrc/cluster_stream.cu alone),
     "bruteforce" (the chunked plain PyTorch scan, the ground truth),
     "bvh" (the skip-link BVH of ops/bvh.py in plain PyTorch, a debugging
-    path; the brute force where the scene has no BVH) and "legacy" (the
-    JAX package's `use_bvh` flag: "bvh" when it is set and the scene has
-    a BVH, else "bruteforce"). "auto" never picks "grouped",
-    "wavefront" or "bvh".
-
-    `sort_rays` runs every large-scene query under a coherence sort
-    (`matrix_query` for the matrix family, ops/compaction.py for
-    "traverse" and "cluster"). `traverse_k` bounds the "traverse"
-    candidate lists, `wavefront_k` the wavefront's per-ray lists (both
-    at most 16) and `wavefront_m` its per-group merged lists (at most
-    32).
-
-    On a matrix-family backend, `shadow_intersector="wavefront"` sends
-    the shadow rays' any-hit query to the wavefront with
-    `shadow_wavefront_k` candidates per ray, and
-    `extend_intersector="wavefront"` the bounce rays' closest-hit query
-    with `extend_wavefront_k` (where the shadow rays have a query of
-    their own, that is without alpha materials); "auto" and "matrix"
-    leave both with the backend.
-
-    `shadow_dense_k` > 0 sends a matrix-family backend's split shadow
-    query to the dense engine (ops/dense.py: K4's K nearest clusters per
-    ray, tested in plain PyTorch, K2 for truncated lists) where the scene
-    has at most DENSE_MAX_CLUSTERS clusters; it takes precedence over
-    `shadow_intersector`. K is at most 16 (K4's register list).
+    path) and "legacy" (the JAX package's `use_bvh` flag); the dense
+    engine (ops/dense.py) is a shadow route only. `sort_rays` runs every
+    large-scene query under a coherence sort. `traverse_k`, `wavefront_k`,
+    `shadow_wavefront_k`, `extend_wavefront_k` and `shadow_dense_k`
+    bound the candidate lists (at most 16), `wavefront_m` the
+    wavefront's per-group merged lists (at most 32).
 
     `tile_size` defaults to 2^20 rays (the JAX package: 65536): on the
     GPU a tile's time is dominated by per-operation launch cost well
@@ -245,128 +207,6 @@ class KernelHooks:
     intersection: object = None
 
 
-_BACKENDS = ("auto", "pallas", "matrix", "grouped", "wavefront", "traverse",
-             "cluster", "bruteforce", "bvh", "legacy")
-_MATRIX_FAMILY = ("wavefront", "matrix", "grouped")
-
-
-def _backend(settings: RenderSettings, scene) -> str:
-    """Resolve the visibility backend. "auto": scenes of at most 4096
-    triangles on the prefix (Morton) layout go to the brute-force
-    kernel, larger ones of at most MATRIX_MAX_CLUSTERS clusters to the
-    cluster traversal, and larger still (the 13-bit key width of K2) to
-    the candidate traversal. The same rule holds on every device: for
-    CPU tensors the kernels' wrappers run their plain versions.
-
-    On a geometry shard (`scene_axis`) the brute-force kernel's prefix
-    trim does not apply: "pallas", and "auto" on the prefix layout or
-    at most 4096 triangles, give the plain brute force over the local
-    slots; above that the shard's own cluster count picks "matrix" or
-    "traverse". "bvh" is the brute force there too: the node table
-    addresses global slots while the shard holds its own.
-
-    "legacy" is "bvh" where `use_bvh` is set and the scene has a BVH,
-    else "bruteforce"; "bvh" on a scene without one (never uploaded with
-    it, or moved since) is "bruteforce", as in the JAX package."""
-    sel = settings.intersector
-    if sel not in _BACKENDS:
-        raise ValueError(
-            f"Unknown intersector {sel!r}; expected one of {_BACKENDS}"
-        )
-    sharded = settings.scene_axis is not None
-    if sel == "legacy":
-        sel = "bvh" if settings.use_bvh and scene.bvh is not None else "bruteforce"
-    if sel == "bvh" and scene.bvh is None:
-        return "bruteforce"
-    if sel != "auto":
-        return "bruteforce" if sharded and sel in ("pallas", "bvh") else sel
-    g = scene.geometry
-    if sharded and (g.prefix_layout or g.num_triangles <= 4096):
-        return "bruteforce"
-    if g.num_triangles <= 4096 and g.prefix_layout:
-        return "pallas"
-    if g.tri_packed.shape[0] <= MATRIX_MAX_CLUSTERS:
-        return "matrix"
-    return "traverse"
-
-
-def _num_real(g) -> int:
-    # The prefix trim is valid only for the Morton tail-padded layout;
-    # the SAH layout has interior padding, so every slot is scanned.
-    return g.num_triangles if g.prefix_layout else g.tri_v0.shape[0]
-
-
-def _sorted_dispatch(scene, o, d, t_max, query) -> Hit:
-    """Run `query(o, d, t_max) -> Hit` under the coherence sort
-    (ops/compaction.py) and undo the permutation."""
-    g = scene.geometry
-    tm = full_t_max(t_max, o.shape[0], o.device)
-    with profiling.span("hala.sort"):
-        order, inverse = order_by(
-            _coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
-        rays = permute(order, o, d, tm)
-    hit = query(*rays)
-    del rays  # the sorted rays are not kept through the inverse permutation
-    with profiling.span("hala.sort"):
-        return Hit(*(permute(inverse, x) for x in hit))
-
-
-def _wavefront_route(settings: RenderSettings, scene, choice: str) -> bool:
-    """A ray class routes to the wavefront only on an explicit
-    "wavefront" for it, a matrix-family backend and a cluster count
-    inside the cull's key width; "auto" never does."""
-    return (
-        choice == "wavefront"
-        and _backend(settings, scene) in _MATRIX_FAMILY
-        and scene.geometry.tri_packed.shape[0] < _CULL_ID_MASK
-    )
-
-
-def _shadow_dense_route(settings: RenderSettings, scene) -> bool:
-    """True iff shadow-class queries route to the dense engine: a
-    matrix-family backend, `shadow_dense_k` > 0 and at most
-    DENSE_MAX_CLUSTERS clusters."""
-    return (
-        settings.shadow_dense_k > 0
-        and _backend(settings, scene) in _MATRIX_FAMILY
-        and scene.geometry.tri_packed.shape[0] <= DENSE_MAX_CLUSTERS
-    )
-
-
-def _shadow_wavefront_route(settings: RenderSettings, scene) -> bool:
-    """True iff shadow-class queries route to the any-hit wavefront; the
-    dense engine takes precedence."""
-    return (not _shadow_dense_route(settings, scene)
-            and _wavefront_route(settings, scene, settings.shadow_intersector))
-
-
-def _extend_wavefront_route(settings: RenderSettings, scene) -> bool:
-    """True iff extend-class (closest-hit bounce ray) queries route to
-    the wavefront."""
-    return _wavefront_route(settings, scene, settings.extend_intersector)
-
-
-def _matrix_family(scene, o, d, t_max, any_hit: bool,
-                   settings: RenderSettings) -> Hit:
-    """One query of a matrix-family backend: under `matrix_query`'s
-    coherence sort, or the engine alone with sort_rays off."""
-    g = scene.geometry
-    backend = _backend(settings, scene)
-    if settings.sort_rays:
-        return matrix_query(
-            o, d, g, t_max=t_max, any_hit=any_hit, kernel=backend,
-            wavefront_k=settings.wavefront_k, wavefront_m=settings.wavefront_m,
-        )
-    if backend == "wavefront":
-        return intersect_wavefront(
-            o, d, g, t_max=t_max, any_hit=any_hit,
-            k_per_ray=settings.wavefront_k, m_group=settings.wavefront_m,
-        )
-    if backend == "grouped":
-        return intersect_grouped(o, d, g, t_max=t_max, any_hit=any_hit)
-    return intersect_matrix(o, d, g, t_max=t_max, any_hit=any_hit)
-
-
 def _merge_proc(scene, o, d, hit: Hit, t_max) -> Hit:
     """Fold the procedural spheres' hits into a triangle Hit (ops/prims.py;
     ids at tri >= PROC_BASE)."""
@@ -421,35 +261,33 @@ def _gather_rays(mesh, o, d, t):
     return rays[:, 0:3], rays[:, 3:6], rays[:, 6].contiguous()
 
 
-def _query_span(scene, settings: RenderSettings, kind: str, rays: int):
-    """The `hala.query` span of one query, and its counters: the engine
-    `_backend` resolves, the kind ("closest", "any", "batched" for a
-    closest-hit query carrying shadow rays, "extend") and the rays."""
+def _query_span(plan: query.QueryPlan, kind: str, rays: int):
+    """The `hala.query` span of one query, and its counters: the plan's
+    engine, the kind ("closest", "any", "batched" for a closest-hit
+    query carrying shadow rays, "extend") and the rays."""
     if not profiling.enabled():
         return profiling.NO_SPAN
-    engine = _backend(settings, scene)
-    profiling.count("query.calls", engine=engine, kind=kind)
-    profiling.count("query.rays", rays, engine=engine, kind=kind)
-    return profiling.span("hala.query", engine=engine, kind=kind, rays=rays)
+    profiling.count("query.calls", engine=plan.engine, kind=kind)
+    profiling.count("query.rays", rays, engine=plan.engine, kind=kind)
+    return profiling.span("hala.query", engine=plan.engine, kind=kind, rays=rays)
 
 
-def _intersect(scene, o, d, settings: RenderSettings, t_max=None,
+def _intersect(scene, o, d, plan: query.QueryPlan, t_max=None,
                extend: bool = False, kind: str = "closest") -> Hit:
-    """Closest-hit dispatch: the triangle backend's query, then the
+    """Closest-hit dispatch: the triangle engine's query, then the
     procedural spheres. `extend` marks a bounce rays' query, which
-    `extend_intersector` may send to the wavefront; `kind` names the
-    query in its span. On a geometry shard the query runs on every
-    rank's rays and the ranks' hits are merged (`merge_shard_hits`'
-    rule); the spheres are replicated and join after, on this rank's
-    rays."""
-    with _query_span(scene, settings, "extend" if extend else kind, o.shape[0]):
-        mesh = settings.scene_axis
+    the plan may send to the wavefront; `kind` names the query in its
+    span. On a geometry shard the query runs on every rank's rays and
+    the ranks' hits are merged (`merge_shard_hits`' rule); the spheres
+    are replicated and join after, on this rank's rays."""
+    with _query_span(plan, "extend" if extend else kind, o.shape[0]):
+        mesh = plan.scene_axis
         if mesh is None:
-            hit = _intersect_local(scene, o, d, settings, t_max, extend)
+            hit = _intersect_local(scene, o, d, plan, t_max, extend)
             return _merge_proc(scene, o, d, hit, t_max)
         n = o.shape[0]
         og, dg, tg = _gather_rays(mesh, o, d, t_max)
-        hit = _intersect_local(scene, og, dg, settings, tg, extend)
+        hit = _intersect_local(scene, og, dg, plan, tg, extend)
         own = slice(mesh.rank * n, (mesh.rank + 1) * n)
         merged = _lex_merge(
             [hit], [mesh.rank * scene.geometry.tri_v0.shape[0]],
@@ -459,90 +297,33 @@ def _intersect(scene, o, d, settings: RenderSettings, t_max=None,
         return _merge_proc(scene, o, d, merged, t_max)
 
 
-def _intersect_local(scene, o, d, settings: RenderSettings, t_max=None,
+def _intersect_local(scene, o, d, plan: query.QueryPlan, t_max=None,
                      extend: bool = False) -> Hit:
-    """The triangle backend's closest-hit query."""
-    g = scene.geometry
-    backend = _backend(settings, scene)
-    o, d = o.contiguous(), d.contiguous()
-    if backend in _MATRIX_FAMILY:
-        if extend and _extend_wavefront_route(settings, scene):
-            return intersect_wavefront(
-                o, d, g, t_max=t_max, k_per_ray=settings.extend_wavefront_k,
-                m_group=settings.wavefront_m,
-            )
-        return _matrix_family(scene, o, d, t_max, False, settings)
-    if backend in ("traverse", "cluster"):
-        if backend == "traverse":
-            def query(o_q, d_q, t_q):
-                return intersect_traversed(o_q, d_q, g, t_max=t_q,
-                                           k_per_ray=settings.traverse_k)
-        else:
-            def query(o_q, d_q, t_q):
-                return intersect_clustered(o_q, d_q, g, t_max=t_q)
-        if settings.sort_rays:
-            return _sorted_dispatch(scene, o, d, t_max, query)
-        return query(o, d, full_t_max(t_max, o.shape[0], o.device))
-    if backend == "pallas":
-        return intersect_pallas(
-            o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=t_max,
-            num_real=_num_real(g),
-        )
-    if backend == "bvh":
-        return intersect_bvh(scene.bvh, g, o, d, t_max=t_max)
-    return intersect_bruteforce(
-        o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=t_max, chunk=settings.chunk
-    )
+    """The triangle engine's closest-hit query on this device."""
+    return query.closest(plan, scene, o, d, t_max, extend)
 
 
-def _occluded(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
+def _occluded(scene, o, d, t_far, plan: query.QueryPlan) -> torch.Tensor:
     """Any-hit dispatch: True where a triangle lies in
     (1e-4, t_far * (1 - 1e-4)) or a procedural sphere in (1e-4, t_far).
     On a geometry shard every rank answers every rank's rays for its
     own triangles, and the masks are OR'd by an int32 reduce-scatter."""
-    with _query_span(scene, settings, "any", o.shape[0]):
-        mesh = settings.scene_axis
+    with _query_span(plan, "any", o.shape[0]):
+        mesh = plan.scene_axis
         if mesh is None:
-            occ = _occluded_local(scene, o, d, t_far, settings)
+            occ = _occluded_local(scene, o, d, t_far, plan)
         else:
             og, dg, tg = _gather_rays(mesh, o, d, t_far)
-            occ_g = _occluded_local(scene, og, dg, tg, settings)
+            occ_g = _occluded_local(scene, og, dg, tg, plan)
             occ = mesh.sum_scatter(occ_g.to(torch.int32)) > 0
         if scene.procedural is not None:
             occ = occ | occluded_spheres(scene.procedural, o, d, t_far)
         return occ
 
 
-def _occluded_local(scene, o, d, t_far, settings: RenderSettings) -> torch.Tensor:
-    """The triangle backend's any-hit query."""
-    g = scene.geometry
-    backend = _backend(settings, scene)
-    o, d = o.contiguous(), d.contiguous()
-    if backend in _MATRIX_FAMILY:
-        tf = t_far * (1.0 - 1e-4)
-        if _shadow_dense_route(settings, scene):
-            return occluded_dense(o, d, tf, g, k=settings.shadow_dense_k)
-        if _shadow_wavefront_route(settings, scene) or (
-                backend == "wavefront" and not settings.sort_rays):
-            # shadow segments are short: their own, smaller K
-            return intersect_wavefront(
-                o, d, g, t_max=tf, any_hit=True,
-                k_per_ray=settings.shadow_wavefront_k,
-                m_group=settings.wavefront_m,
-            ).tri >= 0
-        return _matrix_family(scene, o, d, tf, True, settings).tri >= 0
-    if backend in ("traverse", "cluster"):
-        return _intersect_local(scene, o, d, settings,
-                                t_max=t_far * (1.0 - 1e-4)).tri >= 0
-    if backend == "pallas":
-        return occluded_pallas(
-            o, d, t_far, g.tri_v0, g.tri_e1, g.tri_e2, num_real=_num_real(g)
-        )
-    if backend == "bvh":
-        return occluded_bvh(scene.bvh, g, o, d, t_far)
-    return occluded_bruteforce(
-        o, d, t_far, g.tri_v0, g.tri_e1, g.tri_e2, chunk=settings.chunk
-    )
+def _occluded_local(scene, o, d, t_far, plan: query.QueryPlan) -> torch.Tensor:
+    """The triangle engine's any-hit query on this device."""
+    return query.occluded(plan, scene, o, d, t_far)
 
 
 def _rows_sharded(table, idx, mesh):
@@ -594,9 +375,11 @@ def _path_context(
     blue_noise=None,
     hooks: KernelHooks | None = None,
 ):
-    """Build the per-trace path-tracing closures.
+    """Build the per-trace path-tracing closures over the tile's query
+    plan (ops/query.py).
 
-    Returns (init_state, bounce_body): `bounce_body(bounce, state)`
+    Returns (init_state, bounce_body): `init_state(o, d)` runs the
+    camera rays' closest-hit query; `bounce_body(bounce, state)`
     runs one bounce — shading at the current hit, NEE, BSDF sampling,
     Russian roulette, then ONE batched visibility query for the next
     extension ray (and, unless split into an any-hit query, the shadow
@@ -623,19 +406,17 @@ def _path_context(
     w_disney = bool(scene.materials.has_disney)
     w_trans = bool(scene.materials.has_transmission)
     w_scatter = bool(scene.materials.has_scatter_medium)
-    # Large scenes split the shadow rays into an ANY-HIT query when no
-    # alpha material needs stochastic pass-through.
-    split_shadow = (
-        not scene.materials.has_alpha
-        and _backend(settings, scene) in _MATRIX_FAMILY
-    )
+    plan = query.resolve(settings, scene)
 
     # Per-pixel cone angle for mip LOD (texture footprint ~ dist * angle).
     cam_yfov = scene.cameras.yfov[uniforms.camera_index]
     fh = full_height if full_height is not None else settings.height
     pixel_angle = 2.0 * torch.tan(0.5 * torch.clamp(cam_yfov, min=1e-3)) / fh
 
-    def init_state(o, d, hit0):
+    def init_state(o, d):
+        # every later bounce folds its extension ray into the batched
+        # end-of-bounce query
+        hit0 = _intersect(scene, o, d, plan)
         with profiling.span("hala.shade", bounce=0):
             zeros3 = torch.zeros_like(o)
             zeros = zeros3[:, 0]
@@ -1035,7 +816,7 @@ def _path_context(
             tm_k = torch.where(
                 passed, torch.clamp(tmax_s - t_base - _RAY_EPS, min=0.0), 0.0
             )
-            qh_k = _intersect(scene, o_k, dir_s, settings, t_max=tm_k)
+            qh_k = _intersect(scene, o_k, dir_s, plan, t_max=tm_k)
             hit_k = passed & (qh_k.tri >= 0)
             r_k = s4(bounce, seed0 + k)[:, 0]
             pass_k = hit_k & (r_k >= opacity_of(qh_k.tri))
@@ -1055,13 +836,13 @@ def _path_context(
             q_o.append(c["shadow_o"])
             q_d.append(c["wi_e"])
             q_t.append(c["env_tmax"])
-        if split_shadow:
+        if plan.split_shadow:
             qhit = _intersect(
-                scene, c["next_o"], c["next_d"], settings, t_max=c["ext_tmax"],
+                scene, c["next_o"], c["next_d"], plan, t_max=c["ext_tmax"],
                 extend=True,
             )
             occ = _occluded(
-                scene, torch.cat(q_o), torch.cat(q_d), torch.cat(q_t), settings
+                scene, torch.cat(q_o), torch.cat(q_d), torch.cat(q_t), plan
             )
             with profiling.span("hala.shade", bounce=bounce):
                 blocked_e = occ[n:2 * n] if has_env_map else None
@@ -1070,7 +851,7 @@ def _path_context(
             scene,
             torch.cat([c["next_o"], *q_o]),
             torch.cat([c["next_d"], *q_d]),
-            settings,
+            plan,
             t_max=torch.cat([c["ext_tmax"], *q_t]),
             kind="batched",
         )
@@ -1114,9 +895,7 @@ def trace_paths(
         scene, env, uniforms, pixel_idx, frame_index, settings, full_height,
         blue_noise, hooks,
     )
-    # Prologue: closest hit for the camera rays; every later bounce folds
-    # its extension ray into the batched end-of-bounce query.
-    state = init_state(o, d, _intersect(scene, o, d, settings))
+    state = init_state(o, d)
     for bounce in range(settings.max_depth):
         state = bounce_body(bounce, state)
     return state["radiance"], state["albedo"], state["normal"], state["rays"]

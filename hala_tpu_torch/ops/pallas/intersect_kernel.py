@@ -33,6 +33,14 @@ STAGE_MAX = 4096
 SMEM_LIMIT = 232448  # bytes of shared memory a block may use on an H100
 
 
+def prefix_slots(geometry) -> int:
+    """The slots to scan: the real triangles on the prefix (Morton)
+    layout, whose padding is its tail; every slot of the SAH layout,
+    which has interior padding."""
+    g = geometry
+    return g.num_triangles if g.prefix_layout else g.tri_v0.shape[0]
+
+
 def pack_triangles(tri_v0, tri_e1, tri_e2, num_real: int) -> torch.Tensor:
     """The kernel's table: (num_real, 12) f32 rows v0, e1, e2, each
     padded with a zero to a float4."""

@@ -23,7 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 BINS = 16
-# Below this the SMEM brute-force path is used (integrator._backend
+# Below this the SMEM brute-force path is used (ops/query.py `resolve`:
 # "auto" picks "pallas" at <= 4096 tris); keep tail-padded Morton there.
 SAH_MIN_TRIS = 4096
 

@@ -15,7 +15,7 @@ clusters of 128 triangle slots with per-cluster AABBs
   package. `stream_plain` is its plain version (the same hits);
   `matrix_walk_runs_plain` models its schedule, clusters visited per
   block included (`matrix_walk_runs`).
-- `matrix_query`: the integrator's entry to the matrix family. It sorts
+- `matrix_query`: the matrix family's sorted query (ops/query.py). It sorts
   the rays by a coherence key (octant and origin Morton cell, or the
   candidate signature), runs K2, the grouped engine or the wavefront
   engine (ops/wavefront.py) on the sorted batch, and undoes the sort.
@@ -72,7 +72,7 @@ from .cluster import (  # noqa: F401  (slab_live, PRETEST_PER_CHUNK: K2's API)
 )
 from .cull import _ID_MASK, CULL_MAX_CLUSTERS, INF_KEY, cull_topk, geometry_unions
 from .intersect import EPS, T_MIN, Hit, canonical_hit, full_t_max, mt_components
-from .compaction import coherence_key, order_by
+from .compaction import order_by, query_coherence_key, sorted_query
 from ..utils import profiling
 
 MATRIX_MAX_CLUSTERS = (1 << 13) - 1
@@ -1015,21 +1015,14 @@ def occluded_grouped(o, d, t_far, geometry) -> torch.Tensor:
 # --- the coherence-sorted entry of the matrix family -----------------------------
 
 
-def _coherence_key(o, d, t_max, cluster_min, cluster_max) -> torch.Tensor:
-    """Octant and origin Morton cell inside the clusters' bounds (the
-    key of compaction.sort_rays), dead rays (t_max <= 0) last."""
-    smin = cluster_min.amin(dim=0)
-    smax = torch.where(cluster_max < 1e30, cluster_max, -torch.inf).amax(dim=0)
-    return coherence_key(o, d, ~(t_max <= 0), smin, smax)
-
-
 def matrix_query(
     o, d, geometry, t_max=None, any_hit: bool = False,
     kernel: str = "matrix", wavefront_k: int = 16, wavefront_m: int = 32,
     sort_key: str = "morton",
 ) -> Hit:
-    """The integrator's entry to the matrix family: the query runs on
-    the rays sorted by a coherence key and the sort is undone.
+    """The matrix family's sorted query: the query runs on the rays
+    sorted by a coherence key (`compaction.sorted_query`) and the sort
+    is undone.
 
     `kernel` picks the walker: "matrix" (K2), "grouped" (K8: the sort is
     what makes its 128-ray groups tight) or "wavefront" (K4 + K7,
@@ -1044,28 +1037,23 @@ def matrix_query(
         raise ValueError(f"matrix_query: unknown kernel {kernel!r}")
     if sort_key not in ("morton", "signature"):
         raise ValueError(f"matrix_query: unknown sort_key {sort_key!r}")
-    n = o.shape[0]
     g = geometry
-    tm = full_t_max(t_max, n, o.device)
+    tm = full_t_max(t_max, o.shape[0], o.device)
     if kernel == "wavefront":
         from .wavefront import intersect_wavefront
 
         return intersect_wavefront(o, d, g, t_max=tm, any_hit=any_hit,
                                    k_per_ray=wavefront_k, m_group=wavefront_m)
-    with profiling.span("hala.sort"):
-        if sort_key == "signature":
-            from .wavefront import signature_key
+    if sort_key == "signature":
+        from .wavefront import signature_key
 
+        def key(o, d, tm):
             pk, _ = cull_topk(o, d, tm, g.cluster_min, g.cluster_max, k=4,
                               unions=geometry_unions(g)[0])
-            key = signature_key(pk)
-        else:
-            key = _coherence_key(o, d, tm, g.cluster_min, g.cluster_max)
-        order, inverse = order_by(key)
-        o_s, d_s, tm_s = o[order], d[order], tm[order]
-    if kernel == "grouped":
-        hit = intersect_grouped(o_s, d_s, g, t_max=tm_s, any_hit=any_hit)
+            return signature_key(pk)
     else:
-        hit = intersect_matrix(o_s, d_s, g, t_max=tm_s, any_hit=any_hit)
-    with profiling.span("hala.sort"):
-        return Hit(*(x[inverse] for x in hit))
+        def key(o, d, tm):
+            return query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max)
+    walk = intersect_grouped if kernel == "grouped" else intersect_matrix
+    return sorted_query(
+        key, lambda o, d, tm: walk(o, d, g, t_max=tm, any_hit=any_hit), o, d, tm)

@@ -53,6 +53,8 @@ from .traverse import (
     walk_stats,
 )
 
+# cluster counts below this: a real id never aliases INF_KEY's low bits
+WAVEFRONT_ID_LIMIT = _ID_MASK
 M_GROUP = 32      # default cap of a group's merged list
 M_GROUP_MAX = 32  # bits of the per-ray want word
 
@@ -270,8 +272,7 @@ def intersect_wavefront(
     n = o.shape[0]
     g = geometry
     c = g.tri_packed.shape[0]
-    # c < _ID_MASK keeps a real id from aliasing INF_KEY's low bits
-    if not (c < _ID_MASK and c <= CULL_MAX_CLUSTERS):
+    if not (c < WAVEFRONT_ID_LIMIT and c <= CULL_MAX_CLUSTERS):
         raise ValueError(f"intersect_wavefront: {c} clusters exceed the key width")
     k = min(k_per_ray, c)
     if k > CULL_MAX_K:

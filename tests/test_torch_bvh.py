@@ -36,14 +36,12 @@ from hala_tpu_torch.models.integrator import (
     Film,
     RenderSettings,
     Uniforms,
-    _backend,
     render_frame,
 )
 from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
-from hala_tpu_torch.ops import bvh
+from hala_tpu_torch.ops import bvh, query
 from hala_tpu_torch.ops.intersect import intersect_bruteforce
 from hala_tpu_torch.ops.morton import sort_by_morton
-from hala_tpu_torch.parallel import make_mesh
 from hala_tpu_torch.scene.gpu.scene import from_numpy
 from hala_tpu_torch.scene.loader.uploader import SceneUploader
 from hala_tpu_torch.scene.procedural import cornell_box, random_triangle_soup, sponza_like
@@ -221,34 +219,12 @@ def test_bvh_and_legacy_films_match_jax(uploads):
                                  jint.RenderSettings(**kw, intersector="bvh"))
     for sel in ("bvh", "legacy"):
         s = RenderSettings(**kw, intersector=sel, use_bvh=True)
-        assert _backend(s, tdev) == "bvh"
+        assert query.resolve(s, tdev).engine == "bvh"
         film = Film.create(16, 16, "cpu")
         render_frame(tdev, None, Uniforms.default("cpu"), film, 0, s)
         for k in ("accum", "albedo", "normal"):
             rel = _rel_rmse(getattr(film, k).numpy(), getattr(jfilm, k))
             assert rel < 2e-3, (sel, k, rel)
-
-
-@pytest.mark.parametrize("sel,use_bvh,has_bvh,sharded,expected", [
-    ("bvh", True, True, False, "bvh"),
-    ("bvh", False, True, False, "bvh"),
-    ("bvh", True, False, False, "bruteforce"),
-    ("bvh", True, True, True, "bruteforce"),
-    ("legacy", True, True, False, "bvh"),
-    ("legacy", False, True, False, "bruteforce"),
-    ("legacy", True, False, False, "bruteforce"),
-    ("legacy", True, True, True, "bruteforce"),
-    ("pallas", True, True, True, "bruteforce"),
-    ("auto", True, True, False, "pallas"),
-])
-def test_backend_resolution(uploads, sel, use_bvh, has_bvh, sharded, expected):
-    _, tdev = uploads["cornell"]
-    import dataclasses
-
-    scene = tdev if has_bvh else dataclasses.replace(tdev, bvh=None)
-    s = RenderSettings(width=8, height=8, intersector=sel, use_bvh=use_bvh,
-                       scene_axis=make_mesh("cpu") if sharded else None)
-    assert _backend(s, scene) == expected
 
 
 def test_moved_scene_drops_the_bvh():
@@ -268,7 +244,7 @@ def test_moved_scene_drops_the_bvh():
         r.update_scene()
         assert r.scene.bvh is None
         r.commit()
-        assert _backend(r.settings, r.scene) == "bruteforce"
+        assert query.resolve(r.settings, r.scene).engine == "bruteforce"
         r.update()
         r.render()
         films[sel] = r.film.accum
@@ -281,7 +257,7 @@ def test_renderer_use_bvh_flag():
     r.set_scene(cornell_box())
     r.commit()
     assert r.scene.bvh is None and not r.settings.use_bvh
-    assert _backend(r.settings, r.scene) == "bruteforce"
+    assert query.resolve(r.settings, r.scene).engine == "bruteforce"
 
 
 def test_upload_flags_as_the_reference():

@@ -18,8 +18,10 @@ import torch
 
 from hala_tpu_torch.models.integrator import Film, RenderSettings, Uniforms, render_frame
 from hala_tpu_torch.ops import cluster as k6
+from hala_tpu_torch.ops import compaction
 from hala_tpu_torch.ops import cuda_lib
 from hala_tpu_torch.ops import cull as k4
+from hala_tpu_torch.ops import query
 from hala_tpu_torch.ops import raster_kernel as k3
 from hala_tpu_torch.ops import traverse as k2
 from hala_tpu_torch.ops import traverse as k5
@@ -417,7 +419,7 @@ def instances(instances_scene):
 
 
 def _coherent(g, o, d, tm):
-    perm = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+    perm = torch.argsort(compaction.query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
                          stable=True)
     return tuple(x[perm].contiguous() for x in (o, d, tm))
 
@@ -723,7 +725,7 @@ def test_k2_edge_rays_match_plain(atrium_batch):
     tm_e[1::4] = 0.0
     tm_e[2::4] = -torch.inf
     _k2_against_plain(o_in, d, tm_e, g)
-    order = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+    order = torch.argsort(compaction.query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
                           stable=True)
     o_s, d_s, tm_s = (x[order].contiguous() for x in (o, d, tm))
     runs = _k2_against_plain(o_s, d_s, tm_s, g)
@@ -748,7 +750,7 @@ def test_k2_sorted_atrium_big_matches_plain(cuda_device):
     tm[1::4] = torch.from_numpy(rs.uniform(0.05, 8.0, n // 4).astype(np.float32)).to(
         cuda_device)
     tm[::97] = 0.0
-    order = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+    order = torch.argsort(compaction.query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
                           stable=True)
     o, d, tm = (x[order].contiguous() for x in (o, d, tm))
     runs = _k2_against_plain(o, d, tm, g)
@@ -763,7 +765,7 @@ def test_k5_sorted_and_unsorted_match_plain(atrium_batch, k, order):
     for bit."""
     g, o, d, tm = atrium_batch
     if order == "sorted":
-        perm = torch.argsort(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
+        perm = torch.argsort(compaction.query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max),
                              stable=True)
         o, d, tm = (x[perm].contiguous() for x in (o, d, tm))
     ids, tns, ovf = k5.cull_candidates(o, d, tm, g.cluster_min, g.cluster_max, k)
@@ -801,7 +803,7 @@ def test_k8_kernel_matches_plain(atrium_batch, any_hit, k_cap):
     k_cap 2 truncates every list."""
     g, o, d, tm = atrium_batch
     cmin, cmax = g.cluster_min, g.cluster_max
-    order = torch.argsort(k8._coherence_key(o, d, tm, cmin, cmax), stable=True)
+    order = torch.argsort(compaction.query_coherence_key(o, d, tm, cmin, cmax), stable=True)
     o, d, tm = o[order].contiguous(), d[order].contiguous(), tm[order].contiguous()
     c = cmin.shape[0]
     ids, tns, usz = k8._group_candidates(o, d, tm, cmin, cmax, k_cap)
@@ -1074,16 +1076,20 @@ def _sharded_against_whole(scene, n, intersector, seed, ran, idle, whole_by=None
 
     o, d, tm = chip_smoke.mixed_batch(scene, 256, 128, 32768, seed)
     s = RenderSettings(width=8, height=8, intersector=intersector)
-    sw = RenderSettings(width=8, height=8, intersector=whole_by or intersector)
+    sw = query.resolve(RenderSettings(width=8, height=8, intersector=whole_by or intersector),
+                       scene)
     whole = tint._intersect_local(scene, o, d, sw, tm)
     whole_occ = tint._occluded_local(scene, o, d, tm, sw)
     shards = _shards(scene, n)
     slots = shards[0].geometry.tri_v0.shape[0]
     torch.cuda.synchronize()
     cuda_lib.reset_launches()
-    got = tint.merge_shard_hits([tint._intersect_local(sh, o, d, s, tm) for sh in shards],
+    plans = [query.resolve(s, sh) for sh in shards]
+    got = tint.merge_shard_hits([tint._intersect_local(sh, o, d, p, tm)
+                                 for sh, p in zip(shards, plans)],
                                 [r * slots for r in range(n)])
-    occ = torch.stack([tint._occluded_local(sh, o, d, tm, s) for sh in shards]).any(0)
+    occ = torch.stack([tint._occluded_local(sh, o, d, tm, p)
+                       for sh, p in zip(shards, plans)]).any(0)
     torch.cuda.synchronize()
     counts = cuda_lib.launches()
     _equal_bits(got, whole)

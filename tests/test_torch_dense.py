@@ -190,7 +190,7 @@ def test_dense_shadow_frame_equals_matrix_frame(monkeypatch):
     """shadow_dense_k sends the split shadow query to occluded_dense, which
     equals K2's any-hit mask: the frame equals the "matrix" frame bit for
     bit (tests/test_dense.py holds the JAX pair to 1e-5)."""
-    from hala_tpu_torch.models import integrator
+    from hala_tpu_torch.ops import query
 
     calls = []
 
@@ -198,7 +198,7 @@ def test_dense_shadow_frame_equals_matrix_frame(monkeypatch):
         calls.append(kw["k"])
         return dense.occluded_dense(*args, **kw)
 
-    monkeypatch.setattr(integrator, "occluded_dense", counted)
+    monkeypatch.setattr(query, "occluded_dense", counted)
     dev = SceneUploader.upload(sponza_like(rooms=(2, 2), columns_per_room=3,
                                            boxes_per_room=4),
                                use_ray_tracing=False, device="cpu")

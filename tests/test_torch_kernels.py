@@ -278,14 +278,14 @@ def test_k2_walk_model_runs_fall_with_coherence(atrium, rs):
     bit on random rays, unsorted and in matrix_query's coherence order,
     and on pinhole rays; the clusters a block visits never exceed C and
     fall as the batch gets more coherent."""
-    from hala_tpu_torch.ops.compaction import order_by
+    from hala_tpu_torch.ops.compaction import order_by, query_coherence_key
 
     g = atrium[1].geometry
     c = g.cluster_min.shape[0]
     real = g.tri_v0[g.tri_mat >= 0]
     center = ((real.amin(0) + real.amax(0)) / 2).numpy()
     o, d, tm = (_t(x) for x in _k2_batch(rs, 512, center, 2.0))
-    order, _ = order_by(k2._coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+    order, _ = order_by(query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
     pin_d = torch.from_numpy(rs.normal(size=(512, 3)).astype(np.float32) * 0.1
                              + np.float32([1.0, 0.0, 0.0]))
     pin_d = pin_d / torch.linalg.norm(pin_d, dim=1, keepdim=True)

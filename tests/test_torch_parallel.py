@@ -33,12 +33,12 @@ from hala_tpu_torch.models.integrator import (
     Hit,
     RenderSettings,
     Uniforms,
-    _backend,
     _intersect_local,
     _rows_sharded,
     merge_shard_hits,
     render_frame,
 )
+from hala_tpu_torch.ops.query import resolve
 from hala_tpu_torch.ops.cluster import cluster_boxes, pack_slots
 from hala_tpu_torch.parallel import (
     TiledFilm,
@@ -416,26 +416,6 @@ def test_shard_tables_follow_the_uploader_rule(n):
         assert g.normals is dev.geometry.normals
 
 
-def test_backend_on_a_shard():
-    """"auto" on a shard: the plain brute force for the prefix layout or
-    at most 4096 triangles, else the shard's cluster count picks "matrix"
-    or "traverse"; "pallas" becomes the brute force."""
-    from hala_tpu_torch.ops.traverse import MATRIX_MAX_CLUSTERS
-
-    mesh = Mesh(None, 0, 2, torch.device("cpu"))
-    dev = _port_scene("sponza2")
-    sharded = RenderSettings(width=8, height=8, scene_axis=mesh)
-    assert _backend(RenderSettings(width=8, height=8), dev) == "pallas"
-    assert _backend(sharded, dev) == "bruteforce"
-    assert _backend(dataclasses.replace(sharded, intersector="pallas"), dev) == "bruteforce"
-    assert _backend(dataclasses.replace(sharded, intersector="matrix"), dev) == "matrix"
-    for clusters, want in ((MATRIX_MAX_CLUSTERS, "matrix"),
-                           (MATRIX_MAX_CLUSTERS + 1, "traverse")):
-        g = dataclasses.replace(dev.geometry, num_triangles=5000, prefix_layout=False,
-                                tri_packed=torch.zeros((clusters, 1, 1)))
-        assert _backend(sharded, dataclasses.replace(dev, geometry=g)) == want
-
-
 def test_one_rank_mesh_is_the_identity():
     """Without a process group `make_mesh` gives one rank whose
     collectives return their input, and both modes give the one-device
@@ -508,12 +488,12 @@ def test_merge_shard_hits_matches_jax_shard_map():
     shards = [shard_scene(dev, Mesh(None, r, n_shards, torch.device("cpu")))
               for r in range(n_shards)]
     slots = shards[0].geometry.tri_v0.shape[0]
-    hit = merge_shard_hits([_intersect_local(sh, o, d, s) for sh in shards],
+    hit = merge_shard_hits([_intersect_local(sh, o, d, resolve(s, sh)) for sh in shards],
                            [r * slots for r in range(n_shards)])
     assert int((hit.tri >= 0).sum()) > n // 4
     graze = (jtri >= 0) & (np.minimum(np.minimum(ju, jv), 1.0 - ju - jv) < 1e-4)
     np.testing.assert_array_equal(hit.tri.numpy()[~graze], jtri[~graze])
     assert graze.sum() < n // 100
-    whole = _intersect_local(dev, o, d, s)
+    whole = _intersect_local(dev, o, d, resolve(s, dev))
     for a, b in zip(hit, whole):
         assert torch.equal(a, b)

@@ -20,11 +20,11 @@ from hala_tpu_torch.models.integrator import (
     Film,
     RenderSettings,
     Uniforms,
-    _backend,
     render_frame,
     render_frames,
 )
 from hala_tpu_torch.models.rt_renderer import RayTracingRenderer
+from hala_tpu_torch.ops import query
 from hala_tpu_torch.scene.cpu.scene import Scene
 from hala_tpu_torch.scene.loader.uploader import SceneUploader
 from hala_tpu_torch.scene.procedural import cornell_box
@@ -102,7 +102,7 @@ def test_golden(name):
     settings = RenderSettings(rr_depth=2, tile_size=kw["width"] * kw["height"], **kw)
     dev, film = _trace(build(), settings, frames)
     expected = "matrix" if name == "atrium" else "pallas"
-    assert _backend(settings, dev) == expected
+    assert query.resolve(settings, dev).engine == expected
     assert torch.isfinite(film.accum).all()
     with _golden(name) as z:
         for k in keys:
@@ -293,7 +293,7 @@ def test_unported_integrator_options_raise(option):
         return film
 
     if option == "intersector":
-        assert dev.bvh is not None and _backend(RenderSettings(**kw), dev) == "bvh"
+        assert dev.bvh is not None and query.resolve(RenderSettings(**kw), dev).engine == "bvh"
     film = render()
     assert bool(torch.isfinite(film.accum).all())
     assert float(film.accum[..., :3].mean()) > 0.0

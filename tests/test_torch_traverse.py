@@ -483,19 +483,3 @@ def test_row_band_equals_the_rows_of_the_full_frame(geoms):
                                           intersector="traverse", traverse_k=4),
                       row_offset=8, full_height=16)
     assert torch.equal(band.accum, full.accum[8:12])
-
-
-def test_auto_routes_past_the_key_width():
-    """"auto" sends scenes above MATRIX_MAX_CLUSTERS clusters to the
-    candidate traversal instead of raising."""
-    def stub(c):
-        g = types.SimpleNamespace(num_triangles=c * 128, prefix_layout=False,
-                                  tri_packed=torch.zeros((c, 1, 1)))
-        return types.SimpleNamespace(geometry=g)
-
-    s = tint.RenderSettings(width=8, height=8)
-    assert k5.MATRIX_MAX_CLUSTERS == 8191
-    assert tint._backend(s, stub(8191)) == "matrix"
-    assert tint._backend(s, stub(8192)) == "traverse"
-    for sel in ("traverse", "cluster"):
-        assert tint._backend(tint.RenderSettings(8, 8, intersector=sel), stub(4)) == sel

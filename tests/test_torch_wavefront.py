@@ -9,7 +9,7 @@ run them.
 
 - Array-equal to the JAX package: the integer glue (`_group_lists`, the
   want mask, `own_last`, the signature key, the fallback bound,
-  `_coherence_key`, `_group_candidates`, the sorted order).
+  `query_coherence_key`, `_group_candidates`, the sorted order).
 - The engines' hits after `canonical_hit`, by the statement of
   tests/test_wavefront.py: the hit mask equal; where the triangle
   differs |dt| < 1e-4 (a near-tie: the factored Moller-Trumbore is
@@ -40,7 +40,7 @@ from hala_tpu.ops.intersect import occluded_bruteforce as j_occluded
 from hala_tpu.scene.loader.uploader import SceneUploader as JUp
 from hala_tpu.scene.procedural import sponza_like
 from hala_tpu_torch.models import integrator as tint
-from hala_tpu_torch.ops import cuda_lib, cull
+from hala_tpu_torch.ops import compaction, cuda_lib, cull
 from hala_tpu_torch.ops import traverse as k8
 from hala_tpu_torch.ops import wavefront as k7
 from hala_tpu_torch.ops.intersect import Hit, canonical_hit
@@ -203,7 +203,7 @@ def test_coherence_key_and_sorted_order_match_jax(geoms):
     tm[::5] = 0.0
     ref = j_traverse._coherence_key(jnp.asarray(o), jnp.asarray(d), jnp.asarray(tm),
                                     jg.cluster_min, jg.cluster_max)
-    key = k8._coherence_key(_t(o), _t(d), _t(tm), tg.cluster_min, tg.cluster_max)
+    key = compaction.query_coherence_key(_t(o), _t(d), _t(tm), tg.cluster_min, tg.cluster_max)
     np.testing.assert_array_equal(key.numpy(), np.asarray(ref).astype(np.int64))
     _, idx_s = jax.lax.sort((ref, jnp.arange(2048, dtype=jnp.int32)), num_keys=1)
     np.testing.assert_array_equal(torch.argsort(key, stable=True).numpy(),
@@ -545,22 +545,3 @@ def test_render_matches_jax_and_the_matrix_frame(geoms, port_frames, route):
     assert _rel_rmse(ours, np.asarray(film.accum)) < 2e-3
     assert _rel_rmse(ours, port_frames("matrix")) < 2e-3
     assert float(ours[..., :3].mean()) > 0.1
-
-
-def test_routes_and_auto(geoms):
-    """"auto" never picks either engine; the shadow and extend routes
-    need an explicit "wavefront" and a matrix-family backend."""
-    _, tdev = geoms["sponza"]
-    base = tint.RenderSettings(width=8, height=8)
-    assert tint._backend(base, tdev) not in ("wavefront", "grouped")
-    assert not tint._shadow_wavefront_route(base, tdev)
-    assert not tint._extend_wavefront_route(base, tdev)
-    on = tint.RenderSettings(width=8, height=8, **_ROUTES["extend"])
-    assert tint._shadow_wavefront_route(on, tdev) and tint._extend_wavefront_route(on, tdev)
-    off = tint.RenderSettings(width=8, height=8, intersector="pallas",
-                              shadow_intersector="wavefront",
-                              extend_intersector="wavefront")
-    assert not tint._shadow_wavefront_route(off, tdev)
-    assert not tint._extend_wavefront_route(off, tdev)
-    assert (base.wavefront_k, base.wavefront_m, base.shadow_wavefront_k,
-            base.extend_wavefront_k) == (16, 32, 8, 8)

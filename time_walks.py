@@ -14,7 +14,7 @@ instances of atrium_big and the bounds (`k2_work`, `k4_work`,
 models) are this checkout's `chip_smoke.py` helpers: atrium_big's mixed
 batches `small` (65,536 rays) and `big` (2^21), each unsorted and in
 the coherence order `matrix_query` and the traverse engine give them
-(`_coherence_key`, `order_by`), and a 2^21-ray mixed batch of the five
+(`query_coherence_key`, `order_by`), and a 2^21-ray mixed batch of the five
 instances (above 8191 clusters: two K4 launches a query), sorted: K2
 closest and any-hit (atrium_big only), K4 at K 12 (a query: one launch
 per superchunk), K5 on its lists, K6 on the fallback's inputs
@@ -132,12 +132,13 @@ def k7k8_inputs(S, scene, batch):
 
     from hala_tpu_torch.ops import traverse as k8
     from hala_tpu_torch.ops import wavefront as k7
+    from hala_tpu_torch.ops.compaction import query_coherence_key
 
     g = scene.geometry
     cmin, cmax = g.cluster_min, g.cluster_max
     c = cmin.shape[0]
     o, d, tm = k8.pad_to_groups(*batch)
-    order = torch.argsort(k8._coherence_key(o, d, tm, cmin, cmax), stable=True)
+    order = torch.argsort(query_coherence_key(o, d, tm, cmin, cmax), stable=True)
     o, d, tm = (x[order].contiguous() for x in (o, d, tm))
     ids, tns, usz = k8._group_candidates(o, d, tm, cmin, cmax, 32)
     a8 = (o, d, tm, torch.clamp(usz, max=32), torch.clamp(ids, max=c - 1).contiguous(),
@@ -284,7 +285,7 @@ def main() -> int:
     from hala_tpu_torch.ops import cluster as k6
     from hala_tpu_torch.ops import cuda_lib, cull
     from hala_tpu_torch.ops import traverse as k2
-    from hala_tpu_torch.ops.compaction import order_by
+    from hala_tpu_torch.ops.compaction import order_by, query_coherence_key
     from hala_tpu_torch.scene.cpu.scene import Scene
     from hala_tpu_torch.scene.loader.uploader import SceneUploader
 
@@ -325,7 +326,7 @@ def main() -> int:
         c, k, step = cmin.shape[0], S.TRAVERSE_K, cull.CULL_MAX_CLUSTERS
         slices = [slice(lo, lo + step) for lo in range(0, c, step)]
         unions = [cull.group_unions(cmin[sl], cmax[sl]) for sl in slices] if with_unions else None
-        order, _ = order_by(k2._coherence_key(o, d, tm, cmin, cmax))
+        order, _ = order_by(query_coherence_key(o, d, tm, cmin, cmax))
         orders = (("unsorted", (o, d, tm)),
                   ("sorted", tuple(x[order].contiguous() for x in (o, d, tm))))
         for how, (o_, d_, tm_) in orders:
