@@ -1609,6 +1609,194 @@ def check_shade_fetch(dev_scene, spheres_scene, reps: int):
     return rec
 
 
+class plain_route:
+    """Within it, path contexts built on the card shade on the plain
+    route (ops/shade_bounce.py `bounce_route` reads "plain")."""
+
+    def __enter__(self):
+        from hala_tpu_torch.ops import shade_bounce as k10
+
+        self.rule = k10.bounce_route
+        k10.bounce_route = lambda device: "plain"
+        return self
+
+    def __exit__(self, *exc):
+        from hala_tpu_torch.ops import shade_bounce as k10
+
+        k10.bounce_route = self.rule
+        return False
+
+
+def bounce_pairs(dev_scene, size=(1920, 1088), depth=4, rr_depth=2, env=None,
+                 blue_noise=None, frame=0, tile_size=1 << 20, scene_axis=None,
+                 device="cuda", hooks=None):
+    """K10 and the plain bounce on the same states: for each bounce of
+    the first ray tile of frame `frame` of `dev_scene`, yields (bounce,
+    state, K10's dict, the plain version's dict); the state then moves
+    on through the tile's own route (K10). `scene_axis`, a mesh, makes
+    the fetch take the rows of a sharded geometry lane by lane; `hooks`
+    (KernelHooks) are pushed kernels on both routes."""
+    from hala_tpu_torch.models import integrator as tint
+
+    w, h = size
+    settings = tint.RenderSettings(
+        width=w, height=h, max_depth=depth, rr_depth=rr_depth, tile_size=tile_size,
+        env_type=tint.ENV_MAP if env is not None else tint.ENV_SKY, scene_axis=scene_axis)
+    uniforms = tint.Uniforms.default(device)
+    tile = min(tile_size, w * h)
+    swizzle = h % 32 == 0 and w % 32 == 0 and tile % 1024 == 0
+    o, d, gpix, fidx = tint._tile_raygen(dev_scene, uniforms, blue_noise, None, frame, 0,
+                                         w, h, 0, 1, tile, swizzle, device)
+    init_state, kernel, bounce_body = tint._path_context(
+        dev_scene, env, uniforms, gpix, fidx, settings, h, blue_noise, hooks)
+    with plain_route():
+        _, plain, _ = tint._path_context(dev_scene, env, uniforms, gpix, fidx, settings, h,
+                                         blue_noise, hooks)
+    st = init_state(o, d)
+    for b in range(depth):
+        got = kernel(b, st)
+        ref = plain(b, st)
+        yield b, st, got, ref
+        st = bounce_body(b, st)
+
+
+def bounce_diff(got, ref) -> dict:
+    """The fields of two bounce_pre dicts that differ in bits: name ->
+    (lanes off, lanes, first lane off, K10's value there, the plain
+    version's); K10's query rows against the plain version's rows."""
+    import torch
+
+    ref = dict(ref)
+    n = ref["active"].shape[0]
+    env = "wi_e" in ref
+    q_o = [ref["next_o"], ref["shadow_o"]] + ([ref["shadow_o"]] if env else [])
+    q_d = [ref["next_d"], ref["nee_dir"]] + ([ref["wi_e"]] if env else [])
+    q_t = [ref["ext_tmax"], ref["nee_tmax"]] + ([ref["env_tmax"]] if env else [])
+    ref["query"] = (torch.cat(q_o), torch.cat(q_d), torch.cat(q_t))
+    out = {}
+    if sorted(got) != sorted(ref):
+        out["keys"] = (sorted(set(got) ^ set(ref)),)
+    for key in sorted(set(got) & set(ref)):
+        pairs = (zip(("o", "d", "t"), got[key], ref[key]) if key == "query"
+                 else [("", got[key], ref[key])])
+        for part, x, y in pairs:
+            xi, yi = x, y
+            if x.dtype.is_floating_point:
+                xi, yi = x.view(torch.int32), y.view(torch.int32)
+            if x.shape != y.shape:
+                out[key + part] = ("shape", tuple(x.shape), tuple(y.shape))
+                continue
+            bad = (xi != yi).reshape(x.shape[0], -1).any(1)
+            if bool(bad.any()):
+                lane = int(bad.nonzero()[0])
+                out[key + part] = (int(bad.sum()), x.shape[0], lane % n,
+                                   x[lane].tolist(), y[lane].tolist())
+    return out
+
+
+def equal_bounce(name: str, got, ref) -> float:
+    """Raise unless K10's dict holds the plain version's fields, bit for
+    bit (the query rows too); their max_abs_diff (0.0 when they pass)."""
+    diff = bounce_diff(got, ref)
+    if diff:
+        raise AssertionError(f"{name}: " + "; ".join(f"{k} {v}" for k, v in diff.items()))
+    keys = sorted(k for k in ref if k in got)
+    return max_abs_diff([got[k].float() for k in keys], [ref[k].float() for k in keys])
+
+
+def shade_bounce_bytes(ctx, bounce: int, st, fetch, c) -> tuple[int, int]:
+    """K10's bytes on the bound, from the arrays its instance reads at
+    bounce `bounce` (ops/shade_bounce.py BounceArgs): the state, the
+    pixel ids and the fetch's fields, each read once; its buffers written
+    once."""
+    a = ctx.args
+    state = ["o", "d", "hit_t", "hit_tri", "throughput", "radiance", "active", "prev_pdf",
+             "path_dist"]
+    if a.scatter:
+        state += ["med_density", "med_g", "med_color"]
+    if bounce == 0:
+        state += ["albedo", "normal"]
+    mp = fetch.mp
+    fields = [fetch.ns, fetch.ng, fetch.tan_raw, fetch.mat_idx, mp.base_color, mp.emission,
+              mp.clearcoat_tint, mp.opacity, mp.metallic, mp.roughness, mp.ax, mp.ay, mp.ior,
+              mp.mat_type]
+    if ctx.disney:
+        fields += [mp.subsurface, mp.specular_tint, mp.sheen, mp.sheen_tint, mp.clearcoat,
+                   mp.clearcoat_roughness, mp.specular_transmission]
+    if a.absorb:
+        fields.append(mp.medium_sigma)
+    if a.textures:
+        fields += [fetch.base_t, fetch.mr_t, fetch.em_t, mp.metallic_roughness_map]
+    if a.normal_maps:
+        fields += [fetch.n_tex, mp.normal_map]
+    pixel_ids = 8 * st["o"].shape[0]
+    in_bytes = sum(st[k].nbytes for k in state) + pixel_ids + sum(x.nbytes for x in fields)
+    out_bytes = c["query"][0].untyped_storage().nbytes()
+    if bounce == 0:
+        out_bytes += c["st_albedo"].untyped_storage().nbytes()
+    return in_bytes, out_bytes
+
+
+def check_shade_bounce(dev_scene, spheres_scene, reps: int, size=(1920, 1088),
+                       device="cuda"):
+    """K10 (csrc/shade_bounce.cu) vs the plain bounce bit for bit on every
+    bounce of the first 2^20-ray tile of an atrium_big 1920x1088 frame
+    (Russian roulette from bounce 2) and of the same frame with three
+    procedural spheres on the view axis; then timed on bounce 1: K10
+    alone, the kernel route (K10's pass before the fetch, K9, K10) and
+    the plain route (K9 and ~1,000 PyTorch launches). The bound: the
+    state and the fetch read once, K10's buffer written once."""
+    import torch
+
+    from hala_tpu_torch.models import integrator as tint
+    from hala_tpu_torch.ops import cuda_lib
+    from hala_tpu_torch.ops import shade_bounce as k10
+    from hala_tpu_torch.ops.intersect import Hit
+
+    err, kept = 0.0, None
+    for label, scene in (("atrium_big", dev_scene), ("atrium_big + spheres", spheres_scene)):
+        for b, st, got, ref in bounce_pairs(scene, size=size, device=device):
+            torch.cuda.synchronize()
+            err = max(err, equal_bounce(f"K10 vs plain, {label} bounce {b}", got, ref))
+            if scene is dev_scene and b == 1:
+                kept = st
+    st = kept
+    n = st["o"].shape[0]
+    w, h = size
+    uniforms = tint.Uniforms.default(device)
+    settings = tint.RenderSettings(width=w, height=h)
+    _, _, gpix, fidx = tint._tile_raygen(dev_scene, uniforms, None, None, 0, 0, w, h, 0, 1,
+                                         n, True, device)
+    _, kernel, _ = tint._path_context(dev_scene, None, uniforms, gpix, fidx, settings, h)
+    with plain_route():
+        _, plain, _ = tint._path_context(dev_scene, None, uniforms, gpix, fidx, settings, h)
+    ctx = k10.Context(dev_scene, None, uniforms, gpix, fidx, None, w, settings.rr_depth)
+    hit = Hit(t=st["hit_t"], tri=st["hit_tri"], u=st["hit_u"], v=st["hit_v"])
+    pd, hit_p = k10.front(ctx, 1, st)
+    pa = 2.0 * torch.tan(0.5 * torch.clamp(dev_scene.cameras.yfov[0], min=1e-3)) / h
+    fetch = tint._surface_fetch(dev_scene, hit, hit_p, pd, pa, settings)
+    c = k10.shade(ctx, 1, st, fetch)
+    in_bytes, out_bytes = shade_bounce_bytes(ctx, 1, st, fetch, c)
+    b_ms, b_by = bound(0, in_bytes + out_bytes)
+    before = cuda_lib.SHADE_BOUNCE.launches
+    rec = dict(lanes=n, bound_ms=b_ms, bound_by=b_by, in_bytes=in_bytes,
+               out_bytes=out_bytes, max_abs_err=err,
+               ms=cuda_ms(lambda: k10.shade(ctx, 1, st, fetch), reps),
+               pre_ms=cuda_ms(lambda: k10.front(ctx, 1, st), reps),
+               route_ms=cuda_ms(lambda: kernel(1, st), reps),
+               plain_ms=cuda_ms(lambda: plain(1, st), reps),
+               lane_bytes=(in_bytes + out_bytes) / n, library_ms=None)
+    rec["launches_timed"] = cuda_lib.SHADE_BOUNCE.launches - before
+    log(f"  K10 on atrium_big {w}x{h}, bounces 0-3 of tile 0, with and without "
+        f"spheres: equal to the plain bounce bit for bit (max abs err {err}); bounce 1 "
+        f"({n} lanes): K10 {rec['ms']:.4f} ms, its pass before the fetch "
+        f"{rec['pre_ms']:.4f} ms, the kernel route (pass, K9, K10) {rec['route_ms']:.3f} "
+        f"ms, the plain route {rec['plain_ms']:.3f} ms; bound {b_ms:.4f} ms ({b_by}: "
+        f"{in_bytes / 1e6:.1f} MB in, {out_bytes / 1e6:.1f} MB out, "
+        f"{rec['lane_bytes']:.1f} B a lane)")
+    return rec
+
+
 def check_k7_k8(dev_scene, small, big, reps: int):
     """K8 (csrc/grouped_walk.cu) and K7 (csrc/wavefront_walk.cu) vs
     their plain versions, bit for bit, closest and any-hit: on
@@ -1955,11 +2143,12 @@ def fetch_launches(settings, frames: int) -> int:
 
 
 def visibility_launches():
-    """`cuda_lib.launches()` without K9, which shading launches on every
-    route: the counts the route checks read."""
+    """`cuda_lib.launches()` without K9 and K10, which shading launches on
+    every route: the counts the route checks read."""
     from hala_tpu_torch.ops import cuda_lib
 
-    return {k: n for k, n in cuda_lib.launches().items() if k != "shade_fetch"}
+    shading = ("shade_fetch", "shade_bounce", "shade_bounce_pre")
+    return {k: n for k, n in cuda_lib.launches().items() if k not in shading}
 
 
 def raster_inputs(dev_scene, width: int, height: int, tile: int):
@@ -2849,6 +3038,46 @@ HOOK_MISS = (0.0, 5.0, 0.0)     # the constant miss kernel's radiance
 HOOK_ALBEDO = (1.0, 0.0, 0.0)   # the base color the closest-hit kernel forces
 
 
+def seam_hooks(kind: str):
+    """KernelHooks with pushed kernels on the seams inside a bounce:
+    "identity" on all four; "intersection", a custom primitive (a unit
+    emitter at t 0.5 along rays going up steeply); "miss", HOOK_MISS;
+    "closest_hit", HOOK_ALBEDO and a rough metal; "any_hit", upward
+    facing surfaces passed through; "all", the four at once."""
+    import torch
+
+    from hala_tpu_torch.models.integrator import KernelHooks
+
+    def intersection(o, d, lhit):
+        up = d[:, 1] > 0.9
+        return lhit._replace(t=torch.where(up, 0.5, lhit.t),
+                             radiance=torch.where(up[:, None], 1.0, lhit.radiance),
+                             pdf=torch.where(up, 0.0, lhit.pdf))
+
+    def miss(d, uniforms, default):
+        return torch.tensor(HOOK_MISS, device=default.device).expand_as(default)
+
+    def closest_hit(ctx, mp):
+        full = torch.ones_like(mp.metallic)
+        return mp._replace(
+            base_color=torch.tensor(HOOK_ALBEDO, device=full.device).expand_as(mp.base_color),
+            metallic=full, roughness=full * 0.3, ax=full * 0.3, ay=full * 0.3)
+
+    def any_hit(ctx, mp, r, default_pass):
+        return default_pass | (ctx["ns"][:, 1] > 0.9)
+
+    if kind == "identity":
+        return KernelHooks(intersection=lambda o, d, lhit: lhit,
+                           miss=lambda d, uniforms, default: default,
+                           closest_hit=lambda ctx, mp: mp,
+                           any_hit=lambda ctx, mp, r, default_pass: default_pass)
+    if kind == "all":
+        return KernelHooks(intersection=intersection, miss=miss, closest_hit=closest_hit,
+                           any_hit=any_hit)
+    return KernelHooks(**{kind: dict(intersection=intersection, miss=miss,
+                                     closest_hit=closest_hit, any_hit=any_hit)[kind]})
+
+
 def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
     """The Cornell box through RayTracingProgram (depth 4), frames 0 and
     1: the builtin desc; the desc with identity kernels on every seam
@@ -2857,8 +3086,11 @@ def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
     a closest-hit kernel forcing the base color (HOOK_ALBEDO: the film
     changes, the albedo AOV is HOOK_ALBEDO times the share of frames
     whose camera ray met a surface first, so its green and blue are 0
-    and its red positive on every such pixel). Each desc then `frames`
-    timed frames (ms/frame)."""
+    and its red positive on every such pixel). Every desc shades on K10
+    (once a bounce and tile; a desc with a pushed kernel inside the
+    bounce also runs K10's seam passes), and its film equals the plain
+    route's bit for bit. Each desc then `frames` timed frames
+    (ms/frame)."""
     import torch
 
     from hala_tpu_torch.models.integrator import Film, Uniforms
@@ -2891,14 +3123,28 @@ def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
             ray_recursion_depth=4, hit_shader_file_paths=["chip_smoke:forced_albedo"]),
     }
     out, films = {}, {}
+
+    def two_frames(prog):
+        film = Film.create(*size, device)
+        for f in range(2):
+            prog.trace_rays(film, *size, frame_index=f, uniforms=uni)
+        torch.cuda.synchronize()
+        return film
+
     try:
         for label, desc in descs.items():
             prog = RayTracingProgram(desc, scene)
-            film = Film.create(*size, device)
-            for f in range(2):
-                prog.trace_rays(film, *size, frame_index=f, uniforms=uni)
-            torch.cuda.synchronize()
-            films[label] = film
+            cuda_lib.reset_launches()
+            films[label] = two_frames(prog)
+            k10 = (cuda_lib.SHADE_BOUNCE.launches, cuda_lib.SHADE_BOUNCE_SEAM.launches)
+            with plain_route():
+                plain = two_frames(RayTracingProgram(desc, scene))
+            for k in ("accum", "albedo", "normal"):
+                if not torch.equal(getattr(films[label], k), getattr(plain, k)):
+                    raise AssertionError(f"hooks {label}: K10's film {k} is not the plain "
+                                         f"route's")
+            if k10[0] != 2 * 4 or (k10[1] > 0) != (label != "builtin"):
+                raise AssertionError(f"hooks {label}: K10 (launches, seam passes) {k10}")
             timed = Film.create(*size, device)
             cuda_lib.reset_launches()
             t0 = time.perf_counter()
@@ -2906,7 +3152,8 @@ def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
                 prog.trace_rays(timed, *size, frame_index=f, uniforms=uni)
             torch.cuda.synchronize()
             out[label] = dict(ms_per_frame=(time.perf_counter() - t0) / frames * 1e3,
-                              k1_launches=visibility_launches()["intersect_bruteforce"])
+                              k1_launches=visibility_launches()["intersect_bruteforce"],
+                              k10_launches=k10[0], k10_seam_passes=k10[1])
     finally:
         for name in kernels:
             cache.remove(name)
@@ -2927,7 +3174,8 @@ def hooks_render(card: str, frames: int = 8, size=(512, 512), device="cuda"):
             and torch.equal(a.albedo, m.albedo)
             and not torch.equal(a.accum, c.accum)):
         raise AssertionError(f"hooks: {out}")
-    log(f"  hooks, Cornell {size[0]}x{size[1]} through RayTracingProgram: identity "
+    log(f"  hooks, Cornell {size[0]}x{size[1]} through RayTracingProgram: every desc "
+        f"on K10, its film the plain route's bit for bit; identity "
         f"kernels on every seam give the hookless film bit for bit; the miss kernel "
         f"raises the film's green mean {out['green_mean'][0]:.4f} -> "
         f"{out['green_mean'][1]:.4f}, the closest-hit kernel forces the albedo AOV "
@@ -4048,6 +4296,7 @@ def main() -> int:
     spheres_host, _ = with_spheres_on_view_axis(big_host, big_dev)
     spheres_dev = SceneUploader.upload(spheres_host, use_ray_tracing=False, device=dev)
     k9_rec = check_shade_fetch(big_dev, spheres_dev, reps=20)
+    k10_rec = check_shade_bounce(big_dev, spheres_dev, reps=20)
     del big_dev, small, big, spheres_dev, spheres_host
     x5_host, x5_dev, x5_upload_s, _ = upload_instances(big_host, dev)
     wide_rec = check_past_key_width(x5_dev, 32768)
@@ -4072,6 +4321,7 @@ def main() -> int:
     c_out = run_render(cornell, 16, 16, "cornell", card)
     after_cornell = visibility_launches()
     k9_cornell = cuda_lib.SHADE_FETCH.launches
+    k10_cornell = (cuda_lib.SHADE_BOUNCE.launches, cuda_lib.SHADE_BOUNCE_PRE.launches)
     if not (after_cornell["intersect_bruteforce"] > 0
             and after_cornell["matrix_traverse"] == 0
             and after_cornell["raster_tiled"] == 0):
@@ -4081,6 +4331,7 @@ def main() -> int:
     s_out = run_render(sponza, 4, 4, "sponza", card)
     after_sponza = visibility_launches()
     k9_sponza = cuda_lib.SHADE_FETCH.launches
+    k10_sponza = (cuda_lib.SHADE_BOUNCE.launches, cuda_lib.SHADE_BOUNCE_PRE.launches)
     large = ("cull_topk", "traverse_candidates", "cluster_stream")
     if after_sponza["matrix_traverse"] <= 0 or any(after_sponza[k] for k in large):
         raise AssertionError(f"atrium_big launches {after_sponza}")
@@ -4090,9 +4341,15 @@ def main() -> int:
     if (k9_cornell, k9_sponza) != want_k9 or want_k9 != (64, 32):
         raise AssertionError(f"shade_fetch launches: cornell {k9_cornell}, "
                              f"atrium_big {k9_sponza}, expected {want_k9}")
+    # K10 once a bounce and tile too; its pass before the fetch only on
+    # atrium_big, whose maps read the path length (the Cornell box has none)
+    if k10_cornell != (64, 0) or k10_sponza != (32, 32):
+        raise AssertionError(f"shade_bounce launches (K10, pass before the fetch): "
+                             f"cornell {k10_cornell}, atrium_big {k10_sponza}")
     peak = torch.cuda.max_memory_allocated()
     log(f"  launches: cornell {after_cornell}, atrium_big {after_sponza}; K9 "
-        f"cornell {k9_cornell}, atrium_big {k9_sponza}; "
+        f"cornell {k9_cornell}, atrium_big {k9_sponza}; K10 cornell {k10_cornell}, "
+        f"atrium_big {k10_sponza}; "
         f"atrium_big peak memory {peak / 2**30:.2f} GiB [{card}]")
 
     trav = RayTracingRenderer("atrium_big_traverse", 1920, 1088, max_depth=4,
@@ -4351,6 +4608,12 @@ def main() -> int:
                    "none (plain JAX in hala_tpu/models/integrator.py bounce_pre)",
                    k9_sponza, k9_rec),
              sphere_lanes=k9_rec["sphere_lanes"]),
+        # K10: on bounce 1 of atrium_big's first 2^20-ray tile
+        dict(entry("shade_bounce (K10)", "hala_tpu_torch/csrc/shade_bounce.cu",
+                   "none (plain JAX in hala_tpu/models/integrator.py bounce_pre)",
+                   k10_sponza[0], k10_rec),
+             pre_launches=k10_sponza[1], pre_ms=k10_rec["pre_ms"],
+             route_ms=k10_rec["route_ms"]),
         # K7, K8: beside the bound from the spans the rays enter, the old
         # one from every pair of the tested entries
         dict(entry("wavefront_walk (K7)", "hala_tpu_torch/csrc/wavefront_walk.cu",
@@ -4408,7 +4671,7 @@ def main() -> int:
                    envmap=e_out, cornell_blue_noise=bn_out,
                    procedural=proc_out, atrium_big_spheres=spheres_out,
                    hooks=hooks_out, animated=anim_out, parallel=par_out,
-                   closeout=close_out, shade_fetch=k9_rec,
+                   closeout=close_out, shade_fetch=k9_rec, shade_bounce=k10_rec,
                    build_s=cuda_lib.build_seconds)
     log("summary " + json.dumps(summary))
     print(json.dumps({"kernels": kernels}))

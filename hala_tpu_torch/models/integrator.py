@@ -25,7 +25,10 @@ rank's clusters and merges the ranks' hits by (t, global tri)
 (`merge_shard_hits`), and shade rows come back from their owners
 (`_rows_sharded`). Shading's fetch of the hit's rows, material and
 texels (`_surface_fetch`) is K9 for hits on the card and its plain
-version on the CPU (ops/shade_fetch.py).
+version on the CPU (ops/shade_fetch.py); the rest of a bounce's shading
+(`bounce_pre`) is K10 on the card and the plain PyTorch below on the
+CPU and under pushed hit, miss and intersection kernels
+(ops/shade_bounce.py).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops import query, rng
+from ..ops import query, rng, shade_bounce
 from ..ops.bsdf import bsdf_eval, bsdf_sample
 from ..ops.camera import generate_rays
 from ..ops.env import env_eval, env_sample, sky_radiance
@@ -378,12 +381,14 @@ def _path_context(
     """Build the per-trace path-tracing closures over the tile's query
     plan (ops/query.py).
 
-    Returns (init_state, bounce_body): `init_state(o, d)` runs the
-    camera rays' closest-hit query; `bounce_body(bounce, state)`
-    runs one bounce — shading at the current hit, NEE, BSDF sampling,
-    Russian roulette, then ONE batched visibility query for the next
-    extension ray (and, unless split into an any-hit query, the shadow
-    rays) — exactly as the JAX package's bounce_pre/bounce_post pair.
+    Returns (init_state, bounce_pre, bounce_body): `init_state(o, d)`
+    runs the camera rays' closest-hit query; `bounce_pre(bounce, state)`
+    shades one bounce at the current hit (NEE, BSDF sampling, Russian
+    roulette) on the route `shade_bounce.bounce_route` picks for the
+    tile; `bounce_body(bounce, state)` runs one bounce — bounce_pre,
+    then ONE batched visibility query for the next extension ray (and,
+    unless split into an any-hit query, the shadow rays) — exactly as
+    the JAX package's bounce_pre/bounce_post pair.
     """
     geom = scene.geometry
     has_env_map = settings.env_type == ENV_MAP and env is not None
@@ -407,6 +412,12 @@ def _path_context(
     w_trans = bool(scene.materials.has_transmission)
     w_scatter = bool(scene.materials.has_scatter_medium)
     plan = query.resolve(settings, scene)
+    route = shade_bounce.bounce_route(pixel_idx.device)
+    kctx = None
+    if route == "kernel":
+        kctx = shade_bounce.Context(
+            scene, env if has_env_map else None, uniforms, pixel_idx, frame_index,
+            blue_noise, settings.width, settings.rr_depth)
 
     # Per-pixel cone angle for mip LOD (texture footprint ~ dist * angle).
     cam_yfov = scene.cameras.yfov[uniforms.camera_index]
@@ -419,7 +430,8 @@ def _path_context(
         hit0 = _intersect(scene, o, d, plan)
         with profiling.span("hala.shade", bounce=0):
             zeros3 = torch.zeros_like(o)
-            zeros = zeros3[:, 0]
+            # contiguous, as K10 reads the per-lane state
+            zeros = torch.zeros(o.shape[0], dtype=o.dtype, device=o.device)
             return dict(
                 o=o,
                 d=d,
@@ -441,6 +453,42 @@ def _path_context(
             )
 
     def bounce_pre(bounce, st):
+        """A bounce's shading, inside the span `hala.shade.bounce` and
+        counted by `shade.bounce`, both labelled with the route."""
+        profiling.count("shade.bounce", route=route)
+        with profiling.span("hala.shade.bounce", route=route):
+            if kctx is not None:
+                return bounce_kernel(bounce, st)
+            return bounce_plain(bounce, st)
+
+    def bounce_kernel(bounce, st):
+        """K10's pass before the fetch, the fetch, K10; a pushed kernel
+        runs on the output of K10's pass before its seam, and K10 reads
+        its result in place of its own."""
+        hit = Hit(t=st["hit_t"], tri=st["hit_tri"], u=st["hit_u"], v=st["hit_v"])
+        seams = shade_bounce.Seams()
+        if hooks is not None and (hooks.intersection is not None or hooks.miss is not None):
+            lhit, env_rad = shade_bounce.ray_seams(kctx, bounce, st)
+            if hooks.intersection is not None:
+                seams.lhit = hooks.intersection(st["o"], st["d"], lhit)
+            if hooks.miss is not None:
+                seams.env_rad = hooks.miss(st["d"], uniforms, env_rad)
+        path_dist, hit_p = shade_bounce.front(kctx, bounce, st, seams)
+        fetch = _surface_fetch(scene, hit, hit_p, path_dist, pixel_angle, settings)
+        if hooks is not None and (hooks.closest_hit is not None or hooks.any_hit is not None):
+            part, mp, r_alpha = shade_bounce.hit_seams(kctx, bounce, st, fetch, seams)
+            hit_ctx = dict(p=part["p"], ns=part["ns"], ng=part["ng"], uv=fetch.uv,
+                           wo=-st["d"], t=hit.t, tri=hit.tri, mat=fetch.mat_idx,
+                           on_surface=part["on_surface"])
+            if hooks.closest_hit is not None:
+                mp = hooks.closest_hit(hit_ctx, mp)
+            if hooks.any_hit is not None:
+                seams.pass_through = hooks.any_hit(hit_ctx, mp, r_alpha[:, 0],
+                                                   r_alpha[:, 0] > mp.opacity)
+            seams.mp = mp
+        return shade_bounce.shade(kctx, bounce, st, fetch, seams)
+
+    def bounce_plain(bounce, st):
         o, d = st["o"], st["d"]
         zeros3 = torch.zeros_like(o)
         zeros = zeros3[:, 0]
@@ -836,25 +884,23 @@ def _path_context(
             q_o.append(c["shadow_o"])
             q_d.append(c["wi_e"])
             q_t.append(c["env_tmax"])
+        # K10 writes the query's rows in place: extension, then shadow rays
+        rows = c.get("query")
         if plan.split_shadow:
             qhit = _intersect(
                 scene, c["next_o"], c["next_d"], plan, t_max=c["ext_tmax"],
                 extend=True,
             )
-            occ = _occluded(
-                scene, torch.cat(q_o), torch.cat(q_d), torch.cat(q_t), plan
-            )
+            shadow = (tuple(r[n:] for r in rows) if rows is not None
+                      else (torch.cat(q_o), torch.cat(q_d), torch.cat(q_t)))
+            occ = _occluded(scene, *shadow, plan)
             with profiling.span("hala.shade", bounce=bounce):
                 blocked_e = occ[n:2 * n] if has_env_map else None
                 return bounce_post(c, qhit, occ[:n], blocked_e)
-        qhit = _intersect(
-            scene,
-            torch.cat([c["next_o"], *q_o]),
-            torch.cat([c["next_d"], *q_d]),
-            plan,
-            t_max=torch.cat([c["ext_tmax"], *q_t]),
-            kind="batched",
-        )
+        if rows is None:
+            rows = (torch.cat([c["next_o"], *q_o]), torch.cat([c["next_d"], *q_d]),
+                    torch.cat([c["ext_tmax"], *q_t]))
+        qhit = _intersect(scene, rows[0], rows[1], plan, t_max=rows[2], kind="batched")
         with profiling.span("hala.shade", bounce=bounce):
             blocked = transmit(
                 bounce, c, qhit.tri[n:2 * n], qhit.t[n:2 * n], c["nee_dir"],
@@ -870,7 +916,7 @@ def _path_context(
             )
             return bounce_post(c, qhit, blocked, blocked_e)
 
-    return init_state, bounce_body
+    return init_state, bounce_pre, bounce_body
 
 
 def trace_paths(
@@ -891,7 +937,7 @@ def trace_paths(
     Returns (radiance (N,3), albedo_aov (N,3), normal_aov (N,3),
     rays_traced (N,) f32 — extension + shadow rays, for Mrays/s).
     """
-    init_state, bounce_body = _path_context(
+    init_state, _, bounce_body = _path_context(
         scene, env, uniforms, pixel_idx, frame_index, settings, full_height,
         blue_noise, hooks,
     )

@@ -229,6 +229,12 @@ SHADE_FETCH = Kernel(
     + [_P] * 2,
 )
 
+# csrc/shade_bounce.cu: K10 (a BounceArgs by address; the instance;
+# the stream), its pass before the fetch and its seam passes (the phase)
+SHADE_BOUNCE = Kernel("hala_shade_bounce", [_P, _I, _I, _I, _P])
+SHADE_BOUNCE_PRE = Kernel("hala_shade_bounce_pre", [_P, _P])
+SHADE_BOUNCE_SEAM = Kernel("hala_shade_bounce_seam", [_P, _I, _P])
+
 KERNELS = {
     "intersect_bruteforce": INTERSECT_BRUTEFORCE,
     "matrix_traverse": MATRIX_TRAVERSE,
@@ -239,6 +245,9 @@ KERNELS = {
     "grouped_walk": GROUPED_WALK,
     "wavefront_walk": WAVEFRONT_WALK,
     "shade_fetch": SHADE_FETCH,
+    "shade_bounce": SHADE_BOUNCE,
+    "shade_bounce_pre": SHADE_BOUNCE_PRE,
+    "shade_bounce_seam": SHADE_BOUNCE_SEAM,
 }
 
 

@@ -1422,3 +1422,192 @@ def test_k9_counter_reads_kernel_on_the_card(cuda_device):
         profiling.disable()
         profiling.reset()
     assert counters == [{"name": "shade.fetch", "labels": {"route": "kernel"}, "value": 2 * 3}]
+
+
+# ---------------------------------------------------------------------------
+# K10: a bounce's shading after the fetch (csrc/shade_bounce.cu)
+# ---------------------------------------------------------------------------
+
+
+def _k10_against_plain(scene, **kw):
+    """Every bounce of the first ray tile through K10 and through the
+    plain bounce on the same state: every field bit for bit, the query
+    rows too, one K10 launch a bounce on the kernel route."""
+    seen = 0
+    for b, st, got, ref in chip_smoke.bounce_pairs(scene, **kw):
+        torch.cuda.synchronize()
+        chip_smoke.equal_bounce(f"K10 vs plain, bounce {b}", got, ref)
+        seen += 1
+    assert seen == kw.get("depth", 4)
+
+
+def _k10_scene(name, device):
+    from hala_tpu_torch.envmap import EnvMap
+    from test_torch_features import (_alpha_scene, _lights_scene, _media_scene, _mods,
+                                     _texture_scene)
+
+    m = _mods("hala_tpu_torch")
+
+    def up(host):
+        return SceneUploader.upload(host, use_ray_tracing=False, device=device)
+
+    def env():
+        return EnvMap.from_array(chip_smoke.bench_envmap_array(), device=device)
+
+    bn = torch.rand((64, 64, 4), device=device,
+                    generator=torch.Generator(device).manual_seed(5))
+    return {
+        "cornell": lambda: (up(cornell_box()), dict(size=(128, 128))),
+        "lights_and_glass": lambda: (up(_lights_scene(m)), dict(size=(96, 96))),
+        "media": lambda: (up(_media_scene(m)), dict(size=(96, 96), depth=6)),
+        "textures": lambda: (up(_texture_scene(m)), dict(size=(96, 96))),
+        "alpha": lambda: (up(_alpha_scene(m)), dict(size=(96, 96))),
+        "envmap": lambda: (up(cornell_box(light_intensity=0.0)),
+                           dict(size=(96, 96), env=env())),
+        "envmap_glass": lambda: (up(_lights_scene(m)), dict(size=(96, 96), env=env())),
+        "blue_noise": lambda: (up(cornell_box()), dict(size=(96, 96), blue_noise=bn)),
+        "procedural": lambda: (up(chip_smoke.procedural_scene()), dict(size=(96, 96))),
+        "atrium": lambda: (up(Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb"))),
+                           dict(size=(128, 128))),
+        "atrium_spheres": lambda: (up(_atrium_spheres(device)), dict(size=(128, 128))),
+    }[name]()
+
+
+@pytest.mark.parametrize("name", ["cornell", "lights_and_glass", "media", "textures",
+                                  "alpha", "envmap", "envmap_glass", "blue_noise",
+                                  "procedural", "atrium", "atrium_spheres"])
+def test_k10_matches_plain(cuda_device, name):
+    """Bit for bit on every field and bounce: Oren-Nayar, Disney with
+    transmission and all five light types (`lights_and_glass`), the
+    three media over six bounces, normal, metallic-roughness and base
+    maps with a uv transform (`textures`), the alpha test, the
+    environment map with and without Disney, blue noise, procedural
+    spheres, a mip pyramid (atrium.glb)."""
+    scene, kw = _k10_scene(name, cuda_device)
+    _k10_against_plain(scene, **kw)
+
+
+def test_k10_on_atrium_big_first_tile_matches_plain(atrium_big_scene):
+    """atrium_big's first 2^20-lane tile of a 1920x1088 frame, bounces
+    0-3 (Russian roulette from bounce 2), bit for bit."""
+    _k10_against_plain(atrium_big_scene, size=(1920, 1088))
+
+
+def test_k10_with_rows_of_a_sharded_geometry_matches_plain(cuda_device):
+    """A geometry sharded over a one-rank mesh: the fetch takes its rows
+    lane by lane through the owners' collective, and K10 reads that
+    fetch, bit for bit with the plain bounce."""
+    from hala_tpu_torch.parallel.scene_shard import shard_scene
+    from hala_tpu_torch.parallel.tiling import make_mesh
+
+    mesh = make_mesh(cuda_device)
+    host = Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb"))
+    scene = shard_scene(SceneUploader.upload(host, use_ray_tracing=False, device="cpu"), mesh)
+    _k10_against_plain(scene, size=(128, 128), scene_axis=mesh)
+
+
+@pytest.mark.parametrize("name, size, frames", [("atrium_big", (1920, 1088), 4),
+                                                ("cornell", (512, 512), 16)])
+def test_k10_film_equals_the_plain_route(cuda_device, atrium_big_scene, name, size, frames,
+                                         monkeypatch):
+    """The films of atrium_big (4 frames, 1920x1088, two tiles) and the
+    Cornell box (16 frames, 512x512) through K10 and through the plain
+    bounce on the card: equal bit for bit, K10 once a bounce and tile,
+    its pass before the fetch only where the fetch reads a map."""
+    from hala_tpu_torch.ops import shade_bounce as k10
+
+    dev = (atrium_big_scene if name == "atrium_big" else
+           SceneUploader.upload(cornell_box(), use_ray_tracing=False, device=cuda_device))
+    w, h = size
+    settings = RenderSettings(width=w, height=h, max_depth=4, rr_depth=2)
+
+    def films():
+        film = Film.create(w, h, cuda_device)
+        for f in range(frames):
+            render_frame(dev, None, Uniforms.default(cuda_device), film, f, settings)
+        torch.cuda.synchronize()
+        return film
+
+    before = (cuda_lib.SHADE_BOUNCE.launches, cuda_lib.SHADE_BOUNCE_PRE.launches)
+    kernel = films()
+    want = chip_smoke.fetch_launches(settings, frames)
+    assert (cuda_lib.SHADE_BOUNCE.launches - before[0],
+            cuda_lib.SHADE_BOUNCE_PRE.launches - before[1]) == (
+                want, want if dev.textures is not None else 0)
+    monkeypatch.setattr(k10, "bounce_route", lambda device: "plain")
+    before = cuda_lib.SHADE_BOUNCE.launches
+    plain = films()
+    assert cuda_lib.SHADE_BOUNCE.launches == before
+    for k in ("accum", "albedo", "normal"):
+        assert torch.equal(getattr(kernel, k), getattr(plain, k)), k
+
+
+@pytest.mark.parametrize("name, kind", [
+    ("cornell", "intersection"), ("cornell", "miss"), ("envmap_glass", "miss"),
+    ("textures", "closest_hit"), ("lights_and_glass", "closest_hit"), ("alpha", "any_hit"),
+    ("cornell", "identity"), ("media", "all"), ("procedural", "all"), ("atrium", "all"),
+])
+def test_k10_with_pushed_kernels_matches_plain(cuda_device, name, kind):
+    """Pushed kernels on the seams inside the bounce (chip_smoke
+    `seam_hooks`) run between K10's seam passes, and K10 reads what they
+    give: every field and bounce bit for bit with the plain bounce under
+    the same kernels."""
+    scene, kw = _k10_scene(name, cuda_device)
+    _k10_against_plain(scene, hooks=chip_smoke.seam_hooks(kind), **kw)
+
+
+def test_k10_film_with_pushed_kernels_equals_the_plain_route(cuda_device, monkeypatch):
+    """A 512x512 Cornell film, 4 frames, with pushed kernels on all four
+    seams inside the bounce: equal to the plain route's bit for bit, K10
+    once a bounce and tile and each of its two seam passes too."""
+    from hala_tpu_torch.ops import shade_bounce as k10
+
+    dev = SceneUploader.upload(cornell_box(), use_ray_tracing=False, device=cuda_device)
+    settings = RenderSettings(width=512, height=512, max_depth=4, rr_depth=2)
+    hooks = chip_smoke.seam_hooks("all")
+
+    def films():
+        film = Film.create(512, 512, cuda_device)
+        for f in range(4):
+            render_frame(dev, None, Uniforms.default(cuda_device), film, f, settings,
+                         hooks=hooks)
+        torch.cuda.synchronize()
+        return film
+
+    cuda_lib.reset_launches()
+    kernel = films()
+    want = chip_smoke.fetch_launches(settings, 4)
+    assert (cuda_lib.SHADE_BOUNCE.launches, cuda_lib.SHADE_BOUNCE_SEAM.launches) == (
+        want, 2 * want)
+    monkeypatch.setattr(k10, "bounce_route", lambda device: "plain")
+    cuda_lib.reset_launches()
+    plain = films()
+    assert cuda_lib.SHADE_BOUNCE.launches == cuda_lib.SHADE_BOUNCE_SEAM.launches == 0
+    for k in ("accum", "albedo", "normal"):
+        assert torch.equal(getattr(kernel, k), getattr(plain, k)), k
+
+
+def test_k10_counter_reads_kernel_on_the_card(cuda_device):
+    """`shade.bounce` reads route "kernel" for every bounce of a frame,
+    with and without a pushed closest-hit kernel."""
+    from hala_tpu_torch.models.integrator import KernelHooks
+    from hala_tpu_torch.utils import profiling
+
+    dev = SceneUploader.upload(Scene.load(os.path.join(HERE, "..", "assets", "atrium.glb")),
+                               use_ray_tracing=False, device=cuda_device)
+    settings = RenderSettings(width=64, height=64, max_depth=3, tile_size=2048)
+    counters = {}
+    for label, hooks in (("bare", None),
+                         ("closest_hit", KernelHooks(closest_hit=lambda ctx, mp: mp))):
+        film = Film.create(64, 64, cuda_device)
+        profiling.reset()
+        profiling.enable()
+        try:
+            render_frame(dev, None, Uniforms.default(cuda_device), film, 0, settings,
+                         hooks=hooks)
+            counters[label] = [c for c in profiling.counters() if c["name"] == "shade.bounce"]
+        finally:
+            profiling.disable()
+            profiling.reset()
+    for label, got in counters.items():
+        assert got == [{"name": "shade.bounce", "labels": {"route": "kernel"}, "value": 2 * 3}]

@@ -422,6 +422,7 @@ def test_cpu_tensors_never_launch(cornell, sponza, rs):
         "intersect_bruteforce": 0, "matrix_traverse": 0, "raster_tiled": 0,
         "cull_topk": 0, "traverse_candidates": 0, "cluster_stream": 0,
         "grouped_walk": 0, "wavefront_walk": 0, "shade_fetch": 0,
+        "shade_bounce": 0, "shade_bounce_pre": 0, "shade_bounce_seam": 0,
     }
 
 

@@ -345,7 +345,8 @@ def test_views_are_contiguous_fields_of_one_buffer(n_maps):
 @pytest.mark.parametrize("scene", ["cornell", "textures"])
 def test_shade_fetch_counter_and_span(scene):
     """`shade.fetch` counts once per bounce_pre call, route "plain" on the
-    CPU, and each `hala.shade.fetch` span sits inside a `hala.shade`."""
+    CPU, and each `hala.shade.fetch` span sits inside the bounce's
+    `hala.shade.bounce`, inside a `hala.shade`."""
     host = cornell_box() if scene == "cornell" else _textured_host()
     dev = SceneUploader.upload(host, use_ray_tracing=False, device="cpu")
     size, depth, frames = 16, 3, 2
@@ -368,5 +369,6 @@ def test_shade_fetch_counter_and_span(scene):
     by_index = {s.index: s for s in spans}
     inner = [s for s in spans if s.name == "hala.shade.fetch"]
     assert len(inner) == frames * 2 * depth
-    assert all(by_index[s.parent].name == "hala.shade" for s in inner)
+    assert all(by_index[s.parent].name == "hala.shade.bounce" for s in inner)
+    assert all(by_index[by_index[s.parent].parent].name == "hala.shade" for s in inner)
     assert all(s.attrs == {"route": "plain"} for s in inner)
