@@ -7,6 +7,11 @@ them: the busy time (the union of the device intervals), the device
 operations that took most time, the idle gaps between device operations
 named by what the host was doing (the host operation that launched the
 operation that ends the gap, under the benchmark's own span).
+
+A run on the CPU (`cpu_device`, tests only: the benchmark refuses to run
+without a card) has no device row; there the device is the CPU, and the
+outermost PyTorch operations of each thread stand for the device
+operations, each launched at its own start.
 """
 
 from __future__ import annotations
@@ -35,6 +40,19 @@ class HostOp:
 _RUNTIME_PREFIXES = ("cuda", "cu", "Memcpy", "Memset")
 
 
+def _outermost(ops, launches):
+    """The operations that no earlier operation of the same thread
+    contains."""
+    out, open_until = [], {}
+    for e in sorted(ops, key=lambda e: (e.start, -e.end)):
+        thread = launches[e.corr[0]][1]
+        if e.end <= open_until.get(thread, -1):
+            continue
+        open_until[thread] = e.end
+        out.append(e)
+    return out
+
+
 class DeviceTrace:
     def __init__(self, dev_ops, host_ops, launches, t0: int, t1: int):
         self.dev_ops = sorted(dev_ops, key=lambda e: e.start)
@@ -43,7 +61,8 @@ class DeviceTrace:
         self.t0, self.t1 = t0, t1
 
     @staticmethod
-    def from_profile(prof, t0_ns: int | None = None, t1_ns: int | None = None):
+    def from_profile(prof, t0_ns: int | None = None, t1_ns: int | None = None,
+                     cpu_device: bool = False):
         dev, host, launches = [], [], {}
         for e in prof.profiler.kineto_results.events():
             kind = str(e.device_type())
@@ -63,6 +82,12 @@ class DeviceTrace:
                     continue
                 host.append(HostOp(name, start, start + dur, int(e.start_thread_id()),
                                    bool(e.is_user_annotation())))
+                if cpu_device and name.startswith("aten::"):
+                    corr = int(e.correlation_id())
+                    dev.append(DevOp(name, start, start + dur, (corr, 0)))
+                    launches[corr] = (start, int(e.start_thread_id()))
+        if cpu_device:
+            dev = _outermost(dev, launches)
         if dev:
             t0 = t0_ns if t0_ns is not None else min(e.start for e in dev)
             t1 = t1_ns if t1_ns is not None else max(e.end for e in dev)

@@ -1,14 +1,15 @@
 """Shared arithmetic of the per-layer readers in bench_port/metrics.
 
 Each reader takes the traced run (`run.Traced`: the renderer kind, the
-number of traced frames, the device trace, the probes' captured launches
-and the set-up's upload seconds) and returns a number, or None where the
-run holds nothing for it to read.
+number of traced frames, the device trace, the probes' captured launches,
+the program's spans and counters with the stage table that joins them to
+the trace, and the set-up's upload seconds) and returns a number, or
+None where the run holds nothing for it to read.
 """
 
 from __future__ import annotations
 
-from . import roofline
+from . import roofline, stages
 
 # PyTorch's gather and indexing kernels (advanced indexing, take,
 # index_select, gather): in these renderers mostly shading's texel and
@@ -20,6 +21,22 @@ KERNELS = {
     "k2": (("matrix_walk_kernel",), roofline.k2_work),
     "k3": (("order_tiles_kernel", "raster_tiled_kernel"), roofline.k3_work),
 }
+
+
+def span_busy_ms(run, *names):
+    """Device ms a traced frame charged to the spans `names` as the
+    innermost span open at each operation's launch (`lib/stages.py`);
+    None where no span of theirs was recorded or nothing ran under them."""
+    ms = stages.busy_ms(run.stages, names)
+    return ms if ms else None
+
+
+def counter_per_frame(run, name: str):
+    """The program's counter `name`, summed over its labels, per traced
+    frame; None where it was never counted."""
+    if not any(c["name"] == name for c in run.counters):
+        return None
+    return stages.counter_total(run.counters, name) / run.stage_frames
 
 
 def launches_per_frame(run, kind: str):

@@ -11,9 +11,10 @@ tables, and nothing of the program is imported.
 
 Only what the benchmark's configurations use is supported: DIFFUSE
 (Oren-Nayar) materials, base-colour maps, quad lights, the sky
-environment and a perspective pinhole camera. `RefScene.check` refuses a
-scene with anything else, so a later configuration cannot be compared
-against a reference that silently ignores part of it.
+environment, a perspective pinhole camera and procedural spheres whose
+material is DIFFUSE with no map. `RefScene.check` refuses a scene with
+anything else, so a later configuration cannot be compared against a
+reference that silently ignores part of it.
 """
 
 from __future__ import annotations
@@ -44,6 +45,7 @@ class RefScene:
         self._lights(host)
         self._camera(host, camera)
         self._textures(host)
+        self._spheres(host)
 
     # -- what the reference covers ------------------------------------
 
@@ -75,8 +77,11 @@ class RefScene:
             for p in mesh.primitives:
                 if p.colors is not None:
                     bad.append("a primitive has vertex colours")
-        if host.procedurals:
-            bad.append("the scene has procedural primitives")
+        for i, sph in enumerate(host.procedurals):
+            # the loop above refuses every material's emission, opacity,
+            # medium and other maps; a sphere's also takes no base-colour map
+            if host.materials[sph.material].base_color_map_index != _NO_MAP:
+                bad.append(f"sphere {i}'s material has a base-colour map")
         if bad:
             raise ValueError("reference does not cover: " + "; ".join(sorted(set(bad))))
 
@@ -214,6 +219,20 @@ class RefScene:
         self.cam_aperture = self._t(np.float32(cam.aperture))
         self.view_matrix = np.linalg.inv(w).astype(np.float32)
         self.proj_matrix = np.asarray(cam.projection, np.float32)
+
+    # -- procedural spheres -------------------------------------------
+
+    def _spheres(self, host) -> None:
+        """Centre, radius and material row of each procedural sphere, in
+        the scene's order (the order that breaks a tie between them)."""
+        self.num_spheres = len(host.procedurals)
+        if not self.num_spheres:
+            return
+        self.sph_center = self._t(np.array([p.center for p in host.procedurals],
+                                           np.float32).reshape(-1, 3))
+        self.sph_radius = self._t(np.array([p.radius for p in host.procedurals], np.float32))
+        self.sph_mat = torch.as_tensor([int(p.material) for p in host.procedurals],
+                                       dtype=torch.int64, device=self.device)
 
     # -- textures -----------------------------------------------------
 

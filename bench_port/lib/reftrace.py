@@ -4,17 +4,28 @@ It renders chosen pixels of chosen progressive frames of a `RefScene`
 with the estimator the renderer documents: PCG4D random numbers keyed on
 (global pixel, frame, bounce, stream), a pinhole camera with sub-pixel
 jitter, closest hits by a brute-force Moller-Trumbore scan over every
-triangle, emission from quad lights hit by BSDF rays weighted by the
-power heuristic, the sky gradient on a miss, one light sampled per
-vertex for next-event estimation with a shadow ray, Oren-Nayar diffuse
-shading with cosine-weighted continuation, trilinear base-colour maps at
-the ray-cone LOD, Russian roulette from `rr_depth`, the first-hit albedo
-and normal, and the running-mean film. Every expression is written out
+triangle and then the procedural spheres, emission from quad lights hit
+by BSDF rays weighted by the power heuristic, the sky gradient on a
+miss, one light sampled per vertex for next-event estimation with a
+shadow ray, Oren-Nayar diffuse shading with cosine-weighted
+continuation, trilinear base-colour maps at the ray-cone LOD, Russian
+roulette from `rr_depth`, the first-hit albedo and normal, and the
+running-mean film. Every expression is written out
 in the order the renderer evaluates it, so on one device the two agree
 bit for bit wherever they find the same hits; a ray whose hit differs
 (a graze that one side's intersection test accepts and the other
 rejects, or two triangles at exactly the same distance) takes another
 path, and that pixel differs.
+
+Procedural spheres follow the renderer's documented rules: the nearest
+root above 1e-4 (and below the query's t_max) is the sphere's hit; a
+sphere is taken only where it is strictly nearer than the triangles, so
+one at exactly a triangle's t keeps the triangle, and the first of
+spheres at one t wins; a shadow ray is blocked by a sphere in (1e-4,
+t_far) for the t_far the renderer passes, whatever shortening its
+triangle query applies. A sphere hit shades with the unit normal from
+the centre to the hit point, the spherical uv, no tangent, and its own
+material row. Sphere k's hit id is the number of triangles plus k.
 
 All floating-point work runs in `rs.dtype`: float32 is the reference,
 bfloat16 its control. Nothing of the program is imported.
@@ -37,6 +48,7 @@ _MASK = 0xFFFFFFFF
 _INV_U24 = 1.0 / (1 << 24)
 _ON_EPS = 1e-6
 _LIGHT_EPS = 1e-6
+SPHERE_EPS = 1e-4
 TRI_CHUNK = 2048
 RAY_CHUNK = 1 << 15
 
@@ -143,9 +155,45 @@ def _mt(o, d, v0, e1, e2):
     return torch.where(valid, t, T_MAX), u, v
 
 
+def _sphere_root(o, d, center, radius):
+    """(t, ok) of rays (N, 3) against one sphere: the nearest root above
+    SPHERE_EPS, from |o + t d - c|^2 = r^2 with d of unit length."""
+    oc = o - center[None, :]
+    b = dot(oc, d)
+    cq = dot(oc, oc) - radius * radius
+    disc = b * b - cq
+    sq = torch.sqrt(torch.clamp(disc, min=0.0))
+    t0 = -b - sq
+    t1 = -b + sq
+    t = torch.where(t0 > SPHERE_EPS, t0, t1)
+    return t, (disc > 0.0) & (t > SPHERE_EPS)
+
+
+def _fold_spheres(rs, o, d, t_best, tri, u_best, v_best):
+    """The spheres after the triangles' closest hit: sphere k is taken
+    where its root is strictly below the best t so far (t_max where
+    nothing was hit). u, v of a sphere hit: longitude around +y from
+    +x towards +z, and latitude, both in [0, 1]."""
+    sph = torch.full_like(tri, -1)
+    for k in range(rs.num_spheres):
+        t, ok = _sphere_root(o, d, rs.sph_center[k], rs.sph_radius[k])
+        take = ok & (t < t_best)
+        t_best = torch.where(take, t, t_best)
+        sph = torch.where(take, k, sph)
+    hit = sph >= 0
+    k = torch.clamp(sph, min=0)
+    p = o + t_best[:, None] * d
+    nrm = (p - rs.sph_center[k]) / torch.clamp(rs.sph_radius[k], min=1e-12)[:, None]
+    su = 0.5 + torch.atan2(nrm[:, 2], nrm[:, 0]) / TWO_PI
+    sv = 0.5 - torch.asin(torch.clamp(nrm[:, 1], -1.0, 1.0)) / math.pi
+    return (t_best, torch.where(hit, rs.num_triangles + k, tri),
+            torch.where(hit, su, u_best), torch.where(hit, sv, v_best))
+
+
 def closest_hit(rs, o, d, t_max):
-    """Closest hit in (T_MIN, t_max) over every triangle; ties go to the
-    first triangle in scene order. Returns t, tri (-1 on a miss), u, v."""
+    """Closest hit in (T_MIN, t_max) over every triangle, then every
+    sphere; ties between triangles go to the first in scene order.
+    Returns t, tri (-1 on a miss; spheres after the triangles), u, v."""
     n = o.shape[0]
     t_best = t_max.clone()
     tri = torch.full((n,), -1, dtype=torch.int64, device=o.device)
@@ -164,12 +212,16 @@ def closest_hit(rs, o, d, t_max):
             tri[rsl] = torch.where(better, c0 + arg, tri[rsl])
             u_best[rsl] = torch.where(better, u[rows, arg], u_best[rsl])
             v_best[rsl] = torch.where(better, v[rows, arg], v_best[rsl])
+    if rs.num_spheres:
+        return _fold_spheres(rs, o, d, t_best, tri, u_best, v_best)
     return t_best, tri, u_best, v_best
 
 
-def occluded(rs, o, d, limit):
-    """True where some triangle lies in (T_MIN, limit)."""
+def occluded(rs, o, d, t_far, tri_scale: float):
+    """True where some triangle lies in (T_MIN, t_far * tri_scale) or
+    some sphere in (SPHERE_EPS, t_far)."""
     n = o.shape[0]
+    limit = t_far * tri_scale
     blocked = torch.zeros(n, dtype=torch.bool, device=o.device)
     for r0 in range(0, n, RAY_CHUNK):
         rsl = slice(r0, r0 + RAY_CHUNK)
@@ -178,6 +230,9 @@ def occluded(rs, o, d, limit):
             sl = slice(c0, c0 + TRI_CHUNK)
             t, _, _ = _mt(o[rsl], d[rsl], rs.v0[sl], rs.e1[sl], rs.e2[sl])
             blocked[rsl] |= torch.any(t < lim, dim=1)
+    for k in range(rs.num_spheres):
+        t, ok = _sphere_root(o, d, rs.sph_center[k], rs.sph_radius[k])
+        blocked |= ok & (t < t_far)
     return blocked
 
 
@@ -391,6 +446,10 @@ def trace(rs, pix, frame, width: int, height: int, settings: dict):
         on_surface = active
 
         tid = torch.clamp(hit_tri, min=0)
+        if rs.num_spheres:
+            on_sphere = hit_tri >= rs.num_triangles
+            sid = torch.clamp(hit_tri - rs.num_triangles, 0, rs.num_spheres - 1)
+            tid = torch.clamp(tid, max=rs.num_triangles - 1)
         u, v = hit_u, hit_v
         w0 = 1.0 - u - v
         nrm = rs.normals[tid]
@@ -401,12 +460,22 @@ def trace(rs, pix, frame, width: int, height: int, settings: dict):
         ng = torch.where((dot(ng, ns) < 0)[:, None], -ng, ng)
         hit_p = o + hit_t[:, None] * d
         mat = torch.clamp(rs.tri_mat[tid], min=0)
+        if rs.num_spheres:
+            ns_s = normalize(hit_p - rs.sph_center[sid])
+            ns = torch.where(on_sphere[:, None], ns_s, ns)
+            ng = torch.where(on_sphere[:, None], ns_s, ng)
+            uv = torch.where(on_sphere[:, None], torch.stack([u, v], dim=1), uv)
+            mat = torch.where(on_sphere, rs.sph_mat[sid], mat)
         base = rs.mat_base[mat]
         a_on, b_on = rs.mat_a[mat], rs.mat_b[mat]
         path_dist = path_dist + hit_t * active.to(dt)
         tans = rs.tangents[tid]
         tan_raw = w0[:, None] * tans[:, 0] + u[:, None] * tans[:, 1] + v[:, None] * tans[:, 2]
+        if rs.num_spheres:
+            tan_raw = torch.where(on_sphere[:, None], 0.0, tan_raw)
         if rs.textures is not None:
+            # a sphere's material has no map (RefScene.check), so its
+            # texel is white whatever the LOD
             lod_uv = torch.log2(torch.clamp(path_dist * pixel_angle * rs.uv_density[tid], 1e-6, 1e6))
             base = base * sample_map(rs, rs.mat_map[mat], uv, lod_uv)[:, :3]
 
@@ -456,7 +525,7 @@ def trace(rs, pix, frame, width: int, height: int, settings: dict):
         ext_tmax = torch.where(active, T_MAX, 0.0).to(dt)
 
         q_t, q_tri, q_u, q_v = closest_hit(rs, next_o, next_d, ext_tmax)
-        blocked = occluded(rs, shadow_o, wi_l, nee_tmax * shadow_scale)
+        blocked = occluded(rs, shadow_o, wi_l, nee_tmax, shadow_scale)
         radiance = radiance + torch.where((candidate & ~blocked)[:, None], nee, 0.0)
         o, d = next_o, next_d
         hit_t, hit_tri, hit_u, hit_v = q_t, torch.where(active, q_tri, -1), q_u, q_v

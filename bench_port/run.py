@@ -54,7 +54,7 @@ T_IMPORTED = time.perf_counter()
 sys.path.insert(0, HERE)
 sys.path.insert(0, ROOT)
 
-from lib import compare, devtrace, probes  # noqa: E402
+from lib import compare, devtrace, probes, stages  # noqa: E402
 
 
 def load_json(*parts):
@@ -64,9 +64,12 @@ def load_json(*parts):
 
 class Cell:
     """One workload of BENCHMARK.json with its configuration, traffic
-    and metric definitions, all found by name."""
+    and metric definitions, all found by name. `config`, where given, is
+    a configuration (as a dict) run in place of the workload's own file,
+    under the workload's traffic, metrics and limits: a configuration
+    that has no workload entry yet."""
 
-    def __init__(self, name: str, bench: dict | None = None):
+    def __init__(self, name: str, bench: dict | None = None, config: dict | None = None):
         bench = bench or load_json(ROOT, "BENCHMARK.json")
         found = [w for w in bench["workloads"] if w["name"] == name]
         if not found:
@@ -74,7 +77,8 @@ class Cell:
         self.name = name
         self.spec = found[0]
         self.chips = int(self.spec["chips"])
-        self.config = load_json(HERE, "configs", self.spec["config"] + ".json")
+        self.config = config if config is not None else load_json(
+            HERE, "configs", self.spec["config"] + ".json")
         self.traffic = load_json(HERE, "traffic", self.spec["traffic"] + ".json")
 
         def applies(m):
@@ -95,7 +99,9 @@ def host_scene(config: dict, seed: int, poses: int = 1, path_seed: int = 0):
     for every seed, so every run renders the same views; the seed draws
     their order. Camera k of the scene (the camera node, then one more
     node beside it for each further pose) is the k-th pose of that order.
-    The program receives only this scene."""
+    The configuration's `scene.procedurals` (see `add_spheres`) join the
+    scene before the poses are written. The program receives only this
+    scene."""
     src = config["scene"]
     if src["kind"] == "gltf":
         from hala_tpu_torch.scene.cpu.scene import Scene
@@ -113,6 +119,7 @@ def host_scene(config: dict, seed: int, poses: int = 1, path_seed: int = 0):
         host = quadscene.build(src)
     else:
         raise ValueError(f"unknown scene kind {src['kind']!r}")
+    add_spheres(host, src.get("procedurals", []))
     cams = [n for n in host.nodes if n.camera_index is not None]
     if len(cams) != 1:
         raise ValueError(f"the scene has {len(cams)} camera nodes; the benchmark poses one")
@@ -135,6 +142,25 @@ def host_scene(config: dict, seed: int, poses: int = 1, path_seed: int = 0):
                 host.nodes[node.parent].children.append(len(host.nodes) - 1)
     host.update_node_hierarchies()
     return host
+
+
+def add_spheres(host, spheres) -> None:
+    """Append, in list order, each sphere of a configuration's
+    `scene.procedurals` ({"center": [x, y, z], "radius": r, "base_color":
+    [r, g, b]}, world coordinates) to the host scene: a DIFFUSE material
+    of that base colour (every other field at its default) after the
+    scene's materials, and a procedural sphere using it. Apps register
+    procedural shapes in code, not in the glTF file."""
+    if not spheres:
+        return
+    from hala_tpu_torch.scene.cpu.material import Material
+    from hala_tpu_torch.scene.cpu.prims import ProceduralSphere
+
+    for sph in spheres:
+        host.materials.append(Material(base_color=np.asarray(sph["base_color"], np.float32)))
+        host.procedurals.append(ProceduralSphere(
+            center=tuple(float(x) for x in sph["center"]), radius=float(sph["radius"]),
+            material=len(host.materials) - 1))
 
 
 def make_renderer(cell: Cell, tr: dict, device):
@@ -205,42 +231,69 @@ def load_reader(name: str):
 
 class Traced:
     """What the per-layer readers read: the trace of the traced frames,
-    the launches the probes captured in them, the set-up's upload and
-    the unprofiled window's mean frame."""
+    the launches the probes captured in them, the program's spans and
+    counters recorded in them and the stage table joining the spans to
+    the trace (`lib/stages.py`; over `stage_frames` frames), the set-up's
+    upload and the unprofiled window's mean frame."""
 
-    def __init__(self, kind, frames, trace, captured, upload_s, mean_frame_s):
+    def __init__(self, kind, frames, trace, captured, upload_s, mean_frame_s,
+                 spans, counters, table, stage_frames):
         self.kind = kind
         self.frames = frames
         self.trace = trace
         self.captured = captured
         self.upload_s = upload_s
         self.mean_frame_s = mean_frame_s  # the unprofiled window's
+        self.spans = spans
+        self.counters = counters
+        self.stages = table
+        self.stage_frames = stage_frames
 
 
-def run_traced(frame, frames: int, device):
+def run_traced(frame, kind: str, frames: int, device, upload_s, mean_frame_s):
     """`frames` more frames under torch.profiler recording the device
     alone (so the host runs at its unprofiled pace), with the probes
-    holding the K1, K2 and K3 launches' inputs and answers; then one
-    more frame recording the host's operations too, which names the
-    idle gaps of the breakdown."""
+    holding the K1, K2 and K3 launches' inputs and answers and the
+    program's tracer on; then one more frame recording the host's
+    operations too, which names the idle gaps of the breakdown. The
+    tracer is on only around those device-only frames; where their
+    profile has no runtime launch events to join the spans to, it is on
+    around the host frame instead, and that one frame is attributed.
+    Returns the `Traced` run and the host frame's trace."""
     from torch.profiler import ProfilerActivity, profile
+
+    from hala_tpu_torch.utils import profiling
 
     on_card = torch.device(device).type == "cuda"
 
-    def frames_under(acts, n):
+    def frames_under(acts, n, traced):
         sync(device)
-        with profile(activities=acts) as prof:
-            t0 = time.time_ns()
-            for _ in range(n):
-                frame(annotate=True)
-            sync(device)
-            t1 = time.time_ns()
-        return devtrace.DeviceTrace.from_profile(prof, t0, t1)
+        profiling.reset()
+        if traced:
+            profiling.enable()
+        try:
+            with profile(activities=acts) as prof:
+                t0 = time.time_ns()
+                for _ in range(n):
+                    frame(annotate=True)
+                sync(device)
+                t1 = time.time_ns()
+        finally:
+            profiling.disable()
+        got = profiling.spans(), profiling.counters()
+        profiling.reset()
+        return devtrace.DeviceTrace.from_profile(prof, t0, t1, cpu_device=not on_card), got
 
     host_and_device = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     with probes.capture() as captured:
-        dtrace = frames_under(host_and_device[1:] if on_card else host_and_device, frames)
-    return dtrace, frames_under(host_and_device, 1), captured
+        dtrace, recorded = frames_under(
+            host_and_device[1:] if on_card else host_and_device, frames, True)
+    fallback = not dtrace.launches
+    host_trace, host_recorded = frames_under(host_and_device, 1, fallback)
+    attributed, n = (host_trace, 1) if fallback else (dtrace, frames)
+    spans, counters = host_recorded if fallback else recorded
+    return Traced(kind, frames, dtrace, captured, upload_s, mean_frame_s, spans, counters,
+                  stages.attribute(attributed, spans, n), n), host_trace
 
 
 def set_pose(r, k: int) -> None:
@@ -330,9 +383,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
                      "count": cell.chips, "memory_peak_bytes": int(peak)}
     breakdown = None
     if trace:
-        dtrace, host_trace, captured = run_traced(frame, tr["traced_frames"], device)
-        traced = Traced(kind, tr["traced_frames"], dtrace, captured, upload_s,
-                        window_s / len(times))
+        traced, host_trace = run_traced(frame, kind, tr["traced_frames"], device, upload_s,
+                                        window_s / len(times))
+        dtrace = traced.trace
         metrics = {}
         for m in cell.per_layer:
             value = load_reader(m["name"])(traced)
@@ -378,8 +431,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     result = run_cell(cell, args.seed, args.seconds, bool(args.trace), device="cuda")
-    if "jax" in sys.modules:
-        print("jax was imported", file=sys.stderr)
+    found = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "flax", "hala_tpu"})
+    if found:
+        print(f"the run imported {', '.join(found)}", file=sys.stderr)
         return 3
     for name, c in result["checks"].items():
         print(f"check {name}: {c['value']} (limit {c['limit']})", file=sys.stderr)
