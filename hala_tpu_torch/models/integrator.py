@@ -275,6 +275,18 @@ def _query_span(plan: query.QueryPlan, kind: str, rays: int):
     return profiling.span("hala.query", engine=plan.engine, kind=kind, rays=rays)
 
 
+def _spheres_span(scene, kind: str, rays: int):
+    """The `hala.query.spheres` span of the procedural spheres' pass in
+    one query (the enclosing `hala.query`'s kind, the rays, the spheres
+    P), and its counter `query.sphere_pairs` (rays x P); none where the
+    scene has no spheres."""
+    if not profiling.enabled() or scene.procedural is None:
+        return profiling.NO_SPAN
+    spheres = scene.procedural.center.shape[0]
+    profiling.count("query.sphere_pairs", rays * spheres, kind=kind)
+    return profiling.span("hala.query.spheres", kind=kind, rays=rays, spheres=spheres)
+
+
 def _intersect(scene, o, d, plan: query.QueryPlan, t_max=None,
                extend: bool = False, kind: str = "closest") -> Hit:
     """Closest-hit dispatch: the triangle engine's query, then the
@@ -283,21 +295,23 @@ def _intersect(scene, o, d, plan: query.QueryPlan, t_max=None,
     span. On a geometry shard the query runs on every rank's rays and
     the ranks' hits are merged (`merge_shard_hits`' rule); the spheres
     are replicated and join after, on this rank's rays."""
-    with _query_span(plan, "extend" if extend else kind, o.shape[0]):
+    kind = "extend" if extend else kind
+    n = o.shape[0]
+    with _query_span(plan, kind, n):
         mesh = plan.scene_axis
         if mesh is None:
             hit = _intersect_local(scene, o, d, plan, t_max, extend)
+        else:
+            og, dg, tg = _gather_rays(mesh, o, d, t_max)
+            local = _intersect_local(scene, og, dg, plan, tg, extend)
+            own = slice(mesh.rank * n, (mesh.rank + 1) * n)
+            hit = _lex_merge(
+                [local], [mesh.rank * scene.geometry.tri_v0.shape[0]],
+                lambda xs: mesh.all_min(xs[0]), lambda xs: mesh.sum_scatter(xs[0]),
+                lambda x: x[own],
+            )
+        with _spheres_span(scene, kind, n):
             return _merge_proc(scene, o, d, hit, t_max)
-        n = o.shape[0]
-        og, dg, tg = _gather_rays(mesh, o, d, t_max)
-        hit = _intersect_local(scene, og, dg, plan, tg, extend)
-        own = slice(mesh.rank * n, (mesh.rank + 1) * n)
-        merged = _lex_merge(
-            [hit], [mesh.rank * scene.geometry.tri_v0.shape[0]],
-            lambda xs: mesh.all_min(xs[0]), lambda xs: mesh.sum_scatter(xs[0]),
-            lambda x: x[own],
-        )
-        return _merge_proc(scene, o, d, merged, t_max)
 
 
 def _intersect_local(scene, o, d, plan: query.QueryPlan, t_max=None,
@@ -320,7 +334,8 @@ def _occluded(scene, o, d, t_far, plan: query.QueryPlan) -> torch.Tensor:
             occ_g = _occluded_local(scene, og, dg, tg, plan)
             occ = mesh.sum_scatter(occ_g.to(torch.int32)) > 0
         if scene.procedural is not None:
-            occ = occ | occluded_spheres(scene.procedural, o, d, t_far)
+            with _spheres_span(scene, "any", o.shape[0]):
+                occ = occ | occluded_spheres(scene.procedural, o, d, t_far)
         return occ
 
 
