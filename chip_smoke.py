@@ -16,8 +16,11 @@ Phases, in order; any failure raises and exits non-zero:
      rays, unsorted and in matrix_query's coherence order, against its
      plain version bit for bit (closest, and the any-hit mask) and
      against K1 (closest, and the any-hit mask), its schedule (clusters
-     visited per 128-ray block) against the plain model
-     `matrix_walk_runs_plain`, timed on all four batches, the tile-segment raster kernel (K3) on
+     visited per 128-ray block, (ray, span) pairs queued and packed
+     Moller-Trumbore steps) against the plain model
+     `matrix_walk_runs_plain`, timed on all four batches and on the 18
+     launches of one atrium_big frame by kind (camera, extension,
+     shadow; `frame_k2_launches`), with each kind's packed share, the tile-segment raster kernel (K3) on
      atrium_big at 1920x1088 (tile 64, bench camera) against its plain
      version and at 256x256 against the full-scan `rasterize`, bit for
      bit (timed, with the pairs its sub-tile skip leaves), and on a
@@ -649,11 +652,11 @@ def check_k2(dev_scene, small, big, reps: int):
     rec = dict(small_work=w_small)
     o, d, tm = small_s
     for any_hit in (False, True):
-        hit, runs = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=any_hit)
-        ref, ref_runs = k2.matrix_walk_runs_plain(o, d, tm, *args, any_hit)
+        hit, runs, work = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=any_hit)
+        ref, ref_runs, ref_work = k2.matrix_walk_runs_plain(o, d, tm, *args, any_hit)
         torch.cuda.synchronize()
-        equal_tensors(f"K2 schedule any_hit={any_hit}", (*hit, runs),
-                      (*ref, ref_runs), hit_labels + ("runs",))
+        equal_tensors(f"K2 schedule any_hit={any_hit}", (*hit, runs, work),
+                      (*ref, ref_runs, ref_work), hit_labels + ("runs", "work"))
         if not any_hit:
             rec["runs"] = dict(mean=float(runs.float().mean()), max=int(runs.max()),
                                least=w_small["least"] / runs.numel())
@@ -719,7 +722,88 @@ def check_k2(dev_scene, small, big, reps: int):
         + f"; big sorted with t_max 2e-4 (nothing entered) "
         f"{times['big_sorted_nothing_entered']:.3f}"
         + f"; K1 on all {g.tri_v0.shape[0]} slots (small) {rec['k1_ms']:.3f}")
+
+    launches = frame_k2_launches(dev_scene)
+    ext = next(a for kind, a in launches if kind == "extension")
+    o, d, tm = (x[:1 << 16] for x in ext[:3])
+    hit, runs, work = k2.matrix_walk_runs(o, d, g, t_max=tm)
+    ref, ref_runs, ref_work = k2.matrix_walk_runs_plain(o, d, tm, *args)
+    torch.cuda.synchronize()
+    equal_tensors("K2 schedule, the first bounce's extension rays", (*hit, runs, work),
+                  (*ref, ref_runs, ref_work), hit_labels + ("runs", "work"))
+    rec["frame"] = time_k2_kinds(launches, reps)
+    log(f"  K2 schedule on the first {o.shape[0]} of a frame's first extension "
+        f"query's rays: hits, runs and work equal the plain model (packed share "
+        f"{k2.packed_share(work):.3f})")
+    log(f"  K2 on one atrium_big frame's {len(launches)} launches, ms a frame by kind: "
+        + "; ".join(f"{kind} {rec['frame'][kind]['launches']}x "
+                    f"{rec['frame'][kind]['ms']:.3f} (packed share "
+                    f"{rec['frame'][kind]['packed_share']:.3f})" for kind in K2_KINDS)
+        + f"; all {rec['frame']['all_ms']:.3f} [{card_line()}]")
     return rec
+
+
+K2_KINDS = ("camera", "extension", "shadow")
+
+
+def frame_k2_launches(dev_scene, size=(1920, 1088), depth=4, device="cuda"):
+    """Every K2 launch of frame 0 of `dev_scene` through the main path
+    ("auto", depth 4, rr 2, 1 spp, the 2^20-ray tiles, the coherence
+    sort), captured as bench_port/lib/probes.py captures them: the
+    module's `_launch_matrix` wrapped for the frame. The rays are copied
+    (K10 writes the next query's rows in place). Returns a list of
+    (kind, launch arguments): each tile's first query is "camera", its
+    other closest-hit queries "extension", its any-hit ones "shadow"."""
+    from hala_tpu_torch.models import integrator as tint
+    from hala_tpu_torch.ops import traverse
+
+    got = []
+    real = traverse._launch_matrix
+
+    def capture(o, d, tm, cmin, cmax, tri_packed, any_hit, with_runs=False):
+        got.append((o.clone(), d.clone(), tm.clone(), cmin, cmax, tri_packed, any_hit))
+        return real(o, d, tm, cmin, cmax, tri_packed, any_hit, with_runs)
+
+    w, h = size
+    traverse._launch_matrix = capture
+    try:
+        film = tint.Film.create(w, h, device)
+        tint.render_frame(dev_scene, None, tint.Uniforms.default(device), film, 0,
+                          tint.RenderSettings(width=w, height=h, max_depth=depth,
+                                              rr_depth=2))
+    finally:
+        traverse._launch_matrix = real
+    per_tile = 1 + 2 * depth  # the camera query, then extension and shadow a bounce
+    pattern = [j > 0 and j % 2 == 0 for j in range(per_tile)]
+    if not got or len(got) % per_tile or [a[6] for a in got] != pattern * (
+            len(got) // per_tile):
+        raise AssertionError(f"K2 launches of the frame: {[a[6] for a in got]}")
+    return [("shadow" if a[6] else "camera" if i % per_tile == 0 else "extension", a)
+            for i, a in enumerate(got)]
+
+
+def time_k2_kinds(launches, reps: int, own: bool = True) -> dict:
+    """K2's device ms a frame by kind of launch (`frame_k2_launches`):
+    each kind's launches run back to back, `reps` times. With `own`
+    (this checkout's K2) also each kind's packed share (`packed_share`:
+    how full its Moller-Trumbore steps run) and queued pairs."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k2
+
+    out = {}
+    for kind in K2_KINDS:
+        group = [a for k, a in launches if k == kind]
+        rec = dict(launches=len(group), ms=cuda_ms(
+            lambda: [k2._launch_matrix(*a) for a in group], reps))
+        if own:
+            work = torch.cat([k2._launch_matrix(*a, True)[2] for a in group])
+            rec.update(pairs=int(work[:, 0].sum(dtype=torch.int64)),
+                       steps=int(work[:, 1].sum(dtype=torch.int64)),
+                       packed_share=k2.packed_share(work))
+        out[kind] = rec
+    out["all_ms"] = sum(out[kind]["ms"] for kind in K2_KINDS)
+    return out
 
 
 def equal_tensors(name: str, got, ref, labels) -> None:
@@ -1434,6 +1518,104 @@ def half_box_table():
     return g, o, d, torch.full((64,), 3.0e38)
 
 
+def hand_table(tris, cmin, cmax):
+    """A geometry on the CPU from hand-placed slots: `tris` maps
+    (cluster, slot) to (v0, e1, e2), every other slot is padding (far
+    v0, zero edges), row 9 filled as the uploader fills it; the cluster
+    boxes as given."""
+    import types
+
+    import torch
+
+    from hala_tpu_torch.ops.cluster import with_pretest_row
+
+    blk = torch.zeros((len(cmin), 16, 128))
+    blk[:, 0:3, :] = 3.0e37
+    for (c, slot), tri in tris.items():
+        blk[c, 0:9, slot] = torch.tensor(tri, dtype=torch.float32).reshape(9)
+    return types.SimpleNamespace(cluster_min=torch.tensor(cmin),
+                                 cluster_max=torch.tensor(cmax),
+                                 tri_packed=with_pretest_row(blk))
+
+
+def axis_rays(n: int, x0: float, seed: int):
+    """n rays along +x from x = x0, y and z uniform in [-0.5, 0.5]."""
+    import torch
+
+    rs = np.random.RandomState(seed)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 0] = x0
+    o[:, 1:] = rs.uniform(-0.5, 0.5, (n, 2))
+    return (torch.from_numpy(o), torch.tensor([[1.0, 0.0, 0.0]] * n),
+            torch.full((n,), 3.0e38))
+
+
+def span_stack_table(n: int = 128, seed: int = 1):
+    """One cluster whose span s holds one triangle (slot 16 s + 3) in the
+    plane x = 8 - s across all the rays, and n rays along +x from x = 0:
+    every live ray enters all eight spans at a visit's start, so a warp
+    of 32 queues 256 (ray, span) pairs. The closest hit is span 7's slot
+    115 at t 1; the any hit is span 0's slot 3 at t 8, the lowest slot,
+    in the span the ray enters last. Returns (geometry, o, d, t_max)."""
+    tris = {(0, 16 * s + 3): [[8.0 - s, -1, -1], [0, 4, 0], [0, 0, 4]]
+            for s in range(8)}
+    g = hand_table(tris, [[1.0, -1.0, -1.0]], [[8.0, 3.0, 3.0]])
+    return (g, *axis_rays(n, 0.0, seed))
+
+
+def span_tie_table(n: int = 200, seed: int = 2):
+    """The same triangle in the plane x = 0 four times: slots 5, 40 and
+    100 of cluster 0 (spans 0, 2 and 6) and slot 3 of cluster 1, whose
+    slot 9 (a triangle off to the side at x = -3) stretches its box
+    toward n rays along +x from x = -5. Each ray hits all four at t 5,
+    in three spans of one visit and in the visit before: the closest hit
+    is slot 5, the lowest; the any hit slot 131, of cluster 1, visited
+    first. Returns (geometry, o, d, t_max)."""
+    tri = [[0.0, -1, -1], [0, 3, 0], [0, 0, 3]]
+    tris = {(0, 5): tri, (0, 40): tri, (0, 100): tri, (1, 3): tri,
+            (1, 9): [[-3.0, 10, 0], [0, 1, 0], [0, 0, 1]]}
+    g = hand_table(tris, [[0.0, -1.0, -1.0], [-3.0, -1.0, -1.0]],
+                   [[0.0, 2.0, 2.0], [0.0, 11.0, 2.0]])
+    return (g, *axis_rays(n, -5.0, seed))
+
+
+def diffuse_bounce_batch(dev_scene, width: int, height: int, seed: int):
+    """The first diffuse bounce of `camera_rays`: from each camera ray's
+    closest hit (K2 on the card), a direction cosine-distributed about
+    the triangle's geometric normal turned toward the ray, from 1e-3
+    above the surface, t_max 3e38 (t_max 0 where the camera ray missed),
+    in matrix_query's coherence order. A warp of these rays enters many
+    distinct spans of a cluster: the incoherent extension query of a
+    path tracer's bounces. Returns (o, d, t_max)."""
+    import torch
+
+    from hala_tpu_torch.ops import traverse as k2
+    from hala_tpu_torch.ops.compaction import order_by, query_coherence_key
+
+    g = dev_scene.geometry
+    o, d = camera_rays(dev_scene, width, height, seed)
+    hit = k2.intersect_matrix(o, d, g)
+    ok = hit.tri >= 0
+    tri = hit.tri.clamp(min=0).long()
+    nrm = torch.linalg.cross(g.tri_e1[tri], g.tri_e2[tri])
+    nrm = nrm / torch.linalg.norm(nrm, dim=1, keepdim=True).clamp(min=1e-30)
+    nrm = torch.where((nrm * d).sum(dim=1, keepdim=True) > 0, -nrm, nrm)
+    side = torch.where(nrm[:, :1].abs() > 0.9, torch.tensor([0.0, 1.0, 0.0], device=o.device),
+                       torch.tensor([1.0, 0.0, 0.0], device=o.device))
+    tan = torch.linalg.cross(nrm, side)
+    tan = tan / torch.linalg.norm(tan, dim=1, keepdim=True)
+    bit = torch.linalg.cross(nrm, tan)
+    u = torch.from_numpy(np.random.RandomState(seed + 1).uniform(
+        0, 1, (o.shape[0], 2)).astype(np.float32)).to(o.device)
+    r, phi = torch.sqrt(u[:, :1]), 2 * np.pi * u[:, 1:]
+    d2 = r * torch.cos(phi) * tan + r * torch.sin(phi) * bit + torch.sqrt(1 - u[:, :1]) * nrm
+    d2 = d2 / torch.linalg.norm(d2, dim=1, keepdim=True)
+    o2 = torch.where(ok[:, None], o + hit.t[:, None] * d + 1e-3 * nrm, o)
+    tm = torch.where(ok, 3.0e38, 0.0)
+    order, _ = order_by(query_coherence_key(o2, d2, tm, g.cluster_min, g.cluster_max))
+    return tuple(x[order].contiguous() for x in (o2, d2, tm))
+
+
 def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
     """The admissibility rule on the card (ops/cluster.py): on
     `grazing_beside_span` K1's classic Moller-Trumbore accepts rays that
@@ -1458,8 +1640,8 @@ def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
             setattr(g, key, getattr(g, key).to(dev))
         o, d, tm = o.to(dev), d.to(dev), tm.to(dev)
         args = (o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed)
-        hit, runs = k2.matrix_walk_runs(o, d, g, t_max=tm)
-        model, model_runs = k2.matrix_walk_runs_plain(*args, False)
+        hit, runs, work = k2.matrix_walk_runs(o, d, g, t_max=tm)
+        model, model_runs, model_work = k2.matrix_walk_runs_plain(*args, False)
         brute = k1.intersect_pallas(o, d, g.tri_v0, g.tri_e1, g.tri_e2, t_max=tm)
         brute_plain = k1.intersect_pallas_plain(o, d, g.tri_v0, g.tri_e1, g.tri_e2,
                                                 t_max=tm)
@@ -1470,7 +1652,8 @@ def check_k2_grazing(dev, seeds=(1, 2, 3, 4, 5)):
                                         g.cluster_max, g.tri_packed)[0]
         torch.cuda.synchronize()
         equal_tensors(f"K2 vs its schedule model, grazing seed {seed}",
-                      (*hit, runs), (*model, model_runs), labels + ("runs",))
+                      (*hit, runs, work), (*model, model_runs, model_work),
+                      labels + ("runs", "work"))
         equal_tensors(f"K1 vs plain, grazing seed {seed}", brute, brute_plain, labels)
         for name, got in (("K2", hit), ("K5", k5_hit), ("K6", k6_hit)):
             equal_tensors(f"{name} vs stream_plain, grazing seed {seed}", got, stream,

@@ -16,11 +16,16 @@
 // of every cluster its shrinking range still reached, most of them
 // behind its hit, and read each slot from L2 with scalar loads. This
 // walk is bound by issuing CUDA-core instructions instead: a warp tests
-// all 16 members for every lane once one lane enters their union, and
-// per lane visit it runs the box test, the sub-box tests and
-// Moller-Trumbore on every span some lane of the warp wants; it visits
+// all 16 members for every lane once one lane enters their union, per
+// lane visit it runs the box test and the sub-box tests, and it visits
 // about a third more clusters per block than the fewest some lane must
-// enter.
+// enter. Moller-Trumbore runs on the (ray, span) pairs the lanes enter,
+// packed two spans a step: a warp whose lanes each ran the spans of the
+// union of its lanes issued 16 iterations for every span any lane
+// entered, and on incoherent bounce rays 6.6-11 % of its lanes did work.
+// On those rays a warp now queues about one pair a visit, so the
+// visits themselves (a block walks ~140 keys there while each lane
+// needs a few) and the keys pass's member tests are what is left.
 //
 // Design: the TPU kernel's front-to-back walk, per block of 128
 // consecutive rays of the batch matrix_query has coherence-sorted (rays
@@ -48,31 +53,57 @@
 //  4. Stage. Rows 0-9 of the next key's slot block (5 KB) are copied to
 //     shared memory with cp.async while the current block is tested
 //     (two buffers); every lane then reads the same slot, a broadcast.
-//  5. Test. A lane re-runs its own slab test of the cluster against its
-//     current best, then span by span the row-9 sub-box against its
-//     current best, and runs Moller-Trumbore on the 16 slots of each
-//     span that passes (empty sub-chunks are far point boxes whose slots
-//     have zero edges: no hit), keeping the cluster's entry distance tn_c
-//     and the span's tn_s. A warp with no live lane skips the cluster.
-//     (Testing all eight sub-boxes first and keeping their eight tn_s
-//     for the pair compare ran 5.6x slower on the H100: the span loop,
-//     unrolled to index them, no longer fit the instruction cache.)
+//  5. Test, against each lane's best t at the visit's start. A warp none
+//     of whose lanes could improve skips the cluster. a. Queue: the
+//     warp pads the visit's nine boxes (the eight row-9 spans and the
+//     cluster's AABB) once, one axis a lane, into shared memory; a lane
+//     re-runs its own slab test of the cluster (entry tn_c), then span
+//     by span that of the span, and for each span it enters writes
+//     (lane, span) to its warp's queue in shared memory, in span-then-
+//     lane order, placed by a ballot and a prefix count (at most 32 x 8
+//     one-byte entries). A warp none of whose lanes enters the cluster
+//     skips it. b. Packed Moller-Trumbore: the warp drains its queue two
+//     entries a step, lanes 0-15 on the 16 slots of one entry's span and
+//     lanes 16-31 on the next entry's, the ray's o, d, tn_c and best t at
+//     the start from two float4 a ray in shared memory (the keys pass's
+//     box array). Neighbouring lanes read neighbouring slots of the
+//     staged block, or the same ones, so the loads are free of bank
+//     conflicts wherever the two entries share a span or their spans
+//     differ in parity (empty sub-chunks are far point boxes whose slots
+//     have zero edges: no hit). A lane that finds a hit recomputes its
+//     span's tn_s from the padded box for the pair rule (the same
+//     arithmetic on the same inputs as the queue's test). c. Reduction:
+//     a lane whose hit is admissible and better than its ray's current
+//     key posts a 64-bit shared atomicMin of (t bits << 32) | global
+//     slot on it; t > 1e-4, so the bits order like t and the least key
+//     is the lexicographic (t, slot) minimum, ties across spans and lanes
+//     included. The key starts at (best t, max(best slot, 0)), so below
+//     it lies exactly what lex_better accepts: a hit at t_max with no hit
+//     before it stays out. With any_hit the key is the slot alone, among
+//     hits with t below the best. After __syncwarp each lane reads its
+//     key back into its t and slot; u and v (and an any-hit's t) are
+//     recomputed once, at the end of the walk, by the ray's own lane
+//     with mt_slot on the winning slot: the same function on the same
+//     inputs under --fmad=false, the same bits.
 // The function (cluster_walk.cuh `admissible`, ops/cluster.py): a pair
 // Moller-Trumbore accepts at t counts only where tn_c <= t and
 // tn_s <= t, two compares on the accepted pairs alone. Every skip is
 // exact under it: a key, a cluster or a span entered beyond the best t
 // holds only admissible pairs with t above the best, which cannot win,
 // ties included; hence the tests stay `tn <= best`.
+// Testing the spans against the best at the visit's start, not the best
+// so far within it, queues more pairs but changes no result: a span
+// entered beyond the visit's final best holds no pair that can win.
 // Tie rule: clusters no longer come in id order, so a lane keeps the
 // lexicographic (t, slot) minimum and tests boxes with tn <= best t (a
 // box entered exactly at the best t may hold a lower slot at that t):
 // the result is the lexicographic minimum over the admissible pairs,
-// as `stream_plain`. With any_hit a lane is done at its first
-// admissible hit (the lowest such slot of the first cluster that has
-// one).
+// as `stream_plain`. With any_hit a lane is done at its first cluster
+// with an admissible hit (the lowest such slot there).
 // `runs_out`, when given, receives the clusters each block visited (the
-// TPU kernel's runs_out); ops/traverse.py `matrix_walk_runs_plain` is
-// the plain model of this schedule.
+// TPU kernel's runs_out), and `work_out` the entries queued and the
+// packed steps; ops/traverse.py `matrix_walk_runs_plain` is the plain
+// model of this schedule.
 //
 // Compiled with --fmad=false: the slab tests and Moller-Trumbore round
 // exactly as the plain PyTorch versions in ops/cluster.py.
@@ -87,6 +118,27 @@ constexpr int kStage = 10 * hala::kSlots;    // rows 0-9 of a block, floats
 constexpr int kGroup = 16;  // consecutive clusters under one union box
 constexpr int kWarps = 4;   // a block walks kRays = 128 rays
 constexpr int kRays = kWarps * 32;  // == ops/traverse.MATRIX_BLOCK_RAYS
+constexpr int kQueue = 32 * hala::kPretestBoxes;  // (lane, span) entries a warp
+constexpr unsigned kFull = 0xffffffffu;
+constexpr unsigned long long kNoSlot = ~0ull;  // any hit: none found
+
+// A closest-hit candidate as one 64-bit key: t > 1e-4, so its float bits
+// order like t, and the lowest key is the lexicographic (t, slot) minimum.
+__device__ __forceinline__ unsigned long long pack_hit(float t, int slot) {
+  return (static_cast<unsigned long long>(__float_as_uint(t)) << 32) |
+         static_cast<unsigned>(slot);
+}
+
+// Moller-Trumbore of slot k of a block's rows 0-8 (staged or in memory).
+__device__ __forceinline__ bool mt_row(const float* blk, int k,
+                                       const hala::Ray& r, float* t, float* u,
+                                       float* v) {
+  return hala::mt_slot(r, blk[k], blk[hala::kSlots + k],
+                       blk[2 * hala::kSlots + k], blk[3 * hala::kSlots + k],
+                       blk[4 * hala::kSlots + k], blk[5 * hala::kSlots + k],
+                       blk[6 * hala::kSlots + k], blk[7 * hala::kSlots + k],
+                       blk[8 * hala::kSlots + k], t, u, v);
+}
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -111,13 +163,19 @@ matrix_walk_kernel(
     int n, int n_clusters, int key_cap, int any_hit,
     float* __restrict__ t_out, int* __restrict__ tri_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    int* __restrict__ runs_out) {
+    int* __restrict__ runs_out, int* __restrict__ work_out) {
   extern __shared__ __align__(16) float smem[];
   float* stage = smem;                                          // 2 x kStage
   unsigned* keys = reinterpret_cast<unsigned*>(smem + 2 * kStage);  // key_cap
   __shared__ int warp_count[kWarps];
-  __shared__ float boxes[6 * kRays];  // padded cluster boxes of the keys pass
+  // the padded cluster boxes of the keys pass; then, per ray, o and d.x
+  // and (d.y, d.z, the visit's tn_c, the best t at the visit's start)
+  __shared__ float4 boxes4[2 * kRays];
   __shared__ float unions[6 * (kRays / kGroup)];  // and their groups' unions
+  __shared__ float vbox[kWarps * 64];  // a visit's padded boxes: 8 spans, cluster
+  __shared__ unsigned char queues[kWarps * kQueue];  // lane | span << 5
+  __shared__ unsigned long long best_key[kRays];     // per visit
+  float* boxes = reinterpret_cast<float*>(boxes4);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -133,6 +191,10 @@ matrix_walk_kernel(
   const bool live = in && b.t > hala::kTMin;
   bool done = false;  // any_hit: this lane has its hit
   int runs = 0;
+  int pairs = 0, steps = 0;  // this warp's queued entries and MT steps
+  unsigned char* queue = queues + warp * kQueue;
+  float4* rays = boxes4;
+  float* wbox = vbox + warp * 64;
 
   if (__syncthreads_or(live)) {
     // 1. one key per cluster: the block's least entry distance and the
@@ -214,6 +276,7 @@ matrix_walk_kernel(
       }
     }
 
+    rays[2 * tid] = make_float4(r.ox, r.oy, r.oz, r.dx);
     // 3-5. walk the keys nearest first, one staged block ahead
     auto fetch = [&](int j) {
       const float* src = tri_packed +
@@ -235,40 +298,97 @@ matrix_walk_kernel(
       if (j + 1 < count) fetch(j + 1);
       const int c = static_cast<int>(key & kIdMask);
       const float* blk = stage + (j & 1) * kStage;
-      float tn_c;
-      if (!want || !hala::cluster_entry(cmin, cmax, c, r, &tn_c) || tn_c > b.t) {
-        continue;
+      // 5a. the warp pads the visit's boxes, one axis a lane: spans 0-7
+      // from the staged row 9, then the cluster's box
+      if (!__any_sync(kFull, want)) continue;
+      if (lane < 3 * (hala::kPretestBoxes + 1)) {
+        const int bx = lane / 3, ax = lane - 3 * bx;
+        const bool span = bx < hala::kPretestBoxes;
+        hala::pad_axis(span ? blk[9 * hala::kSlots + 6 * bx + ax] : __ldg(cmin + 3 * c + ax),
+                       span ? blk[9 * hala::kSlots + 6 * bx + 3 + ax] : __ldg(cmax + 3 * c + ax),
+                       wbox + 6 * bx + ax, wbox + 6 * bx + 3 + ax);
       }
-      for (int s = 0; s < hala::kPretestBoxes && !done; ++s) {
-        float tn_s;  // the span's entry, tested against the current best
-        if (!hala::pretest_entry(blk + 9 * hala::kSlots, s, r, &tn_s) ||
-            tn_s > b.t) {
-          continue;
+      __syncwarp();
+      // and queues (lane, span) for each span a lane enters at or
+      // before its best t at the visit's start
+      float tn_c;
+      const bool enter =
+          want && hala::padded_entry(wbox + 6 * hala::kPretestBoxes, r, &tn_c) &&
+          tn_c <= b.t;
+      if (!__any_sync(kFull, enter)) continue;
+      int n_q = 0;
+      for (int s = 0; s < hala::kPretestBoxes; ++s) {
+        float tn_s;
+        const bool pass =
+            enter && hala::padded_entry(wbox + 6 * s, r, &tn_s) && tn_s <= b.t;
+        const unsigned ballot = __ballot_sync(kFull, pass);
+        if (pass) {
+          const int at = n_q + __popc(ballot & ((1u << lane) - 1u));
+          queue[at] = static_cast<unsigned char>(lane | (s << 5));
         }
-        for (int k = s * hala::kPretestTris;
-             k < (s + 1) * hala::kPretestTris; ++k) {
-          float tt, uu, vv;
-          if (!hala::mt_slot(r, blk[k], blk[hala::kSlots + k],
-                             blk[2 * hala::kSlots + k], blk[3 * hala::kSlots + k],
-                             blk[4 * hala::kSlots + k], blk[5 * hala::kSlots + k],
-                             blk[6 * hala::kSlots + k], blk[7 * hala::kSlots + k],
-                             blk[8 * hala::kSlots + k], &tt, &uu, &vv) ||
-              !hala::admissible(tn_c, tn_s, tt)) {
-            continue;
-          }
-          const int slot = c * hala::kSlots + k;
-          if (!hala::lex_better(tt, slot, b)) continue;
-          b.t = tt;
-          b.tri = slot;
-          b.u = uu;
-          b.v = vv;
+        n_q += __popc(ballot);
+      }
+      if (n_q == 0) continue;
+      pairs += n_q;
+      steps += (n_q + 1) >> 1;
+      unsigned long long key0 = 0;
+      if (enter) {
+        key0 = any_hit ? kNoSlot : pack_hit(b.t, max(b.tri, 0));
+        best_key[tid] = key0;
+        rays[2 * tid + 1] = make_float4(r.dy, r.dz, tn_c, b.t);
+      }
+      __syncwarp();
+      // 5b. Moller-Trumbore two entries a step: lanes 0-15 on the slots
+      // of one entry's span, lanes 16-31 on the next entry's
+      for (int e = lane >> 4; e < n_q; e += 2) {
+        const unsigned id = queue[e];
+        const int ray = (warp << 5) | static_cast<int>(id & 31u);
+        const int span = static_cast<int>(id >> 5);
+        const int k = span * hala::kPretestTris + (lane & 15);
+        const float4 a = rays[2 * ray], w = rays[2 * ray + 1];
+        hala::Ray q{};
+        q.ox = a.x;
+        q.oy = a.y;
+        q.oz = a.z;
+        q.dx = a.w;
+        q.dy = w.x;
+        q.dz = w.y;
+        float tt, uu, vv;
+        if (!mt_row(blk, k, q, &tt, &uu, &vv)) continue;
+        q.invx = 1.0f / q.dx;  // as load_ray: the queue's test, repeated
+        q.invy = 1.0f / q.dy;
+        q.invz = 1.0f / q.dz;
+        float tn_s;
+        hala::padded_entry(wbox + 6 * span, q, &tn_s);
+        if (!hala::admissible(w.z, tn_s, tt)) continue;
+        const unsigned slot = static_cast<unsigned>(c * hala::kSlots + k);
+        if (any_hit) {
+          if (tt < w.w) atomicMin(best_key + ray, static_cast<unsigned long long>(slot));
+        } else {
+          const unsigned long long hit = pack_hit(tt, slot);
+          if (hit < best_key[ray]) atomicMin(best_key + ray, hit);
+        }
+      }
+      __syncwarp();
+      // 5c. the lexicographic minimum of the hits better than key0
+      if (enter) {
+        const unsigned long long got = best_key[tid];
+        if (got < key0) {
+          b.tri = static_cast<int>(got & 0xFFFFFFFFu);
           if (any_hit) {
             done = true;
-            break;
+          } else {
+            b.t = __uint_as_float(static_cast<unsigned>(got >> 32));
           }
         }
       }
     }
+  }
+  // t (any hit), u and v of the winning slot, from its block in memory
+  if (b.tri >= 0) {
+    const float* blk = tri_packed +
+                       static_cast<size_t>(b.tri / hala::kSlots) * hala::kBlock;
+    mt_row(blk, b.tri % hala::kSlots, r, &b.t, &b.u, &b.v);
   }
   if (in) {
     t_out[i] = b.t;
@@ -277,16 +397,22 @@ matrix_walk_kernel(
     v_out[i] = b.v;
   }
   if (runs_out != nullptr && tid == 0) runs_out[blockIdx.x] = runs;
+  if (work_out != nullptr && lane == 0 && pairs > 0) {
+    atomicAdd(work_out + 2 * blockIdx.x, pairs);
+    atomicAdd(work_out + 2 * blockIdx.x + 1, steps);
+  }
 }
 
 }  // namespace
 
-// runs_out may be null, else it receives ceil(n / 128) counts.
+// runs_out may be null, else it receives ceil(n / 128) counts; work_out
+// may be null, else it holds 2 ceil(n / 128) zeros and receives per
+// block the (lane, span) entries queued and the Moller-Trumbore steps.
 extern "C" int hala_matrix_traverse(
     const void* o, const void* d, const void* tmax, const void* cmin,
     const void* cmax, const void* tri_packed, int n, int n_clusters,
     int any_hit, void* t_out, void* tri_out, void* u_out, void* v_out,
-    void* runs_out, void* stream) {
+    void* runs_out, void* work_out, void* stream) {
   if (n <= 0) return 0;
   if (n_clusters < 1 || n_clusters > static_cast<int>(kIdMask)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -294,6 +420,15 @@ extern "C" int hala_matrix_traverse(
   int key_cap = 1;
   while (key_cap < n_clusters) key_cap <<= 1;
   const size_t shmem = (2 * kStage + key_cap) * sizeof(float);
+  // with the static arrays, above the default 48 KB from 4097 clusters
+  static size_t shmem_set = 0;
+  if (shmem > shmem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        matrix_walk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(shmem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    shmem_set = shmem;
+  }
   const int blocks = (n + kRays - 1) / kRays;
   matrix_walk_kernel<<<blocks, kRays, shmem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(o), static_cast<const float*>(d),
@@ -301,6 +436,7 @@ extern "C" int hala_matrix_traverse(
       static_cast<const float*>(cmax), static_cast<const float*>(tri_packed),
       n, n_clusters, key_cap, any_hit, static_cast<float*>(t_out),
       static_cast<int*>(tri_out), static_cast<float*>(u_out),
-      static_cast<float*>(v_out), static_cast<int*>(runs_out));
+      static_cast<float*>(v_out), static_cast<int*>(runs_out),
+      static_cast<int*>(work_out));
   return static_cast<int>(cudaGetLastError());
 }

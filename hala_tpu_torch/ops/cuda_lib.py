@@ -188,7 +188,7 @@ INTERSECT_BRUTEFORCE = Kernel(
 # csrc/matrix_traverse.cu
 MATRIX_TRAVERSE = Kernel(
     "hala_matrix_traverse",
-    [_P] * 6 + [_I] * 3 + [_P] * 6,
+    [_P] * 6 + [_I] * 3 + [_P] * 7,
 )
 
 # csrc/raster_tiled.cu

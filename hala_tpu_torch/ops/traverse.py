@@ -77,6 +77,7 @@ from ..utils import profiling
 
 MATRIX_MAX_CLUSTERS = (1 << 13) - 1
 MATRIX_BLOCK_RAYS = 128  # rays sharing one K2 walk (csrc/matrix_traverse.cu)
+MATRIX_WARP_RAYS = 32    # rays sharing one K2 queue of (ray, span) pairs
 BIG_CLUSTER = 0x3FFFFFFF  # "no candidate" id
 _INF = 3.0e38             # "no candidate" entry distance
 # rays per step of the plain K5 walk: (R, 9, 128) gathered slot blocks
@@ -104,17 +105,19 @@ def _launch_matrix(o, d, tm, cmin, cmax, tri_packed, any_hit: bool,
     tri_out = torch.empty(n, dtype=torch.int32, device=dev)
     u_out = torch.empty(n, dtype=torch.float32, device=dev)
     v_out = torch.empty(n, dtype=torch.float32, device=dev)
-    runs = (torch.empty(-(-n // MATRIX_BLOCK_RAYS), dtype=torch.int32, device=dev)
-            if with_runs else None)
+    blocks = -(-n // MATRIX_BLOCK_RAYS)
+    runs = torch.empty(blocks, dtype=torch.int32, device=dev) if with_runs else None
+    work = torch.zeros((blocks, 2), dtype=torch.int32, device=dev) if with_runs else None
     P = cuda_lib.ptr
     cuda_lib.MATRIX_TRAVERSE(
         P(o), P(d), P(tm), P(cmin), P(cmax), P(tri_packed),
         n, c, int(any_hit),
         P(t_out), P(tri_out), P(u_out), P(v_out),
-        P(runs) if with_runs else None, cuda_lib.stream_ptr(dev),
+        P(runs) if with_runs else None, P(work) if with_runs else None,
+        cuda_lib.stream_ptr(dev),
     )
     hit = Hit(t=t_out, tri=tri_out, u=u_out, v=v_out)
-    return (hit, runs) if with_runs else hit
+    return (hit, runs, work) if with_runs else hit
 
 
 def intersect_matrix_plain(o, d, geometry, t_max=None) -> Hit:
@@ -149,9 +152,11 @@ def occluded_matrix(o, d, t_far, geometry) -> torch.Tensor:
 
 
 def matrix_walk_runs(o, d, geometry, t_max=None, any_hit: bool = False):
-    """K2 with its schedule: (Hit, runs), runs (ceil(N / 128),) int32
-    the clusters each block of MATRIX_BLOCK_RAYS rays visited. CPU
-    tensors take `matrix_walk_runs_plain`."""
+    """K2 with its schedule: (Hit, runs, work), runs (ceil(N / 128),)
+    int32 the clusters each block of MATRIX_BLOCK_RAYS rays visited, work
+    (ceil(N / 128), 2) int32 its (ray, span) pairs queued and its packed
+    Moller-Trumbore steps (`packed_share`). CPU tensors take
+    `matrix_walk_runs_plain`."""
     g = geometry
     tm = full_t_max(t_max, o.shape[0], o.device)
     if o.device.type == "cpu":
@@ -189,11 +194,14 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
     key whose entry distance (the key's bits above the id) exceeds the
     best t of every ray still walking (live, and with any_hit not yet
     hit); each walking ray runs its slab test of the cluster and the
-    eight row-9 sub-boxes against its best t (tn <= t), and
-    Moller-Trumbore on the spans that pass, keeping the admissible pairs
-    (ops/cluster.py). Closest hit: the lexicographic (t, slot) minimum;
-    any hit: the lowest admissible slot of the first cluster with one. Returns (Hit, runs (G,) int32, the clusters
-    each block visited)."""
+    eight row-9 sub-boxes against its best t at the visit's start (tn <=
+    t), and Moller-Trumbore on the spans that pass, keeping the
+    admissible pairs (ops/cluster.py). Closest hit: the lexicographic (t,
+    slot) minimum; any hit: the lowest admissible slot of the first
+    cluster with one. Each warp of MATRIX_WARP_RAYS rays queues its (ray,
+    span) pairs a visit and runs them two a step. Returns (Hit, runs (G,)
+    int32 the clusters each block visited, work (G, 2) int32 the pairs
+    queued and the steps)."""
     n = o.shape[0]
     dev = o.device
     block = MATRIX_BLOCK_RAYS
@@ -212,6 +220,8 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
     v_best = torch.zeros_like(tm)
     done = torch.zeros_like(live)
     runs = torch.zeros(g_total, dtype=torch.int32, device=dev)
+    work = torch.zeros((g_total, 2), dtype=torch.int64, device=dev)
+    warps = block // MATRIX_WARP_RAYS
     walking = torch.ones(g_total, dtype=torch.bool, device=dev)
     span = torch.arange(TRI_CHUNK, device=dev) // PRETEST_TRIS
     slot_k = torch.arange(TRI_CHUNK, dtype=torch.int32, device=dev)
@@ -231,7 +241,12 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
         keep = enters & (tn <= tb)
         r, c, tb, tn_c = r[keep], c[keep], tb[keep], tn[keep]
         tn, enters = slab_entry(o[r, None, :], d[r, None, :], lo[c], hi[c])
-        tested = (enters & (tn <= tb[:, None]))[:, span]
+        passed = enters & (tn <= tb[:, None])
+        queued = torch.zeros(g_total * warps, dtype=torch.int64, device=dev).index_add_(
+            0, r // MATRIX_WARP_RAYS, passed.sum(dim=1))
+        work[:, 0] += queued.view(g_total, warps).sum(dim=1)
+        work[:, 1] += ((queued + 1) // 2).view(g_total, warps).sum(dim=1)
+        tested = passed[:, span]
         limit = torch.maximum(tn_c[:, None], tn)[:, span]
         blk = tri_packed[c, 0:9, :]
         o_r, d_r = o[r], d[r]
@@ -261,7 +276,14 @@ def matrix_walk_runs_plain(o, d, tm, cluster_min, cluster_max, tri_packed,
         if any_hit:
             done[r] = done[r] | better
     hit = Hit(t=t_best[:n], tri=tri[:n], u=u_best[:n], v=v_best[:n])
-    return hit, runs
+    return hit, runs, work.to(torch.int32)
+
+
+def packed_share(work) -> float:
+    """How full K2's packed Moller-Trumbore steps run: pairs x 16 slots
+    over steps x 32 lanes, for a `work` of `matrix_walk_runs`."""
+    pairs, steps = (int(x) for x in work.sum(dim=0, dtype=torch.int64))
+    return pairs * PRETEST_TRIS / (steps * MATRIX_WARP_RAYS) if steps else 0.0
 
 
 # --- candidate lists --------------------------------------------------------

@@ -655,24 +655,27 @@ def _equal_bits(got, ref):
         assert torch.equal(a, b)
 
 
-def _k2_against_plain(o, d, tm, g):
+def _k2_against_plain(o, d, tm, g, work_out=None):
     """K2 against its plain version (the same hits, any-hit mask) and its
-    schedule against the plain model (hits and runs, closest and any
-    hit), bit for bit. Returns the runs."""
+    schedule against the plain model (hits, runs and the queued pairs
+    and packed steps, closest and any hit), bit for bit. Returns the
+    runs; `work_out`, a dict, receives the closest and any-hit work."""
     args = (o, d, tm, g.cluster_min, g.cluster_max, g.tri_packed)
     before = cuda_lib.MATRIX_TRAVERSE.launches
-    hit, runs = k2.matrix_walk_runs(o, d, g, t_max=tm)
-    occ, occ_runs = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=True)
+    hit, runs, work = k2.matrix_walk_runs(o, d, g, t_max=tm)
+    occ, occ_runs, occ_work = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=True)
     plain = k2.intersect_matrix_plain(o, d, g, t_max=tm)
-    model, model_runs = k2.matrix_walk_runs_plain(*args, False)
-    occ_model, occ_model_runs = k2.matrix_walk_runs_plain(*args, True)
+    model = k2.matrix_walk_runs_plain(*args, False)
+    occ_model = k2.matrix_walk_runs_plain(*args, True)
     torch.cuda.synchronize()
     assert cuda_lib.MATRIX_TRAVERSE.launches == before + 2
     _equal_bits(hit, plain)
-    _equal_bits((*hit, runs), (*model, model_runs))
-    _equal_bits((*occ, occ_runs), (*occ_model, occ_model_runs))
+    _equal_bits((*hit, runs, work), (*model[0], *model[1:]))
+    _equal_bits((*occ, occ_runs, occ_work), (*occ_model[0], *occ_model[1:]))
     assert torch.equal(occ.tri >= 0, plain.tri >= 0)
     _equal_bits(k2.intersect_matrix(o, d, g, t_max=tm), plain)
+    if work_out is not None:
+        work_out.update(closest=work, any_hit=occ_work)
     return runs
 
 
@@ -755,6 +758,62 @@ def test_k2_sorted_atrium_big_matches_plain(cuda_device):
     o, d, tm = (x[order].contiguous() for x in (o, d, tm))
     runs = _k2_against_plain(o, d, tm, g)
     assert int(runs.max()) <= g.cluster_min.shape[0]
+
+
+def _on(dev, table):
+    g, o, d, tm = table
+    for key in vars(g):
+        setattr(g, key, getattr(g, key).to(dev))
+    return g, o.to(dev), d.to(dev), tm.to(dev)
+
+
+@pytest.mark.parametrize("case", ["full_queue", "t_max_and_dead", "ties"])
+def test_k2_queue_on_hand_built_tables_matches_plain(cuda_device, case):
+    """K2's (ray, span) queue and packed Moller-Trumbore on chip_smoke.py's
+    tables, bit for bit against its plain version and its schedule model
+    (hits, runs, pairs queued, steps), closest and any hit:
+    `span_stack_table` with every lane in all 8 spans (256 entries a
+    warp; the any hit's lowest slot lies in the span a ray enters last),
+    then with rays i % 8 == 0 dead and == 1 at t_max exactly at their hit
+    (no hit), 165 rays; `span_tie_table`, one triangle hit at the same t
+    in three spans of a visit and in the visit before, 200 rays."""
+    if case == "ties":
+        g, o, d, tm = _on(cuda_device, chip_smoke.span_tie_table(200))
+    else:
+        n = 128 if case == "full_queue" else 165
+        g, o, d, tm = _on(cuda_device, chip_smoke.span_stack_table(n))
+    if case == "t_max_and_dead":
+        i = torch.arange(o.shape[0], device=cuda_device)
+        first = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+        tm = torch.where(i % 8 == 0, 0.0, torch.where(i % 8 == 1, first.t, tm))
+    work = {}
+    _k2_against_plain(o, d, tm, g, work)
+    hit = k2.intersect_matrix(o, d, g, t_max=tm)
+    occ = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=True)[0]
+    torch.cuda.synchronize()
+    if case == "full_queue":
+        assert work["closest"].tolist() == work["any_hit"].tolist() == [[1024, 512]]
+        assert (hit.tri == 115).all() and (occ.tri == 3).all()
+    elif case == "t_max_and_dead":
+        assert work["closest"].tolist() == [[784, 392], [221, 111]]
+        assert (hit.tri[2::8] == 115).all() and (hit.tri[1::8] == -1).all()
+    else:
+        assert work["closest"].tolist() == [[512, 256], [288, 144]]
+        assert (hit.tri == 5).all() and (occ.tri == 131).all()
+
+
+def test_k2_diffuse_bounce_on_atrium_big_matches_plain(atrium_big_scene):
+    """atrium_big: the first diffuse bounce of 256 x 64 camera rays
+    (chip_smoke.py `diffuse_bounce_batch`, in matrix_query's coherence
+    order), where a warp's lanes enter many distinct spans of each
+    cluster: K2 equals its plain version and its schedule model bit for
+    bit, the queued pairs and packed steps included."""
+    g = atrium_big_scene.geometry
+    o, d, tm = chip_smoke.diffuse_bounce_batch(atrium_big_scene, 256, 64, 21)
+    work = {}
+    runs = _k2_against_plain(o, d, tm, g, work)
+    assert float(runs.float().mean()) > 64
+    assert 0.5 < k2.packed_share(work["closest"]) <= 1.0
 
 
 @pytest.mark.parametrize("order", ["unsorted", "sorted"])

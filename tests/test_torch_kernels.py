@@ -18,6 +18,8 @@ The kernels themselves are compared with their plain versions on the
 card by tests/test_torch_cuda.py.
 """
 
+import os
+import sys
 import types
 
 import jax.numpy as jnp
@@ -42,6 +44,10 @@ from hala_tpu_torch.ops import cuda_lib
 from hala_tpu_torch.ops.pallas import intersect_kernel as k1
 from hala_tpu_torch.ops import traverse as k2
 from hala_tpu_torch.scene.gpu.scene import from_numpy
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (K2's hand-built span tables)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -252,16 +258,27 @@ def sponza_k2_ref(sponza):
     return o, d, tm, ref, np.asarray(occ)
 
 
+@pytest.mark.parametrize("order", ["drawn", "sorted"])
 @pytest.mark.parametrize("query", ["closest", "any_hit"])
-def test_k2_walk_model_matches_matrix_interpret(sponza, sponza_k2_ref, query):
+def test_k2_walk_model_matches_matrix_interpret(sponza, sponza_k2_ref, query, order):
     """The plain model of K2's walk equals stream_plain bit for bit and
     hala_tpu's kernel in interpret mode: the closest hit, or the hit
-    mask of the any-hit query."""
+    mask of the any-hit query, on the rays as drawn and in
+    matrix_query's coherence order. Its counts of queued (ray, span)
+    pairs and packed steps stay within what the visits allow."""
+    from hala_tpu_torch.ops.compaction import order_by, query_coherence_key
+
     g = sponza[1].geometry
     o, d, tm, ref, occ_ref = sponza_k2_ref
-    plain = k2.intersect_matrix_plain(_t(o), _t(d), g, t_max=_t(tm))
-    hit, runs = k2.matrix_walk_runs(_t(o), _t(d), g, t_max=_t(tm),
-                                    any_hit=query == "any_hit")
+    o, d, tm = _t(o), _t(d), _t(tm)
+    if order == "sorted":
+        perm, _ = order_by(query_coherence_key(o, d, tm, g.cluster_min, g.cluster_max))
+        o, d, tm = (x[perm].contiguous() for x in (o, d, tm))
+        ref = types.SimpleNamespace(**{k: np.asarray(getattr(ref, k))[perm.numpy()]
+                                       for k in ("t", "tri", "u", "v")})
+        occ_ref = occ_ref[perm.numpy()]
+    plain = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+    hit, runs, work = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=query == "any_hit")
     if query == "closest":
         _assert_bits(hit, plain)
         assert int((hit.tri >= 0).sum()) > 100
@@ -270,7 +287,15 @@ def test_k2_walk_model_matches_matrix_interpret(sponza, sponza_k2_ref, query):
         np.testing.assert_array_equal((hit.tri >= 0).numpy(), occ_ref)
         assert torch.equal(hit.tri >= 0, plain.tri >= 0)
     c = g.cluster_min.shape[0]
-    assert runs.shape == (256 // k2.MATRIX_BLOCK_RAYS,) and 0 < int(runs.max()) <= c
+    blocks = 256 // k2.MATRIX_BLOCK_RAYS
+    warps = k2.MATRIX_BLOCK_RAYS // k2.MATRIX_WARP_RAYS
+    assert runs.shape == (blocks,) and 0 < int(runs.max()) <= c
+    # a warp queues at most 8 spans a lane a visit and runs them two a
+    # step, one step more where its count is odd
+    pairs, steps = work[:, 0], work[:, 1]
+    assert work.shape == (blocks, 2) and int(pairs.min()) > 0
+    assert (pairs <= k2.PRETEST_PER_CHUNK * k2.MATRIX_BLOCK_RAYS * runs).all()
+    assert (2 * steps >= pairs).all() and (2 * steps - pairs <= warps * runs).all()
 
 
 def test_k2_walk_model_runs_fall_with_coherence(atrium, rs):
@@ -298,7 +323,7 @@ def test_k2_walk_model_runs_fall_with_coherence(atrium, rs):
     mean = {}
     for how, (o_, d_, tm_) in batches.items():
         plain = k2.intersect_matrix_plain(o_, d_, g, t_max=tm_)
-        hit, runs = k2.matrix_walk_runs(o_, d_, g, t_max=tm_)
+        hit, runs, work = k2.matrix_walk_runs(o_, d_, g, t_max=tm_)
         _assert_bits(hit, plain)
         assert int(runs.max()) <= c
         mean[how] = float(runs.float().mean())
@@ -336,12 +361,59 @@ def test_k2_walk_model_keeps_the_lowest_slot_at_equal_t(rs):
     d = np.tile(np.float32([1.0, 0.0, 0.0]), (n, 1))
     plain = k2.intersect_matrix_plain(_t(o), _t(d), g)
     assert (plain.tri == 7).all() and (plain.t == 5.0).all()
-    hit, runs = k2.matrix_walk_runs(_t(o), _t(d), g)
+    hit, runs, work = k2.matrix_walk_runs(_t(o), _t(d), g)
     _assert_bits(hit, plain)
     assert runs.tolist() == [2]  # cluster 1, then cluster 0
     # any hit: the lowest hit slot of the first cluster with one
-    occ, _ = k2.matrix_walk_runs(_t(o), _t(d), g, any_hit=True)
+    occ, _, _ = k2.matrix_walk_runs(_t(o), _t(d), g, any_hit=True)
     assert (occ.tri == 131).all()
+
+
+@pytest.mark.parametrize("query", ["closest", "any_hit"])
+def test_k2_walk_model_counts_a_full_queue(query):
+    """chip_smoke.py's `span_stack_table`: every live ray enters all
+    eight spans, so a warp of 32 queues 8 pairs a live lane; rays whose
+    t_max is exactly their closest hit enter only the nearest span and
+    keep no hit; dead rays queue nothing. Rays i % 8 == 0 dead, == 1 at
+    t_max, the rest full, in a block of 128 and a ragged one of 37: the
+    pairs and steps follow in closed form."""
+    g, o, d, tm = chip_smoke.span_stack_table(165)
+    first = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+    assert (first.tri == 115).all()
+    i = torch.arange(165)
+    tm = torch.where(i % 8 == 0, 0.0, torch.where(i % 8 == 1, first.t, tm))
+    hit, runs, work = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=query == "any_hit")
+    # a full warp: 4 dead, 4 at t_max (1 pair each), 24 full (8 each);
+    # the last 5 rays: 1 dead, 1 at t_max, 3 full
+    assert runs.tolist() == [1, 1]
+    assert work.tolist() == [[4 * 196, 4 * 98], [196 + 25, 98 + 13]]
+    assert k2.packed_share(work) == pytest.approx(1005 * 16 / (503 * 32))
+    full = i % 8 >= 2
+    assert (hit.tri[~full] == -1).all() and torch.equal(hit.t[~full], tm[~full])
+    if query == "closest":
+        _assert_bits(hit, k2.intersect_matrix_plain(o, d, g, t_max=tm))
+        assert (hit.tri[full] == 115).all()
+    else:
+        assert (hit.tri[full] == 3).all() and (hit.t[full] == 8.0).all()
+
+
+@pytest.mark.parametrize("query", ["closest", "any_hit"])
+def test_k2_walk_model_counts_ties_across_spans(query):
+    """chip_smoke.py's `span_tie_table`: each ray meets one triangle four
+    times at t 5, in slot 131 (visit 1, one span) and in slots 5, 40 and
+    100 (visit 2, three spans): the closest hit is slot 5, 4 pairs a ray
+    over two visits; the any hit slot 131, one pair in one visit. 40
+    rays: warps of 32 and 8."""
+    g, o, d, tm = chip_smoke.span_tie_table(40)
+    hit, runs, work = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=query == "any_hit")
+    plain = k2.intersect_matrix_plain(o, d, g, t_max=tm)
+    assert (plain.tri == 5).all()
+    if query == "closest":
+        _assert_bits(hit, plain)
+        assert runs.tolist() == [2] and work.tolist() == [[160, 80]]
+    else:
+        assert (hit.tri == 131).all() and torch.equal(hit.t, plain.t)
+        assert runs.tolist() == [1] and work.tolist() == [[40, 20]]
 
 
 def test_k2_walk_model_edge_rays(atrium, rs):
@@ -361,9 +433,9 @@ def test_k2_walk_model_edge_rays(atrium, rs):
     tm[2::4] = -torch.inf
     assert int((first.tri[::4] >= 0).sum()) > 32
     plain = k2.intersect_matrix_plain(o, d, g, t_max=tm)
-    hit, _ = k2.matrix_walk_runs(o, d, g, t_max=tm)
+    hit, _, _ = k2.matrix_walk_runs(o, d, g, t_max=tm)
     _assert_bits(hit, plain)
-    occ, _ = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=True)
+    occ, _, _ = k2.matrix_walk_runs(o, d, g, t_max=tm, any_hit=True)
     assert torch.equal(occ.tri >= 0, plain.tri >= 0)
     assert (plain.tri[1::4] == -1).all() and (plain.tri[2::4] == -1).all()
 

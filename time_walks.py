@@ -26,6 +26,13 @@ and for the five instances through "auto" ("traverse"), the time of
 two frames after a warm-up frame and a torch.profiler window over one
 more.
 
+`--frame` times K2 on the 18 launches of one atrium_big frame
+(1920x1088, depth 4, 1 spp, the main path's coherence sort; chip_smoke
+`frame_k2_launches`), each kind's launches back to back: camera,
+extension, shadow (`time_k2_kinds`); for this checkout also each kind's
+packed share of K2's Moller-Trumbore steps. Run it on two checkouts in
+turns (parent, change, change, parent) within one call.
+
 `--k1k3` times the brute-force kernel K1 (csrc/intersect_bruteforce.cu)
 and the raster kernel K3 (csrc/raster_tiled.cu) of the checkout
 instead: K1 closest and any-hit on chip_smoke's Cornell batch (524,288
@@ -269,6 +276,7 @@ def main() -> int:
     ap.add_argument("--root", default=HERE)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--frame", action="store_true")
     ap.add_argument("--k1k3", action="store_true")
     ap.add_argument("--k7k8", action="store_true")
     ap.add_argument("--sass", action="store_true")
@@ -295,6 +303,15 @@ def main() -> int:
     cuda_lib.build()
     dev = torch.device("cuda", 0)
     host = Scene.load(os.path.join(HERE, "assets", "atrium_big.glb"))
+    if args.frame:
+        scene = SceneUploader.upload(host, use_ray_tracing=False, device=dev)
+        frame = S.time_k2_kinds(S.frame_k2_launches(scene), args.reps, own=root == HERE)
+        S.log("  K2 ms a frame: " + ", ".join(
+            f"{kind} {frame[kind]['ms']:.3f}" for kind in S.K2_KINDS)
+            + f", all {frame['all_ms']:.3f} [{card}]")
+        print(json.dumps(dict(root=root, card=card, build_s=cuda_lib.build_seconds,
+                              frame=frame)), flush=True)
+        return 0
     if args.k1k3:
         out = time_k1_k3(S, host, dev, args.reps)
         out.update(root=root, card=card, build_s=cuda_lib.build_seconds)
